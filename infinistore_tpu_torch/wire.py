@@ -1,0 +1,531 @@
+"""Python mirror of the native wire protocol (native/include/its/protocol.h).
+
+Copy of ``infinistore_tpu/wire.py`` for the PyTorch port, which imports
+nothing of ``infinistore_tpu``; keep the two in step.
+
+The client/server data plane lives in C++; this module exists for (a) building
+the packed key blobs passed across the ctypes boundary, and (b) protocol unit
+tests that check the Python and C++ encoders agree byte-for-byte — coverage the
+reference lacks entirely (SURVEY.md §4: no protocol unit tests).
+"""
+
+import struct
+from dataclasses import dataclass, field
+from typing import List, Tuple
+
+MAGIC = 0x49545055  # "ITPU" little-endian
+MAX_BODY_SIZE = 4 << 20
+
+# Op codes (native protocol.h Op).
+OP_PUT_BATCH = ord("W")
+OP_GET_BATCH = ord("R")
+OP_TCP_PUT = ord("P")
+OP_TCP_GET = ord("G")
+OP_CHECK_EXIST = ord("E")
+OP_MATCH_LAST_IDX = ord("M")
+OP_DELETE_KEYS = ord("D")
+OP_STAT = ord("S")
+# Same-host shm fast path (native protocol.h: allocate-then-commit writes,
+# locate-then-release reads; payload never touches the socket).
+OP_SHM_HELLO = ord("H")
+OP_PUT_ALLOC = ord("p")
+OP_PUT_COMMIT = ord("c")
+OP_GET_LOC = ord("g")
+OP_RELEASE = ord("r")
+# One-RTT segment path (native protocol.h: server pulls puts out of / pushes
+# gets into a client-registered shm segment).
+OP_REG_SEGMENT = ord("B")
+OP_PUT_FROM = ord("F")
+OP_GET_INTO = ord("I")
+# Descriptor-ring data plane (docs/descriptor_ring.md): batched segment ops
+# post as fixed-slot descriptors in a client-created shm ring; the socket
+# carries only the attach handshake and doze/wake doorbells.
+OP_RING_ATTACH = ord("Q")
+OP_RING_DOORBELL = ord("q")
+
+# Status codes (reference src/protocol.h:55-62).
+# STATUS_RING_EVENT is the unsolicited server->client completion-ring
+# doorbell frame — 1xx so it can never collide with a real response status.
+STATUS_RING_EVENT = 100
+STATUS_OK = 200
+STATUS_TASK_ACCEPTED = 202
+STATUS_INVALID_REQ = 400
+STATUS_KEY_NOT_FOUND = 404
+STATUS_RETRY = 408
+STATUS_INTERNAL = 500
+STATUS_UNAVAILABLE = 503
+STATUS_OUT_OF_MEMORY = 507
+STATUS_OOM = STATUS_OUT_OF_MEMORY
+# Present-but-unpromotable spilled key: "cold but alive" — data survives one
+# tier down; distinct from 507 (allocation exhaustion) and 404 (absent).
+STATUS_COLD_TIER = 512
+
+_REQ_HEADER = struct.Struct("<IBI")  # magic, op, body_size (9 bytes)
+_RESP_HEADER = struct.Struct("<IIQ")  # status, body_size, payload_size (16 bytes)
+
+# ---------------------------------------------------------------------------
+# Descriptor-ring slot layout (docs/descriptor_ring.md). These structs are
+# MEMORY-MAPPED by both processes, so field NAMES and widths are protocol
+# surface exactly like the packed wire headers: the formats below are held
+# in lockstep with native RingCtrl/RingSlot/RingCqe by the wire-drift
+# checker (ITS-W004 widths, ITS-W005 named-field order via RING_LAYOUTS).
+# ---------------------------------------------------------------------------
+
+RING_MAGIC = 0x52535449  # "ITSR" little-endian
+RING_VERSION = 1
+RING_SQ_SLOTS = 64  # default submission-slot count (ClientConfig.ring_slots)
+RING_META_STRIDE = 128 << 10  # per-SQ-slot descriptor-body capacity
+RING_CTRL_SPAN = 4096  # RingCtrl's reserved span at the segment head
+
+_RING_CTRL = struct.Struct("<IIIIIIIIQQQQII")  # 72 bytes
+_RING_SLOT = struct.Struct("<QQIBBH")  # 24 bytes
+_RING_CQE = struct.Struct("<QQQII")  # 32 bytes
+_RING_BATCH_HDR = struct.Struct("<HH")  # 4 bytes
+_RING_BATCH_ENTRY = struct.Struct("<IBBH")  # 8 bytes
+
+# Multi-op batch slots: a slot with RING_SLOT_FLAG_BATCH in its flags packs
+# a whole coalesced flush into its meta arena — RingBatchHdr, then count x
+# (RingBatchEntry + that op's SegBatchMeta bytes). The slot token is the
+# base of a contiguous token group; op i completes under token base+i.
+RING_SLOT_FLAG_BATCH = 0x1
+RING_BATCH_MAX_OPS = 64
+
+# Named-field twins of the native ring structs. Same-width field swaps are
+# invisible to a width-sequence diff (ITS-W004) but fatal for shared memory
+# — the checker's ITS-W005 compares these (name, width) sequences against
+# the packed C++ declarations field by field.
+RING_LAYOUTS = {
+    "RingCtrl": (
+        ("magic", "u32"),
+        ("version", "u32"),
+        ("sq_slots", "u32"),
+        ("cq_slots", "u32"),
+        ("slot_bytes", "u32"),
+        ("cqe_bytes", "u32"),
+        ("meta_stride", "u32"),
+        ("flags", "u32"),
+        ("sq_tail", "u64"),
+        ("sq_head", "u64"),
+        ("cq_tail", "u64"),
+        ("cq_head", "u64"),
+        ("srv_waiting", "u32"),
+        ("cli_waiting", "u32"),
+    ),
+    "RingSlot": (
+        ("gen", "u64"),
+        ("token", "u64"),
+        ("meta_len", "u32"),
+        ("op", "u8"),
+        ("flags", "u8"),
+        ("reserved", "u16"),
+    ),
+    "RingCqe": (
+        ("gen", "u64"),
+        ("token", "u64"),
+        ("bytes", "u64"),
+        ("status", "u32"),
+        ("flags", "u32"),
+    ),
+    "RingBatchHdr": (
+        ("count", "u16"),
+        ("reserved", "u16"),
+    ),
+    "RingBatchEntry": (
+        ("meta_len", "u32"),
+        ("op", "u8"),
+        ("flags", "u8"),
+        ("reserved", "u16"),
+    ),
+}
+
+
+def ring_batch_encode(ops) -> bytes:
+    """Pack a batch slot's meta-arena bytes: RingBatchHdr + per-op
+    (RingBatchEntry + SegBatchMeta body). ``ops`` is a sequence of
+    (op_code, body_bytes) pairs — the reference encoding the native
+    client's ring_group_end mirrors, byte for byte (pinned by
+    tests/test_ring.py's batch-layout golden)."""
+    if not 1 <= len(ops) <= RING_BATCH_MAX_OPS:
+        raise ValueError("batch op count out of range")
+    parts = [_RING_BATCH_HDR.pack(len(ops), 0)]
+    for op_code, body in ops:
+        parts.append(_RING_BATCH_ENTRY.pack(len(body), op_code, 0, 0))
+        parts.append(bytes(body))
+    return b"".join(parts)
+
+
+def _ring_align64(v: int) -> int:
+    return (v + 63) & ~63
+
+
+def ring_sq_off() -> int:
+    """Submission-slot array offset inside a ring segment (native ring.h)."""
+    return RING_CTRL_SPAN
+
+
+def ring_cq_off(sq_slots: int) -> int:
+    return ring_sq_off() + _ring_align64(sq_slots * _RING_SLOT.size)
+
+
+def ring_meta_off(sq_slots: int, cq_slots: int) -> int:
+    return ring_cq_off(sq_slots) + _ring_align64(cq_slots * _RING_CQE.size)
+
+
+def ring_segment_bytes(sq_slots: int, cq_slots: int, meta_stride: int) -> int:
+    return ring_meta_off(sq_slots, cq_slots) + sq_slots * meta_stride
+
+
+def ring_ctrl_offset(fld: str) -> int:
+    """Byte offset of a RingCtrl field — the tamper/inspection hook the ring
+    tests use to poke cursors in a mapped segment from Python."""
+    off = 0
+    for name, prim in RING_LAYOUTS["RingCtrl"]:
+        if name == fld:
+            return off
+        off += {"u8": 1, "u16": 2, "u32": 4, "u64": 8}[prim]
+    raise KeyError(fld)
+
+# Two-class QoS service model (docs/qos.md). FOREGROUND is the default and
+# encodes as NO wire bytes (the priority-off path stays byte-identical);
+# BACKGROUND rides an optional trailing tag byte on the batch/segment
+# metadata bodies, which pre-QoS decoders never read (the body length is
+# explicit) and pre-QoS encoders never produce.
+PRIORITY_FOREGROUND = 0
+PRIORITY_BACKGROUND = 1
+
+# End-to-end op tracing (docs/observability.md): a per-op trace context —
+# u64 trace id + u64 parent span id — rides BatchMeta/SegBatchMeta as a
+# SECOND trailing optional extension AFTER the QoS priority byte. An
+# untraced op (trace_id == 0, the default) appends nothing and stays
+# byte-identical to the pre-trace format; a traced op must therefore also
+# emit the priority byte (even FOREGROUND's 0) so the decoder's
+# read-while-bytes-remain walk stays unambiguous. TRACE_ID_NONE is the
+# wire's "untraced" sentinel — real trace ids are never zero
+# (tracing._new_id).
+TRACE_ID_NONE = 0
+
+
+def qos_kwargs(conn, priority: int) -> dict:
+    """Kwargs for tagging a batched op on ``conn`` with ``priority``.
+
+    Empty when the op is FOREGROUND (untagged — the default path must stay
+    byte-identical AND signature-compatible with priority-unaware
+    connection stand-ins) or when ``conn`` does not advertise ``QOS_AWARE``
+    (a tag it cannot carry is dropped, not TypeError'd — QoS degrades to
+    FIFO, never breaks the data plane)."""
+    if priority and getattr(conn, "QOS_AWARE", False):
+        return {"priority": priority}
+    return {}
+
+
+def pack_req_header(op: int, body_size: int) -> bytes:
+    return _REQ_HEADER.pack(MAGIC, op, body_size)
+
+
+def unpack_req_header(data: bytes) -> Tuple[int, int]:
+    magic, op, body_size = _REQ_HEADER.unpack(data[: _REQ_HEADER.size])
+    if magic != MAGIC:
+        raise ValueError("bad magic")
+    return op, body_size
+
+
+def pack_resp_header(status: int, body_size: int, payload_size: int) -> bytes:
+    return _RESP_HEADER.pack(status, body_size, payload_size)
+
+
+def unpack_resp_header(data: bytes) -> Tuple[int, int, int]:
+    return _RESP_HEADER.unpack(data[: _RESP_HEADER.size])
+
+
+def encode_str(s: str) -> bytes:
+    b = s.encode("utf-8")
+    if len(b) > 0xFFFF:
+        raise ValueError("key too long")
+    return struct.pack("<H", len(b)) + b
+
+
+def encode_keys_blob(keys: List[str]) -> bytes:
+    """Packed (u16 len, bytes) entries — the ctypes boundary format and the
+    wire string-list element encoding (WireWriter::str)."""
+    return b"".join(encode_str(k) for k in keys)
+
+
+def encode_str_list(keys: List[str]) -> bytes:
+    return struct.pack("<I", len(keys)) + encode_keys_blob(keys)
+
+
+class Reader:
+    def __init__(self, data: bytes):
+        self._d = data
+        self._pos = 0
+
+    def _take(self, n: int) -> bytes:
+        if self._pos + n > len(self._d):
+            raise ValueError("wire body truncated")
+        out = self._d[self._pos : self._pos + n]
+        self._pos += n
+        return out
+
+    def u8(self) -> int:
+        return self._take(1)[0]
+
+    def u16(self) -> int:
+        return struct.unpack("<H", self._take(2))[0]
+
+    def u32(self) -> int:
+        return struct.unpack("<I", self._take(4))[0]
+
+    def u64(self) -> int:
+        return struct.unpack("<Q", self._take(8))[0]
+
+    def i32(self) -> int:
+        return struct.unpack("<i", self._take(4))[0]
+
+    def str(self) -> str:
+        return self._take(self.u16()).decode("utf-8")
+
+    def str_list(self) -> List[str]:
+        return [self.str() for _ in range(self.u32())]
+
+    @property
+    def done(self) -> bool:
+        return self._pos == len(self._d)
+
+
+@dataclass
+class BatchMeta:
+    """Batched block metadata (native BatchMeta; reference RemoteMetaRequest,
+    reference src/meta_request.fbs:2-8). ``priority`` is the QoS class tag:
+    FOREGROUND (0) encodes nothing — byte-identical to the pre-QoS format —
+    and BACKGROUND appends one trailing byte."""
+
+    block_size: int = 0
+    keys: List[str] = field(default_factory=list)
+    priority: int = PRIORITY_FOREGROUND
+    # Trace context extension (second trailing optional group — see
+    # TRACE_ID_NONE above): 0/0 encodes nothing.
+    trace_id: int = TRACE_ID_NONE
+    trace_parent: int = 0
+
+    def encode(self) -> bytes:
+        out = struct.pack("<I", self.block_size) + encode_str_list(self.keys)
+        if self.priority or self.trace_id:
+            out += struct.pack("<B", self.priority)
+        if self.trace_id:
+            out += struct.pack("<QQ", self.trace_id, self.trace_parent)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "BatchMeta":
+        r = Reader(data)
+        m = cls(block_size=r.u32(), keys=r.str_list())
+        if not r.done:
+            m.priority = r.u8()
+        if not r.done:
+            m.trace_id = r.u64()
+            m.trace_parent = r.u64()
+        return m
+
+
+@dataclass
+class TcpPutMeta:
+    key: str = ""
+    value_length: int = 0
+
+    def encode(self) -> bytes:
+        return encode_str(self.key) + struct.pack("<Q", self.value_length)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "TcpPutMeta":
+        r = Reader(data)
+        return cls(key=r.str(), value_length=r.u64())
+
+
+@dataclass
+class TicketMeta:
+    """Shm fast-path ticket (native TicketMeta: PutCommit / Release)."""
+
+    ticket: int = 0
+
+    def encode(self) -> bytes:
+        return struct.pack("<Q", self.ticket)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "TicketMeta":
+        return cls(ticket=Reader(data).u64())
+
+
+@dataclass
+class ShmLocResp:
+    """PutAlloc/GetLoc/ShmHello response body (native ShmLocResp):
+    {ticket, locations, shm pool directory}."""
+
+    ticket: int = 0
+    locs: List[Tuple[int, int, int]] = field(default_factory=list)  # (pool, off, size)
+    pools: List[Tuple[int, str, int]] = field(default_factory=list)  # (pool, name, size)
+
+    def encode(self) -> bytes:
+        out = [struct.pack("<QI", self.ticket, len(self.locs))]
+        for pool_id, off, size in self.locs:
+            out.append(struct.pack("<HQI", pool_id, off, size))
+        out.append(struct.pack("<H", len(self.pools)))
+        for pool_id, name, size in self.pools:
+            out.append(struct.pack("<H", pool_id) + encode_str(name) + struct.pack("<Q", size))
+        return b"".join(out)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ShmLocResp":
+        r = Reader(data)
+        m = cls(ticket=r.u64())
+        for _ in range(r.u32()):
+            m.locs.append((r.u16(), r.u64(), r.u32()))
+        for _ in range(r.u16()):
+            m.pools.append((r.u16(), r.str(), r.u64()))
+        return m
+
+
+@dataclass
+class SegMeta:
+    """Client shm segment registration (native SegMeta: RegSegment)."""
+
+    seg_id: int = 0
+    name: str = ""
+    size: int = 0
+
+    def encode(self) -> bytes:
+        return struct.pack("<H", self.seg_id) + encode_str(self.name) + struct.pack(
+            "<Q", self.size
+        )
+
+    @classmethod
+    def decode(cls, data: bytes) -> "SegMeta":
+        r = Reader(data)
+        return cls(seg_id=r.u16(), name=r.str(), size=r.u64())
+
+
+@dataclass
+class RingMeta:
+    """Descriptor-ring segment registration (native RingMeta: RingAttach).
+
+    Only names the shm segment — the ring geometry lives in the mapped
+    RingCtrl itself, single-sourced so the attach body can never drift
+    from the control block."""
+
+    name: str = ""
+    size: int = 0
+
+    def encode(self) -> bytes:
+        return encode_str(self.name) + struct.pack("<Q", self.size)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "RingMeta":
+        r = Reader(data)
+        return cls(name=r.str(), size=r.u64())
+
+
+@dataclass
+class SegBatchMeta:
+    """One-RTT batched op against a registered segment (native SegBatchMeta:
+    PutFrom / GetInto); block i lives at segment offset offsets[i].
+    ``priority`` follows BatchMeta's optional-trailing-byte scheme."""
+
+    block_size: int = 0
+    seg_id: int = 0
+    keys: List[str] = field(default_factory=list)
+    offsets: List[int] = field(default_factory=list)
+    priority: int = PRIORITY_FOREGROUND
+    # Trace context extension (after the priority byte; see BatchMeta).
+    trace_id: int = TRACE_ID_NONE
+    trace_parent: int = 0
+
+    def encode(self) -> bytes:
+        out = [struct.pack("<IH", self.block_size, self.seg_id)]
+        out.append(encode_str_list(self.keys))
+        out.append(struct.pack("<I", len(self.offsets)))
+        out.extend(struct.pack("<Q", off) for off in self.offsets)
+        if self.priority or self.trace_id:
+            out.append(struct.pack("<B", self.priority))
+        if self.trace_id:
+            out.append(struct.pack("<QQ", self.trace_id, self.trace_parent))
+        return b"".join(out)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "SegBatchMeta":
+        r = Reader(data)
+        m = cls(block_size=r.u32(), seg_id=r.u16(), keys=r.str_list())
+        m.offsets = [r.u64() for _ in range(r.u32())]
+        if not r.done:
+            m.priority = r.u8()
+        if not r.done:
+            m.trace_id = r.u64()
+            m.trace_parent = r.u64()
+        return m
+
+
+@dataclass
+class ChunkDesc:
+    """Descriptor for one contiguous slice of a split batched op — the
+    work-stealing unit of the adaptive striped data plane
+    (lib.StripedConnection): a batch of N blocks is broken into bounded
+    descriptors on a shared queue and stripes pull them as they finish
+    prior ones. ``start``/``count`` index the ORIGINAL batch's block list
+    (contiguous, so each stripe's scatter/gather iovec runs stay long);
+    ``seq`` orders descriptors for debugging/tracing. The wire protocol
+    itself is unchanged — each pulled descriptor rides an ordinary batched
+    op on its stripe — but the framing here is the canonical record (and
+    the unit tests' contract) for anything that persists or ships a split
+    plan, e.g. a cross-process scheduler or a replay trace."""
+
+    seq: int = 0
+    start: int = 0
+    count: int = 0
+
+    _STRUCT = struct.Struct("<IQI")
+
+    def encode(self) -> bytes:
+        return self._STRUCT.pack(self.seq, self.start, self.count)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ChunkDesc":
+        if len(data) < cls._STRUCT.size:
+            raise ValueError("wire body truncated")
+        seq, start, count = cls._STRUCT.unpack(data[: cls._STRUCT.size])
+        return cls(seq=seq, start=start, count=count)
+
+
+def chunk_spans(n_blocks: int, quantum: int) -> List[ChunkDesc]:
+    """Split an n-block batch into bounded contiguous chunk descriptors of
+    at most ``quantum`` blocks each (the last may be shorter). The shared
+    queue the striped scheduler's workers pull from is exactly this list."""
+    if n_blocks < 0:
+        raise ValueError("n_blocks must be >= 0")
+    if quantum < 1:
+        raise ValueError("quantum must be >= 1")
+    return [
+        ChunkDesc(seq=seq, start=start, count=min(quantum, n_blocks - start))
+        for seq, start in enumerate(range(0, n_blocks, quantum))
+    ]
+
+
+@dataclass
+class KeyMeta:
+    key: str = ""
+
+    def encode(self) -> bytes:
+        return encode_str(self.key)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "KeyMeta":
+        return cls(key=Reader(data).str())
+
+
+@dataclass
+class KeyListMeta:
+    keys: List[str] = field(default_factory=list)
+
+    def encode(self) -> bytes:
+        return encode_str_list(self.keys)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "KeyListMeta":
+        return cls(keys=Reader(data).str_list())

@@ -67,12 +67,19 @@ setup(
         "infinistore_tpu._native",
         "infinistore_tpu.tpu",
         "infinistore_tpu.models",
+        "infinistore_tpu_torch",
+        "infinistore_tpu_torch._native",
+        "infinistore_tpu_torch.cuda",
+        "infinistore_tpu_torch.models",
     ],
-    package_data={"infinistore_tpu._native": ["libinfinistore_tpu.so"]},
+    package_data={
+        "infinistore_tpu._native": ["libinfinistore_tpu.so"],
+        "infinistore_tpu_torch.cuda": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=["numpy"],
-    extras_require={"tpu": ["jax"]},
+    extras_require={"tpu": ["jax"], "cuda": ["torch"]},
     distclass=BinaryDistribution,
     cmdclass={"build_py": BuildNative, "bdist_wheel": PlatformWheel},
     entry_points={
