@@ -7,18 +7,23 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA card, ``nvcc`` and ``g++``, and builds everything it runs
-from the checkout: the store's native library (``g++``) and the four Hopper
+from the checkout: the store's native library (``g++``) and the Hopper
 kernels (``nvcc``, one process per source), in parallel. Then:
 
 1. Kernel phase. Each kernel (K1 gather, K2 scatter, K3 paged decode
-   attention, K4 flash prefill) runs against its plain PyTorch version on
-   the card, on the main path's shapes at Llama-3-8B widths, in bf16 and in
-   f32: K1/K2 must be bitwise equal, K3/K4 within 1e-5 (f32) and 2e-2
-   (bf16; K4 rounds probabilities to bf16 before PV, the plain version does
-   not). Each is timed with CUDA events (L2 flushed before every launch)
-   beside its plain version, one PyTorch library call where one computes the
-   same function, and its bound (bytes over 3.35 TB/s or operations over the
-   peak rate of their type, from this run's inputs).
+   attention, K4 flash prefill, K6 ragged paged decode attention) runs
+   against its plain PyTorch version on the card, on its path's shapes at
+   Llama-3-8B widths, in bf16 and in f32: K1/K2 must be bitwise equal,
+   K3/K4/K6 within 1e-5 (f32) and 2e-2 (bf16; K4 rounds probabilities to
+   bf16 before PV, the plain version does not). K6 runs a skewed ragged
+   wave (1 to 1,152 tokens, a 4-row verification chunk sharing its pages, a
+   zero-length row, power-of-two pad pages) and must also be bitwise equal
+   to K3 on each row's rebuilt table, and each row bitwise equal to a solo
+   launch of that row. Each kernel is timed with CUDA events (L2 flushed
+   before every launch) beside its plain version, one PyTorch library call
+   where one computes the same function, and its bound (bytes over 3.35
+   TB/s or operations over the peak rate of their type, from this run's
+   inputs).
 2. Main path at Llama-3-8B width (random weights from seed 0): engine A
    prefills 4 prompts of 2048 tokens and saves them through
    ``KVConnector.save`` to an in-process store; engine B looks each prompt up
@@ -28,6 +33,21 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    and every kernel must have launched in it.
 3. A small f32 model through the same round trip twice, on the card (the
    kernels) and on the CPU (the plain versions): logits agree to 2e-4.
+4. Engine phase at Llama-3-8B width (bf16, the main path's weights; a fresh
+   store with a 2 GiB pool): one ``ContinuousBatchingHarness`` (1,024
+   blocks = 2 GiB of KV, 72 blocks per request, n-gram drafts of up to 7)
+   serves two rounds of 4 concurrent requests. Round 1: 1,024-token prompts
+   (a shared 512-token prefix, a tail in which a 64-token span occurs
+   twice), 64 generated tokens each: misses, prefilled (K4, K2) and saved
+   (K1). Round 2: each round-1 prompt's first 768 tokens plus 256 new ones:
+   48-block prefix hits fetched and installed (K2), the suffix resumed with
+   ``prefill_continue`` (K3). Every generation wave is one
+   ``verify_step_ragged`` (K6). Every request's prompt blocks must match the
+   model's own prefill within the bf16 tolerance ``ENGINE_VERIFY_TOL``, and
+   K1, K2, K3, K4 and K6 must each have launched in the phase.
+5. The same two rounds scaled down on a small f32 model (head_dim 64) on the
+   card and on the CPU: identical generated tokens, every request verified
+   within 2e-4 on both.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -56,11 +76,33 @@ PROMPTS = 4
 PROMPT_TOKENS = 2048
 DECODE_STEPS = 16
 
+# Engine phase: round 1 prompts of SHARED + TAIL tokens (a SPAN-token stretch
+# of the tail occurs twice, so the n-gram drafter proposes), round 2 keeps
+# KEEP tokens of each and appends NEW; GEN tokens generated per request.
+ENGINE = dict(shared=512, tail=512, span=64, keep=768, new=256, gen=64)
+ENGINE_BLOCKS = 1024  # 2 GiB of bf16 KV at Llama-3-8B width
+ENGINE_REQ_BLOCKS = 72
+# bf16 prompt blocks against the model's own one-shot prefill: a prefix hit
+# resumes its suffix through K3 (f32 softmax, output rounded to bf16) where
+# the oracle runs K4 (p rounded to bf16 before PV), so values differ by a few
+# bf16 ulps, compounded over 32 layers; a wrong or stale block differs by
+# O(1). allclose(rtol=atol=0.1).
+ENGINE_VERIFY_TOL = 0.1
+SMALL_ENGINE = dict(shared=32, tail=32, span=8, keep=48, new=16, gen=16)
+
 TPU_KERNELS = {
     "gather_blocks": ("infinistore_tpu/tpu/paged.py:115", "paged_copy.cu"),
     "scatter_blocks": ("infinistore_tpu/tpu/paged.py:135", "paged_copy.cu"),
     "paged_decode_attention": ("infinistore_tpu/tpu/paged_attention.py:209", "paged_attention.cu"),
     "flash_prefill": ("infinistore_tpu/tpu/flash_prefill.py:152", "flash_prefill.cu"),
+    "paged_decode_attention_ragged": ("infinistore_tpu/tpu/paged_attention.py:555",
+                                      "paged_attention.cu"),
+}
+# The kernels each path must run (its launch counts are zeroed just before it).
+PATH_KERNELS = {
+    "prefill_store_decode": ("gather_blocks", "scatter_blocks", "paged_decode_attention",
+                             "flash_prefill"),
+    "engine": tuple(TPU_KERNELS),
 }
 
 
@@ -226,7 +268,75 @@ def kernel_phase(torch, timer):
                 library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
             )
+
+    results["paged_decode_attention_ragged"] = _ragged_kernel_check(torch, timer, g, pa)
     return results
+
+
+def _ragged_kernel_check(torch, timer, g, pa):
+    """K6 on a skewed wave at the engine phase's widths: against its plain
+    version, bitwise against K3 per row, bitwise against solo launches."""
+    import numpy as np
+
+    cfg = LLAMA3_8B
+    bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
+    d = cfg["dim"] // h
+    width = ENGINE_REQ_BLOCKS
+    # Rows 3-6 are one request's 4-token verification chunk (shared pages).
+    lens = [1, 1152, 0, 300, 301, 302, 303, 700, 64, 17, 1000]
+    req_of = [0, 1, 2, 3, 3, 3, 3, 4, 5, 6, 7]
+    n_cache = 8 * width + 16
+    rng = np.random.default_rng(5)
+    req_tables = rng.permutation(n_cache)[: 8 * width].astype(np.int32).reshape(8, width)
+    row_tables = [req_tables[i] for i in req_of]
+    m = pa.build_ragged_wave(row_tables, lens, bt, pad_to_pow2=True)
+    pages, page_rows, page_starts, seq = (
+        torch.from_numpy(x).cuda() for x in (m.pages, m.page_rows, m.page_starts, m.seq_lens))
+    rows_k3 = pa._ragged_row_tables(pages, page_starts, width).contiguous()
+    read = {int(m.pages[m.page_starts[r] + j]) for r, n in enumerate(lens)
+            for j in range(-(-n // bt))}
+    out = None
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn((len(lens), h, d), generator=g, device="cuda").to(dtype)
+        kc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+        vc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+
+        def run():
+            return pa.paged_decode_attention_ragged(q, kc, vc, pages, page_rows, page_starts,
+                                                    seq, table_width=width)
+
+        def plain():
+            return pa.paged_decode_attention_ragged_plain(q, kc, vc, pages, page_starts, seq,
+                                                          width)
+
+        got, want = run(), plain()
+        k3 = pa.paged_decode_attention_batched(q, kc, vc, rows_k3, seq)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        if not err <= tol:
+            raise AssertionError(f"ragged decode {dtype}: max abs err {err} > {tol}")
+        if float(got[2].float().abs().max()) != 0.0:
+            raise AssertionError("ragged decode: seq_len 0 must give zeros")
+        if not torch.equal(got, k3):
+            raise AssertionError(f"ragged decode {dtype}: rows differ from K3 on their tables")
+        for r in range(len(lens)):
+            solo = pa.build_ragged_wave([row_tables[r]], [lens[r]], bt)
+            one = pa.paged_decode_attention_ragged(
+                q[r : r + 1].contiguous(), kc, vc, *(torch.from_numpy(x).cuda() for x in (
+                    solo.pages, solo.page_rows, solo.page_starts, solo.seq_lens)),
+                table_width=width)
+            torch.cuda.synchronize()
+            if not torch.equal(one[0], got[r]):
+                raise AssertionError(f"ragged decode {dtype}: row {r} differs from its solo launch")
+        log(f"K6 {dtype}: max abs err {err:.3e} (tol {tol}); bitwise K3 per row and solo per row; "
+            f"{m.num_pages} pages ({m.pad_pages} pad), {len(read)} distinct read")
+        if dtype is torch.bfloat16:
+            nbytes = (2 * len(read) * bt * kvh * d + 2 * q.numel()) * q.element_size() + \
+                (m.num_pages + 3 * len(lens) + 1) * 4
+            bms, by = bound_ms(nbytes, 4.0 * h * d * sum(lens), "float32")
+            out = dict(max_abs_err=err, ms=timer.ms(run), plain_ms=timer.ms(plain),
+                       bound_ms=bms, bound_by=by, library_ms=None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +492,7 @@ def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
         "decode_ms_per_step": decode_ms,
         "kv_bytes_moved": kv_bytes,
     }
-    return metrics, launches
+    return metrics, launches, params
 
 
 def _profile(torch, fn):
@@ -463,6 +573,179 @@ def small_model_phase(torch, server_port):
 
 
 # ---------------------------------------------------------------------------
+# Phases 4 and 5: the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+
+def _engine_rounds(rng, vocab, traffic):
+    """Two rounds of 4 prompts (see the module docstring)."""
+    shared, tail, span = traffic["shared"], traffic["tail"], traffic["span"]
+    keep, new = traffic["keep"], traffic["new"]
+    prefix = rng.integers(0, vocab, shared).tolist()
+    round1 = []
+    for _ in range(4):
+        t = rng.integers(0, vocab, tail).tolist()
+        rep = t[:span]
+        t[tail - span:] = rep  # the span occurs twice; the prompt ends on it
+        round1.append(prefix + t)
+    round2 = [p[:keep] + rng.integers(0, vocab, new).tolist() for p in round1]
+    return round1, round2
+
+
+async def _serve(h, prompts, gen):
+    """Concurrency 4; the requests' stats in prompt order, the wall time."""
+    sem = asyncio.Semaphore(4)
+
+    async def one(p):
+        async with sem:
+            return await h.run_request(p, gen_tokens=gen)
+
+    t0 = time.perf_counter()
+    stats = await asyncio.gather(*(one(p) for p in prompts))
+    return stats, time.perf_counter() - t0
+
+
+def _run_engine(torch, server_port, params, cfg, device, model_id, traffic, num_blocks,
+                req_blocks, verify_tol):
+    """Both rounds on one harness, from one event loop; returns per-round
+    (metrics, stats, wall seconds, waves in the round), and the harness (its
+    wave and speculation counters span both rounds)."""
+    import numpy as np
+
+    from infinistore_tpu_torch import config as config_mod
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch.connector import KVConnector
+    from infinistore_tpu_torch.engine import (
+        ContinuousBatchingHarness, EngineKVAdapter, NGramDrafter,
+    )
+
+    rounds = _engine_rounds(np.random.default_rng(3), cfg.vocab, traffic)
+    conn = _client(lib_mod, config_mod, server_port)
+    kv = KVConnector(conn, cfg.kv_spec(num_blocks), model_id, max_blocks=req_blocks,
+                     device=device)
+    try:
+        h = ContinuousBatchingHarness(
+            EngineKVAdapter(kv), params, cfg, num_blocks, req_blocks, verify=True,
+            verify_tol=verify_tol, drafter=NGramDrafter(max_draft=7), device=device,
+        )
+
+        async def drive():
+            out = []
+            for prompts in rounds:
+                h.stats.clear()
+                waves0 = h.wave.waves
+                stats, wall = await _serve(h, prompts, traffic["gen"])
+                _sync(torch, device)
+                out.append((h.metrics(), stats, wall, h.wave.waves - waves0))
+            return out
+
+        return asyncio.run(drive()), h
+    finally:
+        kv.close()
+        conn.close()
+
+
+def _check_rounds(results, traffic, bt, what):
+    hit_blocks = traffic["keep"] // bt
+    for i, (m, stats, _, _) in enumerate(results):
+        if not m["all_verified"]:
+            raise AssertionError(f"{what} round {i + 1}: a request's blocks failed verification")
+        if any(len(s.generated) != traffic["gen"] for s in stats):
+            raise AssertionError(f"{what} round {i + 1}: not {traffic['gen']} tokens per request")
+    if results[1][0]["loaded_blocks"] != 4 * hit_blocks:
+        raise AssertionError(f"{what} round 2 loaded {results[1][0]['loaded_blocks']} blocks, "
+                             f"expected {4 * hit_blocks}")
+    last = results[-1][0]
+    if last["max_wave_size"] < 2 or last["spec_drafted_tokens"] <= 0:
+        raise AssertionError(f"{what}: waves never mixed requests or the drafter never proposed "
+                             f"(max_wave_size {last['max_wave_size']}, drafted "
+                             f"{last['spec_drafted_tokens']})")
+
+
+def engine_phase(torch, server_port, params, smi):
+    """Phase 4: Llama-3-8B width, bf16, on the card."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **LLAMA3_8B)
+    _ext.reset_launches()
+    results, h = _run_engine(torch, server_port, params, cfg, "cuda", "llama-3-8b-engine",
+                             ENGINE, ENGINE_BLOCKS, ENGINE_REQ_BLOCKS, ENGINE_VERIFY_TOL)
+    launches = dict(_ext.LAUNCHES)
+    _check_rounds(results, ENGINE, cfg.block_tokens, "engine phase")
+    log(f"engine phase all_verified (bf16 verify_tol {ENGINE_VERIFY_TOL}, rtol = atol) "
+        f"in both rounds; round 2 loaded {results[1][0]['loaded_blocks']} blocks")
+    summary = {"card": smi}
+    for i, (m, stats, wall, waves) in enumerate(results):
+        summary[f"round{i + 1}"] = {
+            "p50_ttft_us": m["p50_ttft_us"],
+            "p99_ttft_us": m["p99_ttft_us"],
+            "p50_prefix_ready_hit_us": m["p50_prefix_ready_hit_us"],
+            "p50_prefix_ready_miss_us": m["p50_prefix_ready_miss_us"],
+            "decode_waves": waves,
+            "generated_tokens_per_s": m["generated_tokens"] / wall,
+            "wall_s": wall,
+            "loaded_blocks": m["loaded_blocks"],
+            "computed_blocks": m["computed_blocks"],
+            "max_wave_size": m["max_wave_size"],
+        }
+    # Wave and speculation counters over both rounds.
+    last = results[-1][0]
+    summary["wave_pad_fraction"] = last["wave_pad_fraction"]
+    summary["spec_tokens_per_step"] = sum(m["generated_tokens"] for m, *_ in results) / h.spec_rounds
+    summary["spec_drafted_tokens"] = last["spec_drafted_tokens"]
+    summary["spec_accepted_tokens"] = last["spec_accepted_tokens"]
+    summary["wave_buckets"] = len(last["wave_buckets"])
+    log(f"engine phase: {json.dumps(summary)}")
+    log(f"profile engine wave: {json.dumps(_profile_wave(torch, h, cfg))}")
+    log(f"engine phase launches: {json.dumps(launches)}")
+    return launches
+
+
+def _profile_wave(torch, h, cfg):
+    """One mixed wave like round 1's first (4 requests at 1,024 tokens of
+    context, each an 8-token verification chunk) under torch.profiler, on
+    the harness's own cache once the rounds are done (the blocks it writes
+    are free)."""
+    from infinistore_tpu_torch.cuda.paged_attention import build_ragged_wave
+    from infinistore_tpu_torch.models import llama
+
+    import numpy as np
+
+    mrb = ENGINE_REQ_BLOCKS
+    tables = np.arange(4 * mrb, dtype=np.int32).reshape(4, mrb)
+    ctx = ENGINE["shared"] + ENGINE["tail"]
+    pos = [ctx - 1 + j for _ in range(4) for j in range(8)]
+    row_of = [r for r in range(4) for _ in range(8)]
+    meta = build_ragged_wave([tables[r] for r in row_of], [p + 1 for p in pos],
+                             cfg.block_tokens, pad_to_pow2=True)
+    toks = [7] * len(pos)
+    return _profile(torch, lambda: llama.verify_step_ragged(
+        h.params, toks, pos, row_of, meta.pages, meta.page_rows, meta.page_starts, h.caches,
+        tables, cfg, mrb))
+
+
+def small_engine_phase(torch, server_port):
+    """Phase 5: the same traffic scaled down, f32, card against CPU."""
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab=128, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            ffn_dim=256, block_tokens=8, dtype=torch.float32)
+    params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        params = {k: v.to(device) for k, v in params_cpu.items()}
+        results, _ = _run_engine(torch, server_port, params, cfg, device,
+                                 f"small-engine-{device}", SMALL_ENGINE, 64, 12, 2e-4)
+        _check_rounds(results, SMALL_ENGINE, cfg.block_tokens, f"small engine ({device})")
+        tokens[device] = [s.generated for _, stats, _, _ in results for s in stats]
+    if tokens["cuda"] != tokens["cpu"]:
+        raise AssertionError("small engine: the card's generated tokens differ from the CPU's")
+    log("small f32 engine: card (kernels) and CPU (plain) generate the same tokens; "
+        "all verified within 2e-4 on both")
+
+
+# ---------------------------------------------------------------------------
 
 
 def _build_all(torch):
@@ -514,20 +797,36 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
+    paths = {}
     server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
                                     pin_memory=False)
     try:
         _ext.reset_launches()
-        metrics, launches = main_path(torch, server.port)
+        metrics, paths["prefill_store_decode"], params = main_path(torch, server.port)
         log(f"main path: {json.dumps(metrics)}")
-        log(f"main path launches: {json.dumps(launches)}")
-        idle = [name for name, n in launches.items() if n == 0]
-        if idle:
-            raise AssertionError(f"kernels never launched on the main path: {idle}")
+        log(f"main path launches: {json.dumps(paths['prefill_store_decode'])}")
         torch.cuda.empty_cache()
         small_model_phase(torch, server.port)
     finally:
         server.stop()
+
+    # The engine gets a fresh store; the main path's caches are gone, its
+    # weights are reused.
+    torch.cuda.empty_cache()
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        paths["engine"] = engine_phase(torch, server.port, params, smi)
+        del params
+        torch.cuda.empty_cache()
+        small_engine_phase(torch, server.port)
+    finally:
+        server.stop()
+
+    for path, names in PATH_KERNELS.items():
+        idle = [name for name in names if paths[path][name] == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on the {path} path: {idle}")
 
     rows = []
     for name, (replaces, source) in TPU_KERNELS.items():
@@ -536,7 +835,9 @@ def main() -> int:
             "route": "cuda",
             "source": f"infinistore_tpu_torch/cuda/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],
+            # Every launch on the paths this script drives; per path below.
+            "launches": sum(counts[name] for counts in paths.values()),
+            "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             **kernels[name],
         })
     print(json.dumps({"kernels": rows}), flush=True)

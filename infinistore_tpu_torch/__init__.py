@@ -4,8 +4,9 @@ The PyTorch port of ``infinistore_tpu``. The store itself (native core,
 client, server) is framework-neutral and kept here as copies; what touches
 device memory (the paged cache, its staging to host, the layerwise writer and
 reader, the connector and the model) is rewritten on torch tensors, and the
-four TPU kernels on the prefill -> store -> decode path are hand-written CUDA
-kernels for Hopper (``cuda/csrc``). The package imports nothing of
+TPU kernels on the prefill -> store -> decode path and on the
+continuous-batching engine's ragged waves are hand-written CUDA kernels for
+Hopper (``cuda/csrc``). The package imports nothing of
 ``infinistore_tpu`` and never imports jax.
 
 Importing the package loads nothing: every name resolves lazily, so neither
@@ -25,12 +26,22 @@ _LAZY = {
         "InfiniStoreNoMatch", "InfiniStoreResourcePressure", "InfinityConnection",
         "LocalServer", "Logger", "start_local_server",
     ),
-    "connector": ("KVConnector", "token_chain_hashes"),
+    "connector": ("FetchCoalescer", "KVConnector", "token_chain_hashes"),
+    "engine": (
+        "BlockPool", "ContinuousBatchingHarness", "DeviceGate", "EngineKVAdapter",
+        "NGramDrafter", "RequestStats", "WaveCounters", "WaveDecoder",
+        "reset_wave_counters", "wave_counters",
+    ),
     "cuda.staging": ("HostStagingPool", "StagingLease", "StagingPoolExhausted"),
     "cuda.layerwise": (
-        "LayerwiseKVReader", "LayerwiseKVWriter", "PartialReadError", "kv_block_key",
+        "LayerwiseKVReader", "LayerwiseKVWriter", "LayerwisePrefetch", "PartialReadError",
+        "PrefetchDiscarded", "kv_block_key",
     ),
     "cuda.paged": ("PagedKVCacheSpec", "gather_blocks", "scatter_blocks"),
+    "cuda.paged_attention": (
+        "RaggedWaveMeta", "build_ragged_wave", "paged_decode_attention_ragged",
+        "paged_decode_attention_rows",
+    ),
 }
 _WHERE = {name: mod for mod, names in _LAZY.items() for name in names}
 

@@ -1,6 +1,7 @@
 """Engine-facing KV-cache connector (port of ``infinistore_tpu/connector.py``:
-``token_chain_hashes``, ``_ChainHashCache`` and ``KVConnector`` with
-lookup / save / load / manifest / get_stats / drop).
+``token_chain_hashes``, ``_ChainHashCache``, ``FetchCoalescer`` and
+``KVConnector`` with lookup / save / load / start_fetch / start_fetch_async /
+manifest / get_stats / drop).
 
 A connector hashes token prefixes into chain keys, asks the store how much
 of a prompt is already cached (``get_match_last_index``), and streams
@@ -23,9 +24,14 @@ import numpy as np
 
 from . import tracing, wire
 from .cuda import _ext
-from .cuda.layerwise import LayerwiseKVReader, LayerwiseKVWriter, PartialReadError
+from .cuda.layerwise import (
+    LayerwiseKVReader,
+    LayerwiseKVWriter,
+    LayerwisePrefetch,
+    PartialReadError,
+)
 from .cuda.paged import PagedKVCacheSpec
-from .cuda.staging import HostStagingPool
+from .cuda.staging import HostStagingPool, StagingPoolExhausted
 from .lib import (
     InfiniStoreColdTier,
     InfiniStoreKeyNotFound,
@@ -118,6 +124,133 @@ class _ChainHashCache:
         return list(hashes)
 
 
+class FetchCoalescer:
+    """Merge store reads issued in the same event-loop tick into ONE
+    batched ``read_cache_async`` call.
+
+    A wave of concurrent admissions starts one prefetch each; without
+    coalescing every layer of every request is its own store round trip.
+    All submitters target the same base pointer (one staging pool) and block
+    size; the coalescer only merges, it never copies. Merges are sized to
+    the connection's fan-out (``preferred_fanout_blocks()`` where the
+    connection reports one) and partitioned by QoS class, so a BACKGROUND
+    prefetch never drags a FOREGROUND admission into its class."""
+
+    def __init__(self, conn, block_size: int, base_ptr: int,
+                 max_merge_blocks: Optional[int] = None):
+        self.conn = conn
+        self.block_size = block_size
+        self.base_ptr = base_ptr
+        if max_merge_blocks is None:
+            hint = getattr(conn, "preferred_fanout_blocks", None)
+            max_merge_blocks = hint() if callable(hint) else 0
+        self.max_merge_blocks = max_merge_blocks or 0  # 0 = unbounded
+        self._pending: list = []
+        self._flush_scheduled = False
+        # Strong refs: the loop holds only weak refs to tasks.
+        self._flush_tasks: set = set()
+        self.calls = 0  # batched store calls issued
+        self.submissions = 0  # logical submits merged into them
+        self.max_batch = 0
+        self.ring_windows = 0  # flushes that opened a ring batch window
+
+    def submit(self, blocks, priority: int = 0) -> "asyncio.Future":
+        """Queue one logical read (list of (key, offset-from-base) pairs);
+        returns a future resolving when those bytes are staged. The
+        submitter's active trace span is captured here and stamped
+        ``coalesce`` when its merged call issues."""
+        fut = asyncio.get_running_loop().create_future()
+        self._pending.append((blocks, fut, priority, tracing.active_span()))
+        self.submissions += 1
+        if not self._flush_scheduled:
+            self._flush_scheduled = True
+            task = asyncio.ensure_future(self._flush())
+            self._flush_tasks.add(task)
+            task.add_done_callback(self._flush_tasks.discard)
+        return fut
+
+    def _group(self, batch):
+        """Pack this tick's submissions into merged-call groups of at most
+        ``max_merge_blocks`` blocks, partitioned by QoS class first."""
+        by_class: dict = {}
+        for blocks, fut, priority, span in batch:
+            by_class.setdefault(priority, []).append((blocks, fut, span))
+        groups = []
+        for priority, items in by_class.items():
+            if not self.max_merge_blocks:
+                groups.append((priority, items))
+                continue
+            cur, cur_blocks = [], 0
+            for blocks, fut, span in items:
+                if cur and cur_blocks + len(blocks) > self.max_merge_blocks:
+                    groups.append((priority, cur))
+                    cur, cur_blocks = [], 0
+                cur.append((blocks, fut, span))
+                cur_blocks += len(blocks)
+            if cur:
+                groups.append((priority, cur))
+        return groups
+
+    async def _flush(self):
+        # One yield: everything enqueued this tick joins the batch.
+        await asyncio.sleep(0)
+        batch, self._pending = self._pending, []
+        self._flush_scheduled = False
+        if not batch:
+            return
+        # Open this tick's ring batch window where the connection has one,
+        # so the merged calls publish as one multi-op batch slot.
+        window = getattr(self.conn, "ring_batch_window", None)
+        if callable(window):
+            window()
+            self.ring_windows += 1
+        await asyncio.gather(*(self._issue(g, p) for p, g in self._group(batch)))
+
+    async def _issue(self, batch, priority: int = 0):
+        self.calls += 1
+        self.max_batch = max(self.max_batch, len(batch))
+        merged = [b for blocks, _, _ in batch for b in blocks]
+        pri_kw = wire.qos_kwargs(self.conn, priority)
+        # The merged wire op rides the first traced submitter's context;
+        # override_span also clears a span this flush task inherited.
+        lead_span = None
+        for _, _, span in batch:
+            if span is not None:
+                span.stage("coalesce")
+                span.annotate(coalesced_group=len(batch))
+                if lead_span is None:
+                    lead_span = span
+        try:
+            with tracing.override_span(lead_span):
+                await self.conn.read_cache_async(merged, self.block_size, self.base_ptr,
+                                                 **pri_kw)
+        except Exception as e:
+            # Per-submission retry isolates ONE evicted/pressured key from
+            # its group-mates; a transport error fails the group fast.
+            retryable = isinstance(e, (InfiniStoreKeyNotFound, InfiniStoreResourcePressure))
+            if len(batch) == 1 or not retryable:
+                for blocks, fut, _ in batch:
+                    if not fut.done():
+                        fut.set_exception(e)
+                return
+            for blocks, fut, span in batch:
+                if fut.done():
+                    continue
+                self.calls += 1
+                try:
+                    with tracing.override_span(span):
+                        await self.conn.read_cache_async(blocks, self.block_size,
+                                                         self.base_ptr, **pri_kw)
+                except Exception as e2:
+                    fut.set_exception(e2)
+                else:
+                    fut.set_result(None)
+            return
+        for _, fut, _ in batch:
+            if not fut.done():
+                fut.set_result(None)
+
+
 class KVConnector:
     """Bind one model's paged KV cache to a store connection.
 
@@ -130,9 +263,15 @@ class KVConnector:
         network
 
     ``device``: where the engine's caches live (default ``"cuda"``; raises
-    when no card is present). The staging pool is page-locked for a CUDA
-    device; ``close()`` releases it and must come before the connection's
-    own close."""
+    when no card is present). The staging pools (the reader's, and the
+    prefetch arena ``start_fetch`` reserves from) are page-locked for a CUDA
+    device; ``close()`` releases them and must come before the connection's
+    own close.
+
+    ``QOS_AWARE``: ``start_fetch`` takes the two-class priority kwarg
+    (adapters gate forwarding on the attribute)."""
+
+    QOS_AWARE = True
 
     def __init__(
         self,
@@ -159,14 +298,21 @@ class KVConnector:
         self.pool = pool
         self._writer = LayerwiseKVWriter(conn, pool, spec, max_blocks)
         self._reader = LayerwiseKVReader(conn, pool, spec, max_blocks)
+        # Two-phase admission (start_fetch) reserves from its own arena: the
+        # reader's _LayerRegions owns ``pool``'s layout outright. Lazy: only
+        # engines on the pipelined path pay for it.
+        self._prefetch_pool: Optional[HostStagingPool] = None
+        self._coalescer: Optional[FetchCoalescer] = None
         # Chain-hash + sentinel-key caches: admission re-derives the same
         # prefix's keys on every lookup/load/save.
         self._chain_cache = _ChainHashCache()
         self._keys0_cache: Optional[Tuple[List[str], List[str]]] = None
 
     def close(self) -> None:
-        """Release the staging pool's page lock (idempotent)."""
+        """Release the staging pools' page locks (idempotent)."""
         self.pool.close()
+        if self._prefetch_pool is not None:
+            self._prefetch_pool.close()
 
     # -- key scheme ----------------------------------------------------------
 
@@ -329,6 +475,106 @@ class KVConnector:
                 return e.caches, 0
             raise
         return out, n
+
+    def start_fetch(
+        self,
+        token_ids,
+        first_block: int = 0,
+        limit_blocks: Optional[int] = None,
+        prefetch_pool: Optional[HostStagingPool] = None,
+        priority: int = wire.PRIORITY_FOREGROUND,
+        known_hit: Optional[int] = None,
+    ) -> LayerwisePrefetch:
+        """Begin the GATE-FREE half of a load: probe the store (one control
+        round trip, skipped when ``known_hit`` is given) and start streaming
+        the hit prefix's layers into reserved host staging regions, with no
+        device work; callable before the engine has allocated blocks. The
+        returned :class:`~.cuda.layerwise.LayerwisePrefetch` carries
+        ``hit_blocks`` and ``n_blocks``; ``install(caches, block_ids)`` is
+        the short exclusive phase with ``load``'s semantics, ``discard()``
+        cancels cleanly.
+
+        Concurrent admissions' fetches coalesce into shared batched store
+        reads (:class:`FetchCoalescer`) unless a ``prefetch_pool`` of the
+        caller's is given. ``priority``: QoS class of the fetch's reads.
+
+        Raises :class:`~.cuda.staging.StagingPoolExhausted` (carrying the
+        probe's ``hit_blocks``) when the arena cannot hold another pipeline;
+        callers treat that as backpressure and fall back to ``load``. Must
+        be called from the running event loop that will install or discard;
+        the inline probe blocks that loop for one store round trip, so
+        async callers use :meth:`start_fetch_async`."""
+        chains = self._chains(token_ids)
+        if first_block < 0 or first_block > len(chains):
+            raise ValueError(
+                f"first_block={first_block} outside the prompt's "
+                f"{len(chains)} complete blocks"
+            )
+        hit = self._lookup_chains(chains) if known_hit is None else known_hit
+        n = min(max(0, hit - first_block), self.max_blocks)
+        if limit_blocks is not None:
+            n = min(n, limit_blocks)
+        pool = prefetch_pool or self._ensure_prefetch_pool()
+        tspan = tracing.active_span()
+        if tspan is not None and n > 0:
+            tspan.stage("fetch_start")
+            tspan.annotate(hit_blocks=hit, fetch_blocks=n)
+        span = chains[first_block : first_block + n]
+        # Mutable class cell so promote() upgrades LATER submissions on the
+        # coalescer path too (the closure reads it per call).
+        pri_cell = {"value": priority}
+        submit = None
+        if prefetch_pool is None:
+            coalescer = self._ensure_coalescer(pool)
+            submit = lambda blocks: coalescer.submit(blocks, priority=pri_cell["value"])  # noqa: E731
+        try:
+            handle = LayerwisePrefetch(
+                self.conn, pool, self.spec, self._key_fn(span), n, self.spec.num_layers,
+                submit=submit, priority=priority, priority_cell=pri_cell,
+            )
+        except StagingPoolExhausted as e:
+            # The probe already ran: hand its answer to the fallback so a
+            # backpressured admission does not pay the round trip twice.
+            e.hit_blocks = hit
+            raise
+        handle.hit_blocks = hit
+        return handle
+
+    async def start_fetch_async(
+        self,
+        token_ids,
+        first_block: int = 0,
+        limit_blocks: Optional[int] = None,
+        prefetch_pool: Optional[HostStagingPool] = None,
+        priority: int = wire.PRIORITY_FOREGROUND,
+        known_hit: Optional[int] = None,
+    ) -> LayerwisePrefetch:
+        """:meth:`start_fetch` for event-loop callers: the probe runs in the
+        default executor, then the handle is built on the loop (its fetch
+        futures need the running loop)."""
+        if known_hit is None:
+            known_hit = await asyncio.to_thread(self._lookup_chains, self._chains(token_ids))
+        return self.start_fetch(
+            token_ids, first_block=first_block, limit_blocks=limit_blocks,
+            prefetch_pool=prefetch_pool, priority=priority, known_hit=known_hit,
+        )
+
+    def _ensure_prefetch_pool(self) -> HostStagingPool:
+        if self._prefetch_pool is None:
+            # ~4 full-depth pipelines (capped at 8 regions each, matching
+            # LayerwisePrefetch's default): enough for a concurrent
+            # admission wave; an over-wave falls back to the gated load.
+            regions = min(self.spec.num_layers, 8)
+            nbytes = 4 * regions * 2 * self.max_blocks * self.spec.block_nbytes
+            self._prefetch_pool = HostStagingPool(
+                nbytes, self.spec.block_nbytes, conn=self.conn, device=self.device,
+            )
+        return self._prefetch_pool
+
+    def _ensure_coalescer(self, pool: HostStagingPool) -> FetchCoalescer:
+        if self._coalescer is None or self._coalescer.base_ptr != pool.base_ptr:
+            self._coalescer = FetchCoalescer(self.conn, self.spec.block_nbytes, pool.base_ptr)
+        return self._coalescer
 
     def get_stats(self) -> dict:
         """The store connection's per-op stats snapshot."""

@@ -37,6 +37,7 @@ LAUNCHES = {
     "gather_blocks": 0,
     "scatter_blocks": 0,
     "paged_decode_attention": 0,
+    "paged_decode_attention_ragged": 0,
     "flash_prefill": 0,
 }
 
@@ -107,12 +108,17 @@ def kernels() -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
                 c_int, c_int, c_int, ptr,
             ]
+            lib.its_paged_decode_attention_ragged.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
+                c_int, c_int, c_int, ptr,
+            ]
             lib.its_flash_prefill.argtypes = [
                 ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
                 c_int, ptr,
             ]
             for fn in (lib.its_gather_blocks, lib.its_scatter_blocks,
-                       lib.its_paged_decode_attention, lib.its_flash_prefill):
+                       lib.its_paged_decode_attention,
+                       lib.its_paged_decode_attention_ragged, lib.its_flash_prefill):
                 fn.restype = c_int
             _lib = lib
     return _lib

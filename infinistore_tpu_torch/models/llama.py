@@ -10,8 +10,8 @@ weights run in both packages (``params_from_numpy``).
 
 The model math is the JAX package's: RMSNorm epsilon 1e-6, the same cast
 order, f32 softmax statistics. Attention runs the hand-written kernels on
-CUDA (K4 flash prefill, K3 paged decode; K2 writes prefill's K/V into the
-cache) and their plain versions on CPU. Projections are plain matmuls.
+CUDA (K4 flash prefill, K3 paged decode, K6 ragged wave decode; K2 writes
+prefill's K/V into the cache) and their plain versions on CPU. Projections are plain matmuls.
 
 Numerics on CUDA (``_set_numerics``): f32 matmuls at full f32 precision —
 TF32 off for matmuls and cuDNN, the counterpart of ``Precision.HIGHEST`` —
@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from ..cuda import _ext
 from ..cuda.flash_prefill import flash_prefill_attention
 from ..cuda.paged import PagedKVCacheSpec, scatter_blocks
-from ..cuda.paged_attention import paged_decode_attention_batched
+from ..cuda.paged_attention import paged_decode_attention_batched, paged_decode_attention_rows
 
 Params = Dict[str, torch.Tensor]
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -387,3 +387,102 @@ def decode_step_batched(
         max_blocks,
     )
     return logits[:, 0], new_caches
+
+
+def verify_step_ragged(
+    params: Params,
+    tokens,  # [T] int, the wave's chunks concatenated row-major
+    positions,  # [T] int absolute position of each flat token
+    row_of,  # [T] int owning request per flat token (sorted)
+    pages,  # [P] int flat attention page list (RaggedWaveMeta)
+    page_rows,  # [P + 1] int owning flat token per page
+    page_starts,  # [T] int first page per flat token
+    caches: Caches,  # SHARED paged cache across the wave
+    block_tables,  # [B, max_blocks] int (rows padded)
+    config: LlamaConfig,
+    max_blocks: int,
+) -> Tuple[torch.Tensor, Caches]:
+    """The ragged form of ``verify_step_batched``: a mixed wave whose request
+    chunks keep their own lengths, as one flat [T] token list with per-token
+    request and page metadata instead of a [B, K] rectangle.
+
+    Each flat token inserts its K/V at (table[pos // bt], pos % bt) and
+    attends its own prefix masked to pos + 1, so per-token semantics are
+    ``verify_step_batched``'s. Tail padding repeats the last flat row (same
+    bytes to the same slot); ``block_tables`` rows no flat token references
+    neither scatter nor attend. Attention is one K6 launch per layer on CUDA
+    over the flat page list. Returns ([T, vocab] logits, caches)."""
+    _set_numerics()
+    tokens = _on(params, tokens, torch.long)
+    positions = _on(params, positions, torch.int32)
+    row_of = _on(params, row_of, torch.long)
+    pages, page_rows, page_starts = (
+        _on(params, x, torch.int32) for x in (pages, page_rows, page_starts))
+    block_tables = _on(params, block_tables, torch.int32)
+    t = tokens.shape[0]
+    if tuple(positions.shape) != (t,) or tuple(row_of.shape) != (t,):
+        raise ValueError(
+            f"positions/row_of must match tokens' [{t}], got "
+            f"{tuple(positions.shape)}/{tuple(row_of.shape)}"
+        )
+    if tuple(page_starts.shape) != (t,):
+        raise ValueError(f"page_starts must be [{t}], got {tuple(page_starts.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[1] != max_blocks:
+        raise ValueError(
+            f"block_tables must be [B, {max_blocks}], got {tuple(block_tables.shape)}"
+        )
+    bt = config.block_tokens
+    x = params["embed"][tokens][None]  # [1, T, dim]
+    pos2d = positions[None]  # [1, T]
+
+    row_tables = block_tables[row_of]  # [T, max_blocks]
+    block_idx = torch.gather(row_tables, 1, (positions // bt).long()[:, None])[:, 0].long()
+    slots = (positions % bt).long()
+    seq_lens = positions + 1
+
+    new_caches: Caches = []
+    for layer, (k_cache, v_cache) in enumerate(caches):
+        k, v = _kv_proj(params, layer, x, pos2d, config)  # [1, T, KVH, D]
+        k_cache[block_idx, slots] = k[0].to(k_cache.dtype)
+        v_cache[block_idx, slots] = v[0].to(v_cache.dtype)
+        pre = f"l{layer}."
+        q = _q_proj(params, layer, x, pos2d, config)  # [1, T, H, D]
+        attn = paged_decode_attention_rows(
+            q[0].contiguous(), k_cache, v_cache, row_tables, seq_lens,
+            pages, page_rows, page_starts,
+        ).reshape(1, t, -1)  # [1, T, H*D]
+        x = x + attn @ params[pre + "wo"].reshape(-1, config.dim)
+        x = _ffn(params, layer, x, config)
+        new_caches.append((k_cache, v_cache))
+    x = _rms_norm(x, params["final_norm"])
+    logits = x @ params["lm_head"]
+    return logits[0], new_caches
+
+
+def prefill_continue(
+    params: Params,
+    tokens,  # [S_c] int, the suffix chunk
+    start_pos,  # int, absolute position of tokens[0]
+    caches: Caches,
+    block_table,  # [max_blocks] int (padded)
+    config: LlamaConfig,
+    max_blocks: int,
+) -> Tuple[torch.Tensor, Caches]:
+    """Chunked continuation prefill: compute a multi-token suffix against an
+    already-populated paged prefix in one call per layer (the engine's
+    resume path after a prefix hit). The B=1 view of ``verify_step_batched``:
+    every suffix row attends its own prefix in one K3 launch per layer on
+    CUDA. Returns ([S_c, vocab] logits, caches)."""
+    block_table = _on(params, block_table, torch.int32)
+    if block_table.shape[0] != max_blocks:
+        raise ValueError(
+            f"block_table has {block_table.shape[0]} entries, expected "
+            f"max_blocks={max_blocks} (pad the table to the static bound)"
+        )
+    tokens = _on(params, tokens, torch.long)
+    positions = int(start_pos) + torch.arange(tokens.shape[0], dtype=torch.int32,
+                                              device=tokens.device)
+    logits, new_caches = verify_step_batched(
+        params, tokens[None], positions[None], caches, block_table[None], config, max_blocks,
+    )
+    return logits[0], new_caches

@@ -178,9 +178,10 @@ def test_chip_smoke_main_path_rehearsal_on_cpu(port_server):
     spec.loader.exec_module(chip_smoke)
     geometry = dict(vocab=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=256,
                     block_tokens=16, rope_theta=500000.0)
-    metrics, launches = chip_smoke.main_path(
+    metrics, launches, params = chip_smoke.main_path(
         torch, port_server.port, device="cpu", geometry=geometry, prompt_tokens=64
     )
+    assert params["embed"].shape == (256, 256)  # handed on to the engine phase
     assert metrics["kv_bytes_moved"] == chip_smoke.PROMPTS * 4 * 4096 * 2 * 2
     # The CPU runs the plain versions: no kernel was launched.
     assert set(launches.values()) == {0}

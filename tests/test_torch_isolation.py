@@ -68,6 +68,7 @@ def test_package_import_is_light_and_builds_nothing():
         import infinistore_tpu_torch.cuda.paged_attention
         import infinistore_tpu_torch.cuda.flash_prefill
         import infinistore_tpu_torch.models.llama
+        import infinistore_tpu_torch.engine
         from infinistore_tpu_torch.cuda import _ext
         assert _ext._lib is None, "kernel library loaded at import"
         bad = sorted(m for m in sys.modules
@@ -88,6 +89,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     from infinistore_tpu_torch.connector import KVConnector
     from infinistore_tpu_torch.cuda.paged import PagedKVCacheSpec
     from infinistore_tpu_torch.cuda.staging import HostStagingPool
+    from infinistore_tpu_torch.engine import ContinuousBatchingHarness, EngineKVAdapter
     from infinistore_tpu_torch.models import llama
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -104,8 +106,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         HostStagingPool(1 << 16, 1 << 12)
     with pytest.raises(RuntimeError, match=no_card):
         KVConnector(None, spec, "m", 4)
+    adapter = EngineKVAdapter(KVConnector(None, spec, "m", 4, device="cpu"))
+    with pytest.raises(RuntimeError, match=no_card):
+        ContinuousBatchingHarness(adapter, {}, cfg, 4, 2)
     # Asked for the CPU explicitly, they run there.
     assert spec.make_caches(device="cpu")[0][0].device.type == "cpu"
+    harness = ContinuousBatchingHarness(adapter, {}, cfg, 4, 2, device="cpu")
+    assert harness.caches[0][0].device.type == "cpu"
 
 
 def test_register_mr_refuses_tensors_off_the_cpu():
