@@ -11,19 +11,25 @@ from the checkout: the store's native library (``g++``) and the Hopper
 kernels (``nvcc``, one process per source), in parallel. Then:
 
 1. Kernel phase. Each kernel (K1 gather, K2 scatter, K3 paged decode
-   attention, K4 flash prefill, K6 ragged paged decode attention) runs
+   attention, K4 flash prefill, K5 paged decode statistics, K6 ragged paged
+   decode attention, K7 ragged statistics, K8 int8 paged decode) runs
    against its plain PyTorch version on the card, on its path's shapes at
    Llama-3-8B widths, in bf16 and in f32: K1/K2 must be bitwise equal,
-   K3/K4/K6 within 1e-5 (f32) and 2e-2 (bf16; K4 rounds probabilities to
+   K3/K4/K6/K8 within 1e-5 (f32) and 2e-2 (bf16; K4 rounds probabilities to
    bf16 before PV, the plain version does not). K6 runs a skewed ragged
    wave (1 to 1,152 tokens, a 4-row verification chunk sharing its pages, a
    zero-length row, power-of-two pad pages) and must also be bitwise equal
    to K3 on each row's rebuilt table, and each row bitwise equal to a solo
-   launch of that row. Each kernel is timed with CUDA events (L2 flushed
-   before every launch) beside its plain version, one PyTorch library call
-   where one computes the same function, and its bound (bytes over 3.35
-   TB/s or operations over the peak rate of their type, from this run's
-   inputs).
+   launch of that row. K8 must be bitwise K3 over the f32-dequantised cache.
+   K5 (at K3's wave) and K7 (at K6's wave) are held against their plain
+   statistics; their one-shard combine must be bitwise K3/K6, and the
+   combine of 4 disjoint slices of each row's pages within 1e-5 of K3/K6 in
+   f32. Each kernel is timed with CUDA events (L2 flushed before every
+   launch) beside its plain version, one PyTorch library call where one
+   computes the same function, and its bound (bytes over 3.35 TB/s or
+   operations over the peak rate of their type, from this run's inputs),
+   at the shapes of the path that runs it (K5 at the sharded decode's
+   32,768-token request).
 2. Main path at Llama-3-8B width (random weights from seed 0): engine A
    prefills 4 prompts of 2048 tokens and saves them through
    ``KVConnector.save`` to an in-process store; engine B looks each prompt up
@@ -33,7 +39,17 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    and every kernel must have launched in it.
 3. A small f32 model through the same round trip twice, on the card (the
    kernels) and on the CPU (the plain versions): logits agree to 2e-4.
-4. Engine phase at Llama-3-8B width (bf16, the main path's weights; a fresh
+4. int8 round trip at Llama-3-8B width: engine A's 4 x 2,048-token bf16
+   prefixes are quantised (``quantize_kv``) and saved through
+   ``QuantizedKVConnector`` to a fresh store (2 GiB in 16 KiB units, see
+   ``INT8_STORE_UNIT``); engine B looks them up (all 128 blocks hit) and
+   loads them into its own int8 caches at other block ids; data and scales
+   must be byte-equal. K8 then decodes a seeded bf16 query wave [4, 32,
+   128] over the 2,048-token contexts for all 32 layers, bitwise K3 over the
+   dequantised cache; its largest difference from K3 over the original
+   bf16 cache (the int8 scheme's error), save/load GB/s and the store's
+   bytes per key are logged beside the bf16 main path's.
+5. Engine phase at Llama-3-8B width (bf16, the main path's weights; a fresh
    store with a 2 GiB pool): one ``ContinuousBatchingHarness`` (1,024
    blocks = 2 GiB of KV, 72 blocks per request, n-gram drafts of up to 7)
    serves two rounds of 4 concurrent requests. Round 1: 1,024-token prompts
@@ -45,9 +61,27 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    ``verify_step_ragged`` (K6). Every request's prompt blocks must match the
    model's own prefill within the bf16 tolerance ``ENGINE_VERIFY_TOL``, and
    K1, K2, K3, K4 and K6 must each have launched in the phase.
-5. The same two rounds scaled down on a small f32 model (head_dim 64) on the
-   card and on the CPU: identical generated tokens, every request verified
-   within 2e-4 on both.
+6. int8 engine phase: the same two rounds through ``QuantizingKVAdapter``
+   (the engine keeps its bf16 cache, the store holds int8 + scales) on a
+   fresh 2 GiB store with the same 32 KiB unit; round 2's requests are
+   verified within a tolerance derived from the int8 scheme
+   (``_int8_verify_tol``). TTFT, prefix-ready, tokens/s and the store's
+   bytes are logged beside the bf16 engine phase's.
+7. The engine's two rounds scaled down on a small f32 model (head_dim 64)
+   on the card and on the CPU, through the plain adapter and through the
+   quantizing one: every request verified on both devices; the plain
+   adapter's tokens must be identical on the card and the CPU, and so must
+   the int8 adapter's first round (its second reads int8 prefixes
+   quantised from values that may differ in the last place between the two
+   devices; the share of identical tokens is logged).
+8. Sharded decode on a process group of world size 1 (NCCL, FileStore):
+   ``paged_decode_attention_sharded`` over a 32,768-token bf16 context of
+   one layer (128 MiB of K+V) and ``paged_decode_attention_ragged_sharded``
+   over the kernel phase's skewed wave; both must be bitwise K3/K6 (the
+   one-shard combine) and K5/K7 must have launched. One card has no second
+   rank: the multi-rank combine is held on the CPU (4 gloo ranks,
+   ``tests/test_torch_sharded_decode.py``) and, over 4 slices stacked in
+   one process, by the kernel phase.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -89,6 +123,13 @@ ENGINE_REQ_BLOCKS = 72
 # O(1). allclose(rtol=atol=0.1).
 ENGINE_VERIFY_TOL = 0.1
 SMALL_ENGINE = dict(shared=32, tail=32, span=8, keep=48, new=16, gen=16)
+# The int8 round trip's store unit: the smallest ServerConfig allows. An int8
+# data block (16 tokens x 8 KV heads x 128) is 16 KiB and a scale block 512
+# B, and the store allocates whole units, so each takes one: 65,536 keys x
+# 16 KiB = 1 GiB for the 4 x 2,048-token prefixes, half of a 2 GiB pool (at
+# the main path's 32 KiB unit they would take the whole pool).
+INT8_STORE_UNIT = 16 << 10
+SHARDED_CONTEXT = 32768  # tokens of the sharded decode's one request
 
 TPU_KERNELS = {
     "gather_blocks": ("infinistore_tpu/tpu/paged.py:115", "paged_copy.cu"),
@@ -97,12 +138,22 @@ TPU_KERNELS = {
     "flash_prefill": ("infinistore_tpu/tpu/flash_prefill.py:152", "flash_prefill.cu"),
     "paged_decode_attention_ragged": ("infinistore_tpu/tpu/paged_attention.py:555",
                                       "paged_attention.cu"),
+    "paged_decode_attention_stats": ("infinistore_tpu/tpu/paged_attention.py:250",
+                                     "paged_attention_stats.cu"),
+    "paged_decode_attention_ragged_stats": ("infinistore_tpu/tpu/paged_attention.py:575",
+                                            "paged_attention_stats.cu"),
+    "paged_decode_attention_quantized": ("infinistore_tpu/tpu/kv_quant.py:107", "kv_quant.cu"),
 }
+ENGINE_KERNELS = ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill",
+                  "paged_decode_attention_ragged")
 # The kernels each path must run (its launch counts are zeroed just before it).
 PATH_KERNELS = {
     "prefill_store_decode": ("gather_blocks", "scatter_blocks", "paged_decode_attention",
                              "flash_prefill"),
-    "engine": tuple(TPU_KERNELS),
+    "int8_round_trip": ("gather_blocks", "scatter_blocks", "paged_decode_attention_quantized"),
+    "engine": ENGINE_KERNELS,
+    "int8_engine": ENGINE_KERNELS,
+    "sharded_decode": ("paged_decode_attention_stats", "paged_decode_attention_ragged_stats"),
 }
 
 
@@ -269,33 +320,176 @@ def kernel_phase(torch, timer):
                     qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
             )
 
-    results["paged_decode_attention_ragged"] = _ragged_kernel_check(torch, timer, g, pa)
+    (results["paged_decode_attention_ragged"],
+     results["paged_decode_attention_ragged_stats"]) = _ragged_kernel_check(torch, timer, g, pa)
+    # K8 and K5 at K3's wave (drawn last, so the earlier kernels keep their inputs).
+    results["paged_decode_attention_quantized"] = _quant_kernel_check(
+        torch, timer, g, tables, (full, ragged), n_cache)
+    results["paged_decode_attention_stats"] = _stats_kernel_check(
+        torch, timer, g, tables, (full, ragged), n_cache)
     return results
 
 
-def _ragged_kernel_check(torch, timer, g, pa):
-    """K6 on a skewed wave at the engine phase's widths: against its plain
-    version, bitwise against K3 per row, bitwise against solo launches."""
-    import numpy as np
+def _slices(n_parts, width):
+    """``n_parts`` disjoint, contiguous slices of ``width`` table entries."""
+    part = width // n_parts
+    return [slice(s * part, (s + 1) * part) for s in range(n_parts)]
+
+
+def _slice_lens(lens, sl, bt):
+    """The tokens of each row that fall in table slice ``sl``."""
+    return [min(max(n - sl.start * bt, 0), (sl.stop - sl.start) * bt) for n in lens]
+
+
+def _quant_kernel_check(torch, timer, g, tables, waves, n_cache):
+    """K8 at the int8 round trip's wave (4 requests at 2,048 tokens): against
+    its plain version, and bitwise K3 on q.float() over the f32-dequantised
+    cache."""
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
 
     cfg = LLAMA3_8B
     bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
     d = cfg["dim"] // h
+    bsz = tables.shape[0]
+    kd, ks = kq.quantize_kv(torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda"))
+    vd, vs = kq.quantize_kv(torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda"))
+    kf, vf = kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs)
+    full = waves[0]
+    out = None
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn((bsz, h, d), generator=g, device="cuda").to(dtype)
+        err = 0.0
+        for lens in waves:
+            got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
+            want = kq._quant_decode_plain(q, kd, ks, vd, vs, tables, lens)
+            k3 = pa.paged_decode_attention_batched(q.float(), kf, vf, tables, lens).to(dtype)
+            torch.cuda.synchronize()
+            err = max(err, max_err(got, want))
+            if not torch.equal(got, k3):
+                raise AssertionError(f"quantized decode {dtype}: not bitwise K3 over the "
+                                     "dequantised cache")
+        if not err <= tol:
+            raise AssertionError(f"quantized decode {dtype}: max abs err {err} > {tol}")
+        if float(got[-1].float().abs().max()) != 0.0:
+            raise AssertionError("quantized decode: seq_len 0 must give zeros")
+        log(f"K8 {dtype}: max abs err {err:.3e} (tol {tol}); bitwise K3 over the dequantised cache")
+        if dtype is torch.bfloat16:
+            tokens = int(full.sum())
+            nbytes = 2 * tokens * kvh * (d + 4) + 2 * q.numel() * q.element_size() + \
+                tables.numel() * 4 + bsz * 4  # int8 data + f32 scales, q and out
+            bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, "float32")
+            args = (q, kd, ks, vd, vs, tables, full)
+            out = dict(max_abs_err=err,
+                       ms=timer.ms(lambda: kq.paged_decode_attention_quantized(*args)),
+                       plain_ms=timer.ms(lambda: kq._quant_decode_plain(*args)),
+                       bound_ms=bms, bound_by=by, library_ms=None)
+    return out
+
+
+def _stats_kernel_check(torch, timer, g, tables, waves, n_cache):
+    """K5 at K3's wave: against its plain statistics, its one-shard combine
+    bitwise K3, the combine of 4 disjoint slices of each row's pages within
+    1e-5 of K3 (f32). Timed at the sharded decode's one request of
+    ``SHARDED_CONTEXT`` tokens."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    cfg = LLAMA3_8B
+    bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
+    d = cfg["dim"] // h
+    bsz = tables.shape[0]
+    ident = lambda t: t  # noqa: E731
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn((bsz, h, d), generator=g, device="cuda").to(dtype)
+        kc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+        vc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+        err = err4 = 0.0
+        for lens in waves:
+            stats = pa._decode_attention_stats(q, kc, vc, tables, lens)
+            err = max(err, _stats_err(torch, stats, pa.decode_attention_stats_plain(
+                q, kc, vc, tables, lens)))
+            k3 = pa.paged_decode_attention_batched(q, kc, vc, tables, lens)
+            if not torch.equal(pa.combine_stats(*stats, dtype, ident, ident), k3):
+                raise AssertionError(f"decode stats {dtype}: one-shard combine is not K3")
+            if dtype is torch.float32:
+                parts = [pa._decode_attention_stats(
+                    q, kc, vc, tables[:, sl].contiguous(),
+                    torch.tensor(_slice_lens(lens.tolist(), sl, bt), dtype=torch.int32,
+                                 device="cuda"))
+                    for sl in _slices(4, tables.shape[1])]
+                acc4, m4, l4 = (torch.stack(x) for x in zip(*parts))
+                combined = pa.combine_stats(acc4, m4, l4, dtype, lambda t: t.amax(0),
+                                            lambda t: t.sum(0))
+                err4 = max(err4, max_err(combined, k3))
+            torch.cuda.synchronize()
+        if not err <= tol or not err4 <= 1e-5:
+            raise AssertionError(f"decode stats {dtype}: err {err} (tol {tol}), 4-slice "
+                                 f"combine err {err4} (tol 1e-5)")
+        log(f"K5 {dtype}: normalised max abs err {err:.3e} (tol {tol}); one-shard combine "
+            f"bitwise K3" + (f"; 4-slice combine {err4:.3e} from K3" if dtype is torch.float32 else ""))
+
+    # Timing at the sharded decode's shape: one request, SHARDED_CONTEXT tokens.
+    tokens = SHARDED_CONTEXT
+    q = torch.randn((1, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((tokens // bt, bt, kvh, d), generator=g, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((tokens // bt, bt, kvh, d), generator=g, device="cuda").to(torch.bfloat16)
+    table = torch.randperm(tokens // bt, generator=g, device="cuda").to(torch.int32)[None]
+    lens = torch.tensor([tokens], dtype=torch.int32, device="cuda")
+    args = (q, kc, vc, table, lens)
+    err = _stats_err(torch, pa._decode_attention_stats(*args),
+                     pa.decode_attention_stats_plain(*args))
+    if not err <= 2e-2:
+        raise AssertionError(f"decode stats at {tokens} tokens: max abs err {err}")
+    nbytes = 2 * tokens * kvh * d * 2 + q.numel() * 2 + (h * d + 2 * h) * 4 + table.numel() * 4 + 4
+    bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, "float32")
+    return dict(max_abs_err=err, ms=timer.ms(lambda: pa._decode_attention_stats(*args)),
+                plain_ms=timer.ms(lambda: pa.decode_attention_stats_plain(*args), iters=3),
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def _stats_err(torch, stats, plain):
+    """Largest difference of two sets of raw statistics, normalised (acc /
+    l, the function they compute); m and l themselves must agree to 1e-5
+    relative (f32 sums in another order)."""
+    (acc, m, l), (acc_p, m_p, l_p) = stats, plain
+    for a, b in ((m, m_p), (l, l_p)):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"decode stats: m or l differ by {max_err(a, b)}")
+    return max_err(acc / torch.clamp(l, min=1e-30), acc_p / torch.clamp(l_p, min=1e-30))
+
+
+def _skewed_wave():
+    """The kernel phase's skewed ragged wave at the engine's widths: (per-row
+    lens, per-row tables, table width, cache blocks). Rows 3-6 are one
+    request's 4-token verification chunk (shared pages)."""
+    import numpy as np
+
     width = ENGINE_REQ_BLOCKS
-    # Rows 3-6 are one request's 4-token verification chunk (shared pages).
     lens = [1, 1152, 0, 300, 301, 302, 303, 700, 64, 17, 1000]
     req_of = [0, 1, 2, 3, 3, 3, 3, 4, 5, 6, 7]
     n_cache = 8 * width + 16
     rng = np.random.default_rng(5)
     req_tables = rng.permutation(n_cache)[: 8 * width].astype(np.int32).reshape(8, width)
-    row_tables = [req_tables[i] for i in req_of]
+    return lens, [req_tables[i] for i in req_of], width, n_cache
+
+
+def _ragged_kernel_check(torch, timer, g, pa):
+    """K6 on a skewed wave at the engine phase's widths: against its plain
+    version, bitwise against K3 per row, bitwise against solo launches. K7
+    on the same wave: against its plain statistics, its one-shard combine
+    bitwise K6, the combine of 4 disjoint slices of each row's pages within
+    1e-5 of K6 (f32). Returns the two kernels' results."""
+    cfg = LLAMA3_8B
+    bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
+    d = cfg["dim"] // h
+    lens, row_tables, width, n_cache = _skewed_wave()
     m = pa.build_ragged_wave(row_tables, lens, bt, pad_to_pow2=True)
     pages, page_rows, page_starts, seq = (
         torch.from_numpy(x).cuda() for x in (m.pages, m.page_rows, m.page_starts, m.seq_lens))
     rows_k3 = pa._ragged_row_tables(pages, page_starts, width).contiguous()
     read = {int(m.pages[m.page_starts[r] + j]) for r, n in enumerate(lens)
             for j in range(-(-n // bt))}
-    out = None
+    out = out7 = None
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         q = torch.randn((len(lens), h, d), generator=g, device="cuda").to(dtype)
         kc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
@@ -330,13 +524,62 @@ def _ragged_kernel_check(torch, timer, g, pa):
                 raise AssertionError(f"ragged decode {dtype}: row {r} differs from its solo launch")
         log(f"K6 {dtype}: max abs err {err:.3e} (tol {tol}); bitwise K3 per row and solo per row; "
             f"{m.num_pages} pages ({m.pad_pages} pad), {len(read)} distinct read")
+        err7 = _ragged_stats_check(torch, pa, q, kc, vc, (pages, page_rows, page_starts, seq),
+                                   got, lens, row_tables, width, tol)
         if dtype is torch.bfloat16:
-            nbytes = (2 * len(read) * bt * kvh * d + 2 * q.numel()) * q.element_size() + \
-                (m.num_pages + 3 * len(lens) + 1) * 4
-            bms, by = bound_ms(nbytes, 4.0 * h * d * sum(lens), "float32")
+            meta_bytes = (m.num_pages + 3 * len(lens) + 1) * 4
+            kv_bytes = 2 * len(read) * bt * kvh * d * q.element_size()
+            flops = 4.0 * h * d * sum(lens)
+            bms, by = bound_ms(kv_bytes + 2 * q.numel() * q.element_size() + meta_bytes, flops,
+                               "float32")
             out = dict(max_abs_err=err, ms=timer.ms(run), plain_ms=timer.ms(plain),
                        bound_ms=bms, bound_by=by, library_ms=None)
-    return out
+            stats_args = (q, kc, vc, pages, page_rows, page_starts, seq, width)
+            # K7 writes f32 acc [R, H, D] and m, l [R, H] where K6 writes q's dtype.
+            out_bytes = q.numel() * 4 + 2 * len(lens) * h * 4
+            bms, by = bound_ms(kv_bytes + q.numel() * q.element_size() + out_bytes + meta_bytes,
+                               flops, "float32")
+            out7 = dict(max_abs_err=err7,
+                        ms=timer.ms(lambda: pa._decode_attention_stats_ragged(*stats_args)),
+                        plain_ms=timer.ms(lambda: pa.decode_attention_stats_ragged_plain(
+                            q, kc, vc, pages, page_starts, seq, width)),
+                        bound_ms=bms, bound_by=by, library_ms=None)
+    return out, out7
+
+
+def _ragged_stats_check(torch, pa, q, kc, vc, meta, k6, lens, row_tables, width, tol):
+    """K7 on one wave: against its plain statistics, its one-shard combine
+    bitwise K6 (``k6``), and in f32 the combine of 4 disjoint slices of each
+    row's pages (one ragged wave per slice) within 1e-5 of K6. Returns the
+    normalised error against the plain statistics."""
+    bt = kc.shape[1]
+    dtype = q.dtype
+    pages, page_rows, page_starts, seq = meta
+    ident = lambda t: t  # noqa: E731
+    stats = pa._decode_attention_stats_ragged(q, kc, vc, pages, page_rows, page_starts, seq,
+                                              width)
+    err = _stats_err(torch, stats, pa.decode_attention_stats_ragged_plain(
+        q, kc, vc, pages, page_starts, seq, width))
+    if not torch.equal(pa.combine_stats(*stats, dtype, ident, ident), k6):
+        raise AssertionError(f"ragged stats {dtype}: one-shard combine is not K6")
+    err4 = 0.0
+    if dtype is torch.float32:
+        cuts = _slices(4, width)
+        sp, srows, sstarts, slens, swidth = pa.build_ragged_wave_sharded(
+            [[t[sl] for t in row_tables] for sl in cuts],
+            [_slice_lens(lens, sl, bt) for sl in cuts], bt)
+        parts = [pa._decode_attention_stats_ragged(q, kc, vc, sp[s], srows[s], sstarts[s],
+                                                   slens[s], swidth) for s in range(4)]
+        acc4, m4, l4 = (torch.stack(x) for x in zip(*parts))
+        err4 = max_err(pa.combine_stats(acc4, m4, l4, dtype, lambda t: t.amax(0),
+                                        lambda t: t.sum(0)), k6)
+    torch.cuda.synchronize()
+    if not err <= tol or not err4 <= 1e-5:
+        raise AssertionError(f"ragged stats {dtype}: err {err} (tol {tol}), 4-slice combine "
+                             f"err {err4} (tol 1e-5)")
+    log(f"K7 {dtype}: normalised max abs err {err:.3e} (tol {tol}); one-shard combine bitwise "
+        f"K6" + (f"; 4-slice combine {err4:.3e} from K6" if dtype is torch.float32 else ""))
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +673,8 @@ def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
             if written != 2 * nb * cfg.n_layers:
                 raise AssertionError(f"save wrote {written} blocks")
         save_s = time.perf_counter() - t0
+        store = conn_a.get_stats()
+        store_bytes_per_key = store["used_bytes"] / store["kvmap_len"]
 
         # Engine B: look up and load into different block ids.
         for p in range(PROMPTS):
@@ -491,8 +736,13 @@ def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
         "load_GBps": kv_bytes / load_s / 1e9,
         "decode_ms_per_step": decode_ms,
         "kv_bytes_moved": kv_bytes,
+        "store_bytes_per_key": store_bytes_per_key,
     }
-    return metrics, launches, params
+    # What the int8 round trip takes over: engine A's caches and tables.
+    state = dict(cfg=cfg, spec=spec, prompts=prompts, nb=nb, caches_a=caches_a,
+                 tables_a=tables_a, tables_b=tables_b, device=device, save_s=save_s,
+                 load_s=load_s)
+    return metrics, launches, params, state
 
 
 def _profile(torch, fn):
@@ -573,7 +823,121 @@ def small_model_phase(torch, server_port):
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the continuous-batching engine
+# Phase 4: the int8 round trip at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+
+def int8_round_trip(torch, server_port, state, bf16_metrics):
+    """Engine A's prefixes (``main_path``'s ``state``) quantised, saved
+    through ``QuantizedKVConnector``, looked up and loaded into engine B's
+    int8 caches, then decoded by K8 for every layer. Returns (metrics,
+    launches); the launches are read before the comparisons run."""
+    from infinistore_tpu_torch import config as config_mod
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    cfg, spec, prompts, nb = state["cfg"], state["spec"], state["prompts"], state["nb"]
+    caches_a, tables_a, tables_b = state["caches_a"], state["tables_a"], state["tables_b"]
+    device = state["device"]
+    n_req = len(prompts)
+    prompt_tokens = nb * cfg.block_tokens
+    head_dim = cfg.dim // cfg.n_heads
+    conn_a = _client(lib_mod, config_mod, server_port)
+    conn_b = _client(lib_mod, config_mod, server_port)
+    qa = kq.QuantizedKVConnector(conn_a, spec, "llama-3-8b", max_blocks=nb, device=device)
+    qb = kq.QuantizedKVConnector(conn_b, spec, "llama-3-8b", max_blocks=nb, device=device)
+    try:
+        _ext.reset_launches()
+        quant_a = [(kq.quantize_kv(k), kq.quantize_kv(v)) for k, v in caches_a]
+        t0 = time.perf_counter()
+        for p in range(n_req):
+            written = asyncio.run(qa.save(prompts[p], quant_a, tables_a[p, :nb].cpu().numpy()))
+            if written != 2 * nb * cfg.n_layers:
+                raise AssertionError(f"int8 save wrote {written} data blocks")
+        save_s = time.perf_counter() - t0
+        store = conn_a.get_stats()
+        for p in range(n_req):
+            hit = qb.lookup(prompts[p])
+            if hit != nb:
+                raise AssertionError(f"int8 lookup of prompt {p} found {hit} blocks, expected {nb}")
+        quant_b = [
+            tuple((torch.zeros(spec.cache_shape, dtype=torch.int8, device=device),
+                   torch.zeros(spec.cache_shape[:-1], dtype=torch.float32, device=device))
+                  for _ in range(2))
+            for _ in range(cfg.n_layers)
+        ]
+        t0 = time.perf_counter()
+        for p in range(n_req):
+            quant_b, n = asyncio.run(qb.load(prompts[p], quant_b, tables_b[p, :nb].cpu().numpy()))
+            if n != nb:
+                raise AssertionError(f"int8 load of prompt {p} brought {n} blocks")
+        _sync(torch, device)
+        load_s = time.perf_counter() - t0
+
+        # K8 over engine B's int8 caches, one seeded bf16 query wave a layer.
+        g = torch.Generator(device=device).manual_seed(7)
+        lens = torch.full((n_req,), prompt_tokens, dtype=torch.int32, device=device)
+        qs = [torch.randn((n_req, cfg.n_heads, head_dim), generator=g, device=device)
+              .to(torch.bfloat16) for _ in range(cfg.n_layers)]
+        outs = [kq.paged_decode_attention_quantized(qs[layer], *quant_b[layer][0],
+                                                    *quant_b[layer][1], tables_b, lens)
+                for layer in range(cfg.n_layers)]
+        _sync(torch, device)
+        launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+    finally:
+        qa.close()
+        qb.close()
+        conn_a.close()
+        conn_b.close()
+
+    for layer in range(cfg.n_layers):
+        for side in (0, 1):
+            for part in (0, 1):
+                for p in range(n_req):
+                    a = quant_a[layer][side][part][tables_a[p, :nb].long()]
+                    b = quant_b[layer][side][part][tables_b[p, :nb].long()]
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"int8 layer {layer} side {side} part {part} prompt "
+                                             f"{p}: loaded bytes differ")
+    log("int8: engine B holds engine A's int8 data and scales byte for byte")
+    scheme_err = 0.0
+    for layer in range(cfg.n_layers):
+        (kd, ks), (vd, vs) = quant_b[layer]
+        k3 = pa.paged_decode_attention_batched(
+            qs[layer].float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables_b,
+            lens).to(torch.bfloat16)
+        ref = pa.paged_decode_attention_batched(qs[layer], *caches_a[layer], tables_a, lens)
+        out = outs[layer]
+        if out.shape != (n_req, cfg.n_heads, head_dim) or not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"int8 decode layer {layer}: bad output {tuple(out.shape)}")
+        if not torch.equal(out, k3):
+            raise AssertionError(f"int8 decode layer {layer}: K8 is not bitwise K3 over the "
+                                 "dequantised cache")
+        scheme_err = max(scheme_err, max_err(out, ref))
+    log(f"int8 decode: K8 bitwise K3 over the dequantised cache in all {cfg.n_layers} layers; "
+        f"largest difference from K3 over the bf16 cache {scheme_err:.3e}")
+    data_bytes = n_req * nb * cfg.n_layers * 2 * (qa.data.spec.block_nbytes
+                                                 + qa.scales.spec.block_nbytes)
+    metrics = {
+        "save_GBps": data_bytes / save_s / 1e9,
+        "load_GBps": data_bytes / load_s / 1e9,
+        "kv_bytes_moved": data_bytes,
+        "store_keys": store["kvmap_len"],
+        "store_used_bytes": store["used_bytes"],
+        "store_bytes_per_key": store["used_bytes"] / store["kvmap_len"],
+        "store_bytes_per_block_and_side": store["used_bytes"] / (store["kvmap_len"] // 2),
+        "bf16_store_bytes_per_block_and_side": bf16_metrics["store_bytes_per_key"],
+        "bf16_save_GBps": bf16_metrics["save_GBps"],
+        "bf16_load_GBps": bf16_metrics["load_GBps"],
+        "max_abs_err_vs_bf16_cache": scheme_err,
+    }
+    return metrics, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 to 7: the continuous-batching engine
 # ---------------------------------------------------------------------------
 
 
@@ -606,32 +970,45 @@ async def _serve(h, prompts, gen):
 
 
 def _run_engine(torch, server_port, params, cfg, device, model_id, traffic, num_blocks,
-                req_blocks, verify_tol):
+                req_blocks, verify_tol, quantized=False):
     """Both rounds on one harness, from one event loop; returns per-round
-    (metrics, stats, wall seconds, waves in the round), and the harness (its
-    wave and speculation counters span both rounds)."""
+    (metrics, stats, wall seconds, waves in the round), the harness (its wave
+    and speculation counters span both rounds), and the store's occupancy
+    after both rounds. ``quantized``: the harness runs over
+    ``QuantizingKVAdapter`` (int8 + scales in the store) and its second
+    round is verified within ``_int8_verify_tol``."""
     import numpy as np
 
     from infinistore_tpu_torch import config as config_mod
     from infinistore_tpu_torch import lib as lib_mod
     from infinistore_tpu_torch.connector import KVConnector
+    from infinistore_tpu_torch.cuda.kv_quant import QuantizedKVConnector, QuantizingKVAdapter
     from infinistore_tpu_torch.engine import (
         ContinuousBatchingHarness, EngineKVAdapter, NGramDrafter,
     )
 
     rounds = _engine_rounds(np.random.default_rng(3), cfg.vocab, traffic)
     conn = _client(lib_mod, config_mod, server_port)
-    kv = KVConnector(conn, cfg.kv_spec(num_blocks), model_id, max_blocks=req_blocks,
-                     device=device)
+    if quantized:
+        # The adapter's staging rows: one request's blocks.
+        kv = QuantizedKVConnector(conn, cfg.kv_spec(req_blocks), model_id,
+                                  max_blocks=req_blocks, device=device)
+        adapter = QuantizingKVAdapter(kv)
+    else:
+        kv = KVConnector(conn, cfg.kv_spec(num_blocks), model_id, max_blocks=req_blocks,
+                         device=device)
+        adapter = EngineKVAdapter(kv)
     try:
         h = ContinuousBatchingHarness(
-            EngineKVAdapter(kv), params, cfg, num_blocks, req_blocks, verify=True,
+            adapter, params, cfg, num_blocks, req_blocks, verify=True,
             verify_tol=verify_tol, drafter=NGramDrafter(max_draft=7), device=device,
         )
 
         async def drive():
             out = []
-            for prompts in rounds:
+            for i, prompts in enumerate(rounds):
+                if quantized and i == 1:
+                    h.verify_tol = _int8_verify_tol(torch, h.caches, verify_tol)
                 h.stats.clear()
                 waves0 = h.wave.waves
                 stats, wall = await _serve(h, prompts, traffic["gen"])
@@ -639,10 +1016,29 @@ def _run_engine(torch, server_port, params, cfg, device, model_id, traffic, num_
                 out.append((h.metrics(), stats, wall, h.wave.waves - waves0))
             return out
 
-        return asyncio.run(drive()), h
+        results = asyncio.run(drive())
+        store = conn.get_stats()
+        return results, h, {"used_bytes": store["used_bytes"], "keys": store["kvmap_len"]}
     finally:
         kv.close()
         conn.close()
+
+
+def _int8_verify_tol(torch, caches, base_tol):
+    """The verification tolerance of requests whose prefix came back from
+    int8: ``base_tol`` (the float path's own) plus two quantization steps of
+    the largest vector in the cache. quantize_kv's per-element error is at
+    most half a step, absmax / 254 (tests/test_kv_quant.py:36-38), and no
+    vector's absmax exceeds the largest value in the cache, read here from
+    the blocks the first round computed exactly: that bounds a hit's loaded
+    blocks. The suffix resumed over them carries the error through the
+    attention, which the scheme does not bound: on the repo's small f32
+    models on the CPU (2 and 8 layers, tests/test_torch_kv_quant.py) it
+    reached 1.1 steps in the first layer above the prefix and fell off
+    deeper. Two steps cover both with room; a wrong or stale block differs
+    by O(1). Used as both rtol and atol, as ``base_tol`` is."""
+    absmax = max(float(c.abs().max()) for pair in caches for c in pair)
+    return base_tol + 2.0 * absmax / 127.0
 
 
 def _check_rounds(results, traffic, bt, what):
@@ -662,19 +1058,7 @@ def _check_rounds(results, traffic, bt, what):
                              f"{last['spec_drafted_tokens']})")
 
 
-def engine_phase(torch, server_port, params, smi):
-    """Phase 4: Llama-3-8B width, bf16, on the card."""
-    from infinistore_tpu_torch.cuda import _ext
-    from infinistore_tpu_torch.models import llama
-
-    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **LLAMA3_8B)
-    _ext.reset_launches()
-    results, h = _run_engine(torch, server_port, params, cfg, "cuda", "llama-3-8b-engine",
-                             ENGINE, ENGINE_BLOCKS, ENGINE_REQ_BLOCKS, ENGINE_VERIFY_TOL)
-    launches = dict(_ext.LAUNCHES)
-    _check_rounds(results, ENGINE, cfg.block_tokens, "engine phase")
-    log(f"engine phase all_verified (bf16 verify_tol {ENGINE_VERIFY_TOL}, rtol = atol) "
-        f"in both rounds; round 2 loaded {results[1][0]['loaded_blocks']} blocks")
+def _engine_summary(results, h, store, smi):
     summary = {"card": smi}
     for i, (m, stats, wall, waves) in enumerate(results):
         summary[f"round{i + 1}"] = {
@@ -696,10 +1080,30 @@ def engine_phase(torch, server_port, params, smi):
     summary["spec_drafted_tokens"] = last["spec_drafted_tokens"]
     summary["spec_accepted_tokens"] = last["spec_accepted_tokens"]
     summary["wave_buckets"] = len(last["wave_buckets"])
+    summary["store_used_bytes"] = store["used_bytes"]
+    summary["store_keys"] = store["keys"]
+    return summary
+
+
+def engine_phase(torch, server_port, params, smi):
+    """Phase 5: Llama-3-8B width, bf16, on the card. Returns (launches,
+    summary)."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **LLAMA3_8B)
+    _ext.reset_launches()
+    results, h, store = _run_engine(torch, server_port, params, cfg, "cuda", "llama-3-8b-engine",
+                                    ENGINE, ENGINE_BLOCKS, ENGINE_REQ_BLOCKS, ENGINE_VERIFY_TOL)
+    launches = dict(_ext.LAUNCHES)
+    _check_rounds(results, ENGINE, cfg.block_tokens, "engine phase")
+    log(f"engine phase all_verified (bf16 verify_tol {ENGINE_VERIFY_TOL}, rtol = atol) "
+        f"in both rounds; round 2 loaded {results[1][0]['loaded_blocks']} blocks")
+    summary = _engine_summary(results, h, store, smi)
     log(f"engine phase: {json.dumps(summary)}")
     log(f"profile engine wave: {json.dumps(_profile_wave(torch, h, cfg))}")
     log(f"engine phase launches: {json.dumps(launches)}")
-    return launches
+    return launches, summary
 
 
 def _profile_wave(torch, h, cfg):
@@ -725,24 +1129,135 @@ def _profile_wave(torch, h, cfg):
         tables, cfg, mrb))
 
 
+def int8_engine_phase(torch, server_port, params, smi, bf16_summary):
+    """Phase 6: the engine phase's rounds through QuantizingKVAdapter."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **LLAMA3_8B)
+    _ext.reset_launches()
+    results, h, store = _run_engine(torch, server_port, params, cfg, "cuda",
+                                    "llama-3-8b-int8-engine", ENGINE, ENGINE_BLOCKS,
+                                    ENGINE_REQ_BLOCKS, ENGINE_VERIFY_TOL, quantized=True)
+    launches = dict(_ext.LAUNCHES)
+    _check_rounds(results, ENGINE, cfg.block_tokens, "int8 engine phase")
+    summary = _engine_summary(results, h, store, smi)
+    summary["round2_verify_tol"] = h.verify_tol
+    log(f"int8 engine phase all_verified (round 1 tol {ENGINE_VERIFY_TOL}, round 2 tol "
+        f"{h.verify_tol:.4f}, rtol = atol); round 2 loaded {results[1][0]['loaded_blocks']} "
+        "blocks")
+    log(f"int8 engine phase: {json.dumps(summary)}")
+    side = {}
+    for key in ("p50_ttft_us", "p50_prefix_ready_hit_us", "p50_prefix_ready_miss_us",
+                "generated_tokens_per_s"):
+        for rnd in ("round1", "round2"):
+            side[f"{rnd}.{key}"] = {"bf16": bf16_summary[rnd][key], "int8": summary[rnd][key]}
+    side["store_used_bytes"] = {"bf16": bf16_summary["store_used_bytes"],
+                                "int8": summary["store_used_bytes"]}
+    log(f"engine bf16 vs int8 store: {json.dumps(side)}")
+    log(f"int8 engine phase launches: {json.dumps(launches)}")
+    return launches
+
+
 def small_engine_phase(torch, server_port):
-    """Phase 5: the same traffic scaled down, f32, card against CPU."""
+    """Phase 7: the same traffic scaled down, f32, card against CPU, through
+    the plain adapter and through the quantizing one."""
     from infinistore_tpu_torch.models import llama
 
     cfg = llama.LlamaConfig(vocab=128, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
                             ffn_dim=256, block_tokens=8, dtype=torch.float32)
     params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    tokens = {}
-    for device in ("cuda", "cpu"):
-        params = {k: v.to(device) for k, v in params_cpu.items()}
-        results, _ = _run_engine(torch, server_port, params, cfg, device,
-                                 f"small-engine-{device}", SMALL_ENGINE, 64, 12, 2e-4)
-        _check_rounds(results, SMALL_ENGINE, cfg.block_tokens, f"small engine ({device})")
-        tokens[device] = [s.generated for _, stats, _, _ in results for s in stats]
-    if tokens["cuda"] != tokens["cpu"]:
-        raise AssertionError("small engine: the card's generated tokens differ from the CPU's")
-    log("small f32 engine: card (kernels) and CPU (plain) generate the same tokens; "
-        "all verified within 2e-4 on both")
+    for quantized in (False, True):
+        what = "small int8 engine" if quantized else "small engine"
+        tokens = {}
+        for device in ("cuda", "cpu"):
+            params = {k: v.to(device) for k, v in params_cpu.items()}
+            results, _, _ = _run_engine(
+                torch, server_port, params, cfg, device,
+                f"small-engine-{'q8-' if quantized else ''}{device}", SMALL_ENGINE, 64, 12, 2e-4,
+                quantized=quantized)
+            _check_rounds(results, SMALL_ENGINE, cfg.block_tokens, f"{what} ({device})")
+            tokens[device] = [[s.generated for s in stats] for _, stats, _, _ in results]
+        if not quantized and tokens["cuda"] != tokens["cpu"]:
+            raise AssertionError(f"{what}: the card's generated tokens differ from the CPU's")
+        if quantized and tokens["cuda"][0] != tokens["cpu"][0]:
+            raise AssertionError(f"{what}: the card's round-1 tokens differ from the CPU's")
+        pairs = [(a, b) for rc, rp in zip(tokens["cuda"][1], tokens["cpu"][1])
+                 for a, b in zip(rc, rp)]
+        same = sum(a == b for a, b in pairs) / len(pairs)
+        log(f"{what}: card (kernels) and CPU (plain) all verified; round 1 tokens identical, "
+            f"round 2 {same:.3f} of tokens identical")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: sharded decode on a process group of one rank
+# ---------------------------------------------------------------------------
+
+
+def sharded_decode_phase(torch, device="cuda", backend="nccl", geometry=LLAMA3_8B,
+                         tokens=SHARDED_CONTEXT):
+    """Both sharded entry points on a process group of world size 1 (the
+    card's only rank), initialised from a FileStore: one request over
+    ``SHARDED_CONTEXT`` tokens of one layer, and the kernel phase's skewed
+    wave. Returns the path's launches, read before the comparisons (K3 and
+    K6 over the same caches, which the one-shard combine must equal
+    bitwise). A CPU rehearsal passes device="cpu", backend="gloo" and a small
+    ``geometry`` and ``tokens``."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, kvh, h = geometry["block_tokens"], geometry["n_kv_heads"], geometry["n_heads"]
+    d = geometry["dim"] // h
+    g = torch.Generator(device=device).manual_seed(99)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+    q = randn((h, d))
+    kc, vc = randn((tokens // bt, bt, kvh, d)), randn((tokens // bt, bt, kvh, d))
+    table = torch.randperm(tokens // bt, generator=g, device=device).to(torch.int32)
+    lens, row_tables, width, n_cache = _skewed_wave()
+    rq = randn((len(lens), h, d))
+    rkc, rvc = randn((n_cache, bt, kvh, d)), randn((n_cache, bt, kvh, d))
+    pages, rows, starts, slens, swidth = pa.build_ragged_wave_sharded([row_tables], [lens], bt)
+    if backend == "nccl":
+        # Loopback for NCCL's bootstrap; a caller's own setting wins.
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/filestore", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            _ext.reset_launches()
+            one = pa.paged_decode_attention_sharded(q, kc, vc, table, tokens)
+            wave = pa.paged_decode_attention_ragged_sharded(
+                rq, rkc, rvc, pages[0], rows[0], starts[0], slens[0], table_width=swidth)
+            _sync(torch, device)
+            launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+        finally:
+            dist.destroy_process_group()
+    k3 = pa.paged_decode_attention_batched(
+        q[None], kc, vc, table[None],
+        torch.tensor([tokens], dtype=torch.int32, device=device))[0]
+    meta = [torch.from_numpy(x).to(device) for x in (pages[0], rows[0], starts[0], slens[0])]
+    k6 = pa.paged_decode_attention_ragged(rq, rkc, rvc, *meta, table_width=swidth)
+    _sync(torch, device)
+    for what, got, want in (("sharded decode", one, k3), ("ragged sharded decode", wave, k6)):
+        if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{what}: bad output {tuple(got.shape)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: the one-rank combine is not bitwise the unsharded "
+                                 f"kernel (max abs diff {max_err(got, want)})")
+    log(f"sharded decode ({backend}, world size 1): {tokens}-token request and the "
+        f"{len(lens)}-row skewed wave bitwise K3 / K6; the multi-rank combine is held only "
+        "on the CPU (4 gloo ranks, tests/test_torch_sharded_decode.py) and over 4 slices in "
+        "the kernel phase, since one card has no second rank")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -802,7 +1317,7 @@ def main() -> int:
                                     pin_memory=False)
     try:
         _ext.reset_launches()
-        metrics, paths["prefill_store_decode"], params = main_path(torch, server.port)
+        metrics, paths["prefill_store_decode"], params, state = main_path(torch, server.port)
         log(f"main path: {json.dumps(metrics)}")
         log(f"main path launches: {json.dumps(paths['prefill_store_decode'])}")
         torch.cuda.empty_cache()
@@ -810,18 +1325,41 @@ def main() -> int:
     finally:
         server.stop()
 
-    # The engine gets a fresh store; the main path's caches are gone, its
-    # weights are reused.
+    # The int8 round trip takes over engine A's caches, with a store of its own.
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=INT8_STORE_UNIT,
+                                    pin_memory=False)
+    try:
+        int8_metrics, paths["int8_round_trip"] = int8_round_trip(torch, server.port, state,
+                                                                 metrics)
+        log(f"int8 round trip: {json.dumps(int8_metrics)}")
+        log(f"int8 round trip launches: {json.dumps(paths['int8_round_trip'])}")
+    finally:
+        server.stop()
+    del state
+
+    # Each engine phase gets a fresh store; the main path's caches are gone,
+    # its weights are reused.
     torch.cuda.empty_cache()
     server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
                                     pin_memory=False)
     try:
-        paths["engine"] = engine_phase(torch, server.port, params, smi)
+        paths["engine"], engine_summary = engine_phase(torch, server.port, params, smi)
+    finally:
+        server.stop()
+    torch.cuda.empty_cache()
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        paths["int8_engine"] = int8_engine_phase(torch, server.port, params, smi,
+                                                 engine_summary)
         del params
         torch.cuda.empty_cache()
         small_engine_phase(torch, server.port)
     finally:
         server.stop()
+
+    paths["sharded_decode"] = sharded_decode_phase(torch)
+    log(f"sharded decode launches: {json.dumps(paths['sharded_decode'])}")
 
     for path, names in PATH_KERNELS.items():
         idle = [name for name in names if paths[path][name] == 0]

@@ -4,9 +4,9 @@ The PyTorch port of ``infinistore_tpu``. The store itself (native core,
 client, server) is framework-neutral and kept here as copies; what touches
 device memory (the paged cache, its staging to host, the layerwise writer and
 reader, the connector and the model) is rewritten on torch tensors, and the
-TPU kernels on the prefill -> store -> decode path and on the
-continuous-batching engine's ragged waves are hand-written CUDA kernels for
-Hopper (``cuda/csrc``). The package imports nothing of
+TPU kernels (paged block copies, batched, ragged, sharded and int8 paged
+decode, flash prefill) are hand-written CUDA kernels for Hopper
+(``cuda/csrc``). The package imports nothing of
 ``infinistore_tpu`` and never imports jax.
 
 Importing the package loads nothing: every name resolves lazily, so neither
@@ -39,8 +39,13 @@ _LAZY = {
     ),
     "cuda.paged": ("PagedKVCacheSpec", "gather_blocks", "scatter_blocks"),
     "cuda.paged_attention": (
-        "RaggedWaveMeta", "build_ragged_wave", "paged_decode_attention_ragged",
-        "paged_decode_attention_rows",
+        "RaggedWaveMeta", "build_ragged_wave", "build_ragged_wave_sharded",
+        "paged_decode_attention_ragged", "paged_decode_attention_ragged_sharded",
+        "paged_decode_attention_rows", "paged_decode_attention_sharded",
+    ),
+    "cuda.kv_quant": (
+        "QuantizedKVConnector", "QuantizingKVAdapter", "dequantize_kv",
+        "paged_decode_attention_quantized", "quantize_kv",
     ),
 }
 _WHERE = {name: mod for mod, names in _LAZY.items() for name in names}

@@ -1,7 +1,8 @@
 """Engine-facing KV-cache connector (port of ``infinistore_tpu/connector.py``:
 ``token_chain_hashes``, ``_ChainHashCache``, ``FetchCoalescer`` and
 ``KVConnector`` with lookup / save / load / start_fetch / start_fetch_async /
-manifest / get_stats / drop).
+stage_layer_save / manifest / get_stats / drop; ``handoff`` belongs to the
+disaggregation path and is not ported yet).
 
 A connector hashes token prefixes into chain keys, asks the store how much
 of a prompt is already cached (``get_match_last_index``), and streams
@@ -21,6 +22,7 @@ import hashlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import tracing, wire
 from .cuda import _ext
@@ -30,7 +32,7 @@ from .cuda.layerwise import (
     LayerwisePrefetch,
     PartialReadError,
 )
-from .cuda.paged import PagedKVCacheSpec
+from .cuda.paged import PagedKVCacheSpec, gather_blocks
 from .cuda.staging import HostStagingPool, StagingPoolExhausted
 from .lib import (
     InfiniStoreColdTier,
@@ -575,6 +577,77 @@ class KVConnector:
         if self._coalescer is None or self._coalescer.base_ptr != pool.base_ptr:
             self._coalescer = FetchCoalescer(self.conn, self.spec.block_nbytes, pool.base_ptr)
         return self._coalescer
+
+    def stage_layer_save(
+        self, token_ids, layer: int, kv_pair, block_ids: np.ndarray,
+        first_block: int = 0, priority: int = wire.PRIORITY_BACKGROUND,
+    ):
+        """Stage ONE layer's computed blocks for saving; returns ``ship``,
+        an async callable that does the network puts (2*n blocks written).
+
+        The gathers (K1 on CUDA) and the device-to-host copy start NOW, on
+        the caller's thread, so the bytes are taken before later compute can
+        change the cache; ``ship()`` only awaits (the copy's wait runs in an
+        executor so it never stalls the caller's event loop). This is the
+        layer-granular half of ``save()`` for engines that stream saves as
+        each layer's forward completes: such callers MUST ship layer 0
+        last, because its keys are the whole-block presence sentinel
+        (``lookup``). Whole-request saves use ``save()``, whose writer
+        enforces that order itself.
+
+        ``priority``: QoS class of the puts (docs/qos.md); layer-streamed
+        saves default to BACKGROUND. The caller's active trace span is
+        captured now and rides the ship, which stamps ``submit`` when its
+        puts issue."""
+        chains = self._chains(token_ids)
+        if first_block < 0 or first_block > len(chains):
+            # Same bounds contract as save()/load(): out of range would
+            # silently slice to an empty chain list and a no-op ship.
+            raise ValueError(
+                f"first_block={first_block} outside the prompt's "
+                f"{len(chains)} complete blocks"
+            )
+        chains = chains[first_block:]
+        n = min(len(chains), len(block_ids))
+        if n == 0:
+            async def noop() -> int:
+                return 0
+
+            return noop
+        k_cache, v_cache = kv_pair
+        bn = self.spec.block_nbytes
+        ids = torch.as_tensor(np.asarray(block_ids[:n]), dtype=torch.int32,
+                              device=k_cache.device)
+        # One packed [K blocks | V blocks] tensor -> one D2H copy (the
+        # writer's shape, cuda/layerwise.py).
+        tr = self.pool.stage_out([
+            torch.cat([gather_blocks(k_cache, ids), gather_blocks(v_cache, ids)])
+        ])
+        keys_k = [(self.block_key(layer, "k", chains[i]), i * bn) for i in range(n)]
+        keys_v = [(self.block_key(layer, "v", chains[i]), (n + i) * bn) for i in range(n)]
+        pri_kw = wire.qos_kwargs(self.conn, priority)
+        # Capture the request's trace context HERE: ship() typically runs as
+        # a free-floating task whose context is whatever scheduled it.
+        span = tracing.active_span()
+
+        async def ship() -> int:
+            loop = asyncio.get_running_loop()
+            (kv_host,) = await loop.run_in_executor(None, tr.wait)
+            base = kv_host.ctypes.data
+            if span is not None:
+                span.stage("submit")
+                span.annotate(handoff_layer=layer, handoff_blocks=2 * n)
+            try:
+                with tracing.override_span(span):
+                    await asyncio.gather(
+                        self.conn.write_cache_async(keys_k, bn, base, **pri_kw),
+                        self.conn.write_cache_async(keys_v, bn, base, **pri_kw),
+                    )
+            finally:
+                tr.release()
+            return 2 * n
+
+        return ship
 
     def get_stats(self) -> dict:
         """The store connection's per-op stats snapshot."""

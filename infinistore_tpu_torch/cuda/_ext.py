@@ -26,7 +26,10 @@ import torch
 from .._build import BUILD_DIR, build_once
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("paged_copy.cu", "paged_attention.cu", "flash_prefill.cu")
+SOURCES = (
+    "paged_copy.cu", "paged_attention.cu", "paged_attention_stats.cu", "kv_quant.cu",
+    "flash_prefill.cu",
+)
 LIB_PATH = os.path.join(BUILD_DIR, "libits_kernels.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -39,6 +42,9 @@ LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_ragged": 0,
     "flash_prefill": 0,
+    "paged_decode_attention_stats": 0,
+    "paged_decode_attention_ragged_stats": 0,
+    "paged_decode_attention_quantized": 0,
 }
 
 _lib = None
@@ -116,9 +122,24 @@ def kernels() -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
                 c_int, ptr,
             ]
+            lib.its_paged_decode_attention_stats.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
+                c_int, c_int, c_int, ptr,
+            ]
+            lib.its_paged_decode_attention_ragged_stats.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int,
+                c_int, c_int, c_int, c_int, ptr,
+            ]
+            lib.its_paged_decode_attention_quantized.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
+                c_int, c_int, c_int, ptr,
+            ]
             for fn in (lib.its_gather_blocks, lib.its_scatter_blocks,
                        lib.its_paged_decode_attention,
-                       lib.its_paged_decode_attention_ragged, lib.its_flash_prefill):
+                       lib.its_paged_decode_attention_ragged, lib.its_flash_prefill,
+                       lib.its_paged_decode_attention_stats,
+                       lib.its_paged_decode_attention_ragged_stats,
+                       lib.its_paged_decode_attention_quantized):
                 fn.restype = c_int
             _lib = lib
     return _lib

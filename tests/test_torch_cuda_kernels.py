@@ -282,3 +282,120 @@ def test_engine_wave_matches_sequential_on_the_card(dev):
     for (wk, wv), (sk, sv) in zip(w_caches, s_caches):
         torch.testing.assert_close(wk, sk, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(wv, sv, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 4), (16, 4), (32, 4)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_decode_matches_plain_and_k3_bitwise(dev, d, h, kvh, dtype):
+    """K8 over zero, one-token, block-boundary, partial, full and past-the-
+    table rows: within tolerance of its plain version, and bitwise K3 run on
+    q.float() over the f32-dequantised cache, cast to q's dtype."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, n, max_blocks = 16, 40, 9
+    q = _randn(30, (6, h, d), dtype, dev)
+    kd, ks = kq.quantize_kv(_randn(31, (n, bt, kvh, d), torch.float32, dev) * 3)
+    vd, vs = kq.quantize_kv(_randn(32, (n, bt, kvh, d), torch.float32, dev))
+    g = torch.Generator().manual_seed(33)
+    tables = torch.stack([torch.randperm(n, generator=g)[:max_blocks] for _ in range(6)])
+    tables = tables.to(device=dev, dtype=torch.int32)
+    lens = torch.tensor([0, 1, bt, 3 * bt + 5, max_blocks * bt, max_blocks * bt + 50],
+                        dtype=torch.int32, device=dev)
+    before = _ext.LAUNCHES["paged_decode_attention_quantized"]
+    got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
+    assert _ext.LAUNCHES["paged_decode_attention_quantized"] == before + 1
+    clamped = lens.clamp(max=max_blocks * bt)
+    want = kq._quant_decode_plain(q, kd, ks, vd, vs, tables, clamped)
+    k3 = pa.paged_decode_attention_batched(
+        q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables, lens).to(dtype)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[dtype]
+    assert torch.equal(got, k3)
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_stats_match_plain_and_combine_to_k3_k6_bitwise(dev, d, dtype):
+    """K5 and K7 against their plain statistics (the empty row: acc 0, l 0,
+    m -1e30), and their one-shard combine bitwise K3 / K6."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, n, width, h, kvh = 16, 40, 6, 16, 4
+    q = _randn(34, (6, h, d), dtype, dev)
+    kc = _randn(35, (n, bt, kvh, d), dtype, dev)
+    vc = _randn(36, (n, bt, kvh, d), dtype, dev)
+    g = torch.Generator().manual_seed(37)
+    tables = torch.stack([torch.randperm(n, generator=g)[:width] for _ in range(6)])
+    tables = tables.to(device=dev, dtype=torch.int32)
+    lens = torch.tensor([0, 1, bt, 3 * bt + 5, width * bt, 2 * bt - 1], dtype=torch.int32,
+                        device=dev)
+    ident = lambda t: t  # noqa: E731
+    stats = pa._decode_attention_stats(q, kc, vc, tables, lens)
+    plain = pa.decode_attention_stats_plain(q, kc, vc, tables, lens)
+    for a, b in zip(stats, plain):
+        assert _err(a, b) <= 1e-4 * max(1.0, float(b.abs().max()))
+    assert torch.all(stats[1][0] == -1e30) and torch.all(stats[2][0] == 0)
+    assert torch.all(stats[0][0] == 0)
+    k3 = pa.paged_decode_attention_batched(q, kc, vc, tables, lens)
+    assert torch.equal(pa.combine_stats(*stats, dtype, ident, ident), k3)
+
+    m = pa.build_ragged_wave([t.cpu().numpy() for t in tables], lens.cpu().numpy(), bt,
+                             pad_to_pow2=True)
+    meta = [torch.from_numpy(x).to(dev) for x in (m.pages, m.page_rows, m.page_starts,
+                                                    m.seq_lens)]
+    rstats = pa._decode_attention_stats_ragged(q, kc, vc, *meta, table_width=width)
+    rplain = pa.decode_attention_stats_ragged_plain(q, kc, vc, meta[0], meta[2], meta[3], width)
+    for a, b in zip(rstats, rplain):
+        assert _err(a, b) <= 1e-4 * max(1.0, float(b.abs().max()))
+    k6 = pa.paged_decode_attention_ragged(q, kc, vc, *meta, table_width=width)
+    assert torch.equal(pa.combine_stats(*rstats, dtype, ident, ident), k6)
+    assert torch.equal(k6, k3)
+
+
+@pytest.mark.parametrize("enable_shm", [True, False], ids=["shm", "socket"])
+def test_quantized_store_roundtrip_through_pinned_staging(dev, enable_shm):
+    from infinistore_tpu_torch import config, lib
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda.paged import PagedKVCacheSpec
+
+    spec = PagedKVCacheSpec(3, 24, 16, 8, 128, torch.bfloat16)
+    caches = [(kq.quantize_kv(_randn(50 + i, spec.cache_shape, spec.dtype, dev)),
+               kq.quantize_kv(_randn(60 + i, spec.cache_shape, spec.dtype, dev)))
+              for i in range(3)]
+    srv = lib.start_local_server(prealloc_bytes=64 << 20, block_bytes=16 << 10)
+    conn = lib.InfinityConnection(config.ClientConfig(
+        host_addr="127.0.0.1", service_port=srv.port, log_level="error", enable_shm=enable_shm))
+    conn.connect()
+    qc = kq.QuantizedKVConnector(conn, spec, "cuda-q8", max_blocks=6, device=dev)
+    try:
+        tokens = list(range(96))  # 6 blocks
+        src = np.array([3, 9, 0, 17, 22, 12], np.int32)
+        dst = np.array([1, 2, 5, 8, 13, 21], np.int32)
+        before = dict(_ext.LAUNCHES)
+        assert asyncio.run(qc.save(tokens, caches, src)) == 2 * 3 * 6
+        fresh = [((torch.zeros(spec.cache_shape, dtype=torch.int8, device=dev),
+                   torch.zeros(spec.cache_shape[:-1], device=dev)),
+                  (torch.zeros(spec.cache_shape, dtype=torch.int8, device=dev),
+                   torch.zeros(spec.cache_shape[:-1], device=dev))) for _ in range(3)]
+        loaded, n = asyncio.run(qc.load(tokens, fresh, dst))
+        torch.cuda.synchronize()
+        assert n == 6
+        for layer in range(3):
+            for side in (0, 1):
+                for part in (0, 1):
+                    assert torch.equal(loaded[layer][side][part][dst.tolist()],
+                                       caches[layer][side][part][src.tolist()])
+                    # The loaded scales landed in the caller's own tensors.
+                    assert loaded[layer][side][part].data_ptr() == \
+                        fresh[layer][side][part].data_ptr()
+        assert _ext.LAUNCHES["gather_blocks"] - before["gather_blocks"] == 2 * 2 * 3
+        assert _ext.LAUNCHES["scatter_blocks"] - before["scatter_blocks"] == 2 * 2 * 3
+    finally:
+        qc.close()
+        conn.close()
+        srv.stop()

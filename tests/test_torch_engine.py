@@ -797,10 +797,11 @@ def test_chip_smoke_engine_rounds_rehearsal_on_cpu(server):
     cfg = tl.LlamaConfig(vocab=1000, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=128,
                          block_tokens=16, dtype=torch.float32)
     params = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    results, h = chip_smoke._run_engine(
+    results, h, store = chip_smoke._run_engine(
         torch, server.port, params, cfg, "cpu", "rehearsal", chip_smoke.ENGINE,
         chip_smoke.ENGINE_BLOCKS, chip_smoke.ENGINE_REQ_BLOCKS, 2e-4)
     chip_smoke._check_rounds(results, chip_smoke.ENGINE, cfg.block_tokens, "rehearsal")
     assert results[0][0]["computed_blocks"] == 4 * 64
     assert results[1][0]["loaded_blocks"] == 4 * 48
     assert h.spec_rounds > 0 and h.wave.waves == sum(r[3] for r in results)
+    assert store["keys"] > 0 and store["used_bytes"] >= store["keys"] * (64 << 10)

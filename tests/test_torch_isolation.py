@@ -67,6 +67,7 @@ def test_package_import_is_light_and_builds_nothing():
         import infinistore_tpu_torch.cuda.paged
         import infinistore_tpu_torch.cuda.paged_attention
         import infinistore_tpu_torch.cuda.flash_prefill
+        import infinistore_tpu_torch.cuda.kv_quant
         import infinistore_tpu_torch.models.llama
         import infinistore_tpu_torch.engine
         from infinistore_tpu_torch.cuda import _ext
@@ -87,6 +88,7 @@ def test_package_import_is_light_and_builds_nothing():
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     from infinistore_tpu_torch.connector import KVConnector
+    from infinistore_tpu_torch.cuda.kv_quant import QuantizedKVConnector
     from infinistore_tpu_torch.cuda.paged import PagedKVCacheSpec
     from infinistore_tpu_torch.cuda.staging import HostStagingPool
     from infinistore_tpu_torch.engine import ContinuousBatchingHarness, EngineKVAdapter
@@ -106,6 +108,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         HostStagingPool(1 << 16, 1 << 12)
     with pytest.raises(RuntimeError, match=no_card):
         KVConnector(None, spec, "m", 4)
+    with pytest.raises(RuntimeError, match=no_card):
+        QuantizedKVConnector(None, spec, "m", 4)
     adapter = EngineKVAdapter(KVConnector(None, spec, "m", 4, device="cpu"))
     with pytest.raises(RuntimeError, match=no_card):
         ContinuousBatchingHarness(adapter, {}, cfg, 4, 2)
