@@ -24,19 +24,24 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    K5 (at K3's wave) and K7 (at K6's wave) are held against their plain
    statistics; their one-shard combine must be bitwise K3/K6, and the
    combine of 4 disjoint slices of each row's pages within 1e-5 of K3/K6 in
-   f32. Each kernel is timed with CUDA events (L2 flushed before every
-   launch) beside its plain version, one PyTorch library call where one
+   f32. K4 takes bf16 on its tensor-core kernel (at the main path's 2,048
+   tokens and the engine's 1,024) and f32 on its CUDA-core kernel, and each
+   launch must have moved its kernel's counter. Each kernel is timed with
+   CUDA events (the median of 11 launches, each behind an L2 flush and a
+   device-side spin that keeps the wrapper's host work out of the
+   interval) beside its plain version, one PyTorch library call where one
    computes the same function, and its bound (bytes over 3.35 TB/s or
    operations over the peak rate of their type, from this run's inputs),
    at the shapes of the path that runs it (K5 at the sharded decode's
-   32,768-token request).
+   32,768-token request). K4's wrapper host time per call is logged.
 2. Main path at Llama-3-8B width (random weights from seed 0): engine A
    prefills 4 prompts of 2048 tokens and saves them through
    ``KVConnector.save`` to an in-process store; engine B looks each prompt up
    (all 128 blocks must hit), loads it into different block ids, must hold
    the same bytes, and both engines decode 16 steps as one wave of 4 with
    bitwise-equal logits. Launch counts are zeroed just before this phase
-   and every kernel must have launched in it.
+   and every kernel must have launched in it; here and in both engine
+   phases every K4 launch must have taken the bf16 tensor-core kernel.
 3. A small f32 model through the same round trip twice, on the card (the
    kernels) and on the CPU (the plain versions): logits agree to 2e-4.
 4. int8 round trip at Llama-3-8B width: engine A's 4 x 2,048-token bf16
@@ -135,7 +140,9 @@ TPU_KERNELS = {
     "gather_blocks": ("infinistore_tpu/tpu/paged.py:115", "paged_copy.cu"),
     "scatter_blocks": ("infinistore_tpu/tpu/paged.py:135", "paged_copy.cu"),
     "paged_decode_attention": ("infinistore_tpu/tpu/paged_attention.py:209", "paged_attention.cu"),
-    "flash_prefill": ("infinistore_tpu/tpu/flash_prefill.py:152", "flash_prefill.cu"),
+    # bf16 on the tensor cores (timed below), f32 on the CUDA cores.
+    "flash_prefill": ("infinistore_tpu/tpu/flash_prefill.py:152", "flash_prefill_wgmma.cu",
+                      "flash_prefill.cu"),
     "paged_decode_attention_ragged": ("infinistore_tpu/tpu/paged_attention.py:555",
                                       "paged_attention.cu"),
     "paged_decode_attention_stats": ("infinistore_tpu/tpu/paged_attention.py:250",
@@ -155,6 +162,8 @@ PATH_KERNELS = {
     "int8_engine": ENGINE_KERNELS,
     "sharded_decode": ("paged_decode_attention_stats", "paged_decode_attention_ragged_stats"),
 }
+# Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
+BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine")
 
 
 def log(msg: str) -> None:
@@ -168,31 +177,50 @@ def log(msg: str) -> None:
 
 class Timer:
     """Per-launch CUDA-event timing with the L2 cache flushed before each
-    launch (the main path finds its KV cold). The flush (1 GiB, ~0.3 ms on
-    the card) also outlasts the wrapper's host work, so the kernel is queued
-    before the card reaches the start event and host time stays out of the
-    measurement."""
+    launch (the main path finds its KV cold). Before each start event the
+    card spins (``torch.cuda._sleep``, about 1 ms) while the host queues the
+    flush, the events and the call, so the card reaches the start event only
+    after the launch is queued and the wrapper's host work stays out of the
+    measurement. The median of the launches is reported."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
+    def ms(self, fn, iters: int = 11, warmup: int = 2) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(iters):
-            self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            self.flush.zero_()
             start.record()
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+            times.append(start.elapsed_time(end))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """The host's time per call of ``fn`` (its launches queued, not run):
+    the card is kept busy by a spin, so the queue never waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(Timer.SPIN_CYCLES * 20)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e6 / calls
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str):
@@ -213,6 +241,7 @@ def max_err(a, b) -> float:
 def kernel_phase(torch, timer):
     import torch.nn.functional as F
 
+    from infinistore_tpu_torch.cuda import _ext
     from infinistore_tpu_torch.cuda import flash_prefill as fp
     from infinistore_tpu_torch.cuda import paged
     from infinistore_tpu_torch.cuda import paged_attention as pa
@@ -292,33 +321,46 @@ def kernel_phase(torch, timer):
                 bound_ms=bms, bound_by=by, library_ms=None,
             )
 
-    # K4: one 2048-token prompt, all 32 heads (one layer of prefill).
-    s = PROMPT_TOKENS
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+    # K4: one 2048-token prompt, all 32 heads (one layer of prefill); in bf16
+    # also the engine's 1,024-token prompts. bf16 runs on the tensor cores,
+    # f32 on the CUDA cores; each launch must take its dtype's kernel.
+    for dtype, tol, s in ((torch.float32, 1e-5, PROMPT_TOKENS),
+                          (torch.bfloat16, 2e-2, ENGINE["shared"] + ENGINE["tail"]),
+                          (torch.bfloat16, 2e-2, PROMPT_TOKENS)):
         q = randn((1, s, h, d), dtype)
         k = randn((1, s, kvh, d), dtype)
         v = randn((1, s, kvh, d), dtype)
+        before = dict(_ext.LAUNCHES)
         got = fp.flash_prefill_attention(q, k, v, causal=True)
+        wgmma = _ext.LAUNCHES["flash_prefill_wgmma"] - before["flash_prefill_wgmma"]
+        if _ext.LAUNCHES["flash_prefill"] - before["flash_prefill"] != 1 or \
+                wgmma != int(dtype is torch.bfloat16):
+            raise AssertionError(f"flash_prefill {dtype}: took the wrong kernel")
         want = fp.flash_prefill_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = max_err(got, want)
         if not err <= tol:
-            raise AssertionError(f"flash_prefill {dtype}: max abs err {err} > {tol}")
-        log(f"K4 {dtype}: max abs err {err:.3e} (tol {tol})")
+            raise AssertionError(f"flash_prefill {dtype} S={s}: max abs err {err} > {tol}")
+        log(f"K4 {dtype} S={s}: max abs err {err:.3e} (tol {tol})")
         if dtype is torch.bfloat16:
             pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
             flops = 4.0 * d * h * pairs
             nbytes = (2 * s * h * d + 2 * s * kvh * d) * q.element_size()
             bms, by = bound_ms(nbytes, flops, "bfloat16")
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            results["flash_prefill"] = dict(
+            row = dict(
                 max_abs_err=err,
-                ms=timer.ms(lambda: fp.flash_prefill_attention(q, k, v, causal=True), iters=5),
-                plain_ms=timer.ms(lambda: fp.flash_prefill_plain(q, k, v, causal=True), iters=5),
+                ms=timer.ms(lambda: fp.flash_prefill_attention(q, k, v, causal=True)),
+                plain_ms=timer.ms(lambda: fp.flash_prefill_plain(q, k, v, causal=True)),
                 bound_ms=bms, bound_by=by,
                 library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
             )
+            log(f"K4 bf16 S={s}: {json.dumps(row)}; {bms / row['ms']:.3f} of its bound")
+            if s == PROMPT_TOKENS:
+                results["flash_prefill"] = row
+                us = host_us(torch, lambda: fp.flash_prefill_attention(q, k, v, causal=True))
+                log(f"K4 bf16 S={s}: wrapper host time {us:.1f} us per call")
 
     (results["paged_decode_attention_ragged"],
      results["paged_decode_attention_ragged_stats"]) = _ragged_kernel_check(torch, timer, g, pa)
@@ -745,6 +787,18 @@ def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
     return metrics, launches, params, state
 
 
+# Device kernels by kind, matched on their names in this order: the port's
+# own kernels, cuBLAS's GEMMs, copies (dtype casts, contiguous), reductions,
+# and PyTorch's other elementwise kernels (norms, RoPE, activations, adds).
+PROFILE_KINDS = (
+    ("port_kernels", ("flash_prefill", "paged_decode", "copy_blocks")),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("copy", ("copy",)),
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
 def _profile(torch, fn):
     """One call of ``fn`` under torch.profiler: wall time, the device's busy
     time (the kernels' self time) and idle share, and the kernels that took
@@ -764,11 +818,16 @@ def _profile(torch, fn):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms in rows)
     rows.sort(key=lambda r: -r[1])
+    by_kind = {}
+    for name, ms in rows:
+        kind = next((k for k, marks in PROFILE_KINDS if any(m in name for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "top_kernels_ms": {name[:80]: ms for name, ms in rows[:8]},
+        "busy_by_kind_ms": by_kind,
+        "top_kernels_ms": {name[:80]: ms for name, ms in rows[:12]},
     }
 
 
@@ -1365,19 +1424,29 @@ def main() -> int:
         idle = [name for name in names if paths[path][name] == 0]
         if idle:
             raise AssertionError(f"kernels never launched on the {path} path: {idle}")
+    # These paths are bf16 end to end: every K4 launch must be a tensor-core one.
+    for path in BF16_K4_PATHS:
+        k4, wgmma = paths[path]["flash_prefill"], paths[path]["flash_prefill_wgmma"]
+        if wgmma == 0 or wgmma != k4:
+            raise AssertionError(f"{path}: {k4} K4 launches but {wgmma} on the tensor cores")
 
     rows = []
-    for name, (replaces, source) in TPU_KERNELS.items():
-        rows.append({
+    for name, (replaces, *sources) in TPU_KERNELS.items():
+        row = {
             "name": name,
             "route": "cuda",
-            "source": f"infinistore_tpu_torch/cuda/csrc/{source}",
+            "source": f"infinistore_tpu_torch/cuda/csrc/{sources[0]}",
             "replaces": replaces,
             # Every launch on the paths this script drives; per path below.
             "launches": sum(counts[name] for counts in paths.values()),
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             **kernels[name],
-        })
+        }
+        if len(sources) > 1:
+            row["sources"] = [f"infinistore_tpu_torch/cuda/csrc/{src}" for src in sources]
+        if name == "flash_prefill":
+            row["tensor_core_launches"] = sum(c["flash_prefill_wgmma"] for c in paths.values())
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

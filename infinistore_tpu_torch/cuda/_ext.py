@@ -12,7 +12,9 @@ non-zero code.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; a wrapper
 adds one exactly where it launches its kernel, so a run can show that its
-work went through the kernels.
+work went through the kernels. ``flash_prefill`` counts every launch of K4;
+``flash_prefill_wgmma`` counts the ones that took its bf16 tensor-core
+kernel, so a run can show which of K4's two kernels its path took.
 """
 
 import ctypes
@@ -28,7 +30,7 @@ from .._build import BUILD_DIR, build_once
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = (
     "paged_copy.cu", "paged_attention.cu", "paged_attention_stats.cu", "kv_quant.cu",
-    "flash_prefill.cu",
+    "flash_prefill.cu", "flash_prefill_wgmma.cu",
 )
 LIB_PATH = os.path.join(BUILD_DIR, "libits_kernels.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -42,6 +44,7 @@ LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_ragged": 0,
     "flash_prefill": 0,
+    "flash_prefill_wgmma": 0,
     "paged_decode_attention_stats": 0,
     "paged_decode_attention_ragged_stats": 0,
     "paged_decode_attention_quantized": 0,
@@ -101,45 +104,32 @@ def build() -> str:
     return build_once(LIB_PATH, inputs, _compile_commands)
 
 
+_P, _I = c_void_p, c_int
+# Each entry point's C arguments, in order (pointers and the stream last as
+# c_void_p; ctypes would otherwise pass them as 32-bit ints).
+ARGTYPES = {
+    "its_gather_blocks": [_P, _P, _P, c_int64, c_int64, c_int64, _P],
+    "its_scatter_blocks": [_P, _P, _P, c_int64, c_int64, c_int64, _P],
+    "its_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
+    "its_paged_decode_attention_ragged": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, out, B, S, T, H, KVH, D, causal, stream
+    "its_flash_prefill": [_P] * 4 + [_I] * 7 + [_P],
+    "its_flash_prefill_wgmma": [_P] * 4 + [_I] * 7 + [_P],
+    "its_paged_decode_attention_stats": [_P] * 8 + [_I] * 8 + [_P],
+    "its_paged_decode_attention_ragged_stats": [_P] * 9 + [_I] * 8 + [_P],
+    "its_paged_decode_attention_quantized": [_P] * 8 + [_I] * 8 + [_P],
+}
+
+
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            ptr = c_void_p
-            lib.its_gather_blocks.argtypes = [ptr, ptr, ptr, c_int64, c_int64, c_int64, ptr]
-            lib.its_scatter_blocks.argtypes = [ptr, ptr, ptr, c_int64, c_int64, c_int64, ptr]
-            lib.its_paged_decode_attention.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
-                c_int, c_int, c_int, ptr,
-            ]
-            lib.its_paged_decode_attention_ragged.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
-                c_int, c_int, c_int, ptr,
-            ]
-            lib.its_flash_prefill.argtypes = [
-                ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
-                c_int, ptr,
-            ]
-            lib.its_paged_decode_attention_stats.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
-                c_int, c_int, c_int, ptr,
-            ]
-            lib.its_paged_decode_attention_ragged_stats.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int,
-                c_int, c_int, c_int, c_int, ptr,
-            ]
-            lib.its_paged_decode_attention_quantized.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int,
-                c_int, c_int, c_int, ptr,
-            ]
-            for fn in (lib.its_gather_blocks, lib.its_scatter_blocks,
-                       lib.its_paged_decode_attention,
-                       lib.its_paged_decode_attention_ragged, lib.its_flash_prefill,
-                       lib.its_paged_decode_attention_stats,
-                       lib.its_paged_decode_attention_ragged_stats,
-                       lib.its_paged_decode_attention_quantized):
+            for name, argtypes in ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
                 fn.restype = c_int
             _lib = lib
     return _lib
@@ -151,7 +141,10 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def check(code: int, name: str) -> None:
-    """Raise when a kernel entry reported a CUDA error."""
+    """Raise when a kernel entry reported a CUDA error (a negative code is
+    minus the CUresult of a failed tensor-map encode)."""
+    if code < 0:
+        raise RuntimeError(f"{name}: tensor-map encode failed with CUresult {-code}")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 

@@ -1,31 +1,29 @@
-// K4: blocked causal (flash) attention for prefill.
+// K4, f32 path: blocked causal (flash) attention for prefill on the CUDA
+// cores. bf16 inputs go to the tensor-core kernel in flash_prefill_wgmma.cu;
+// this file keeps f32, whose contract is HIGHEST-precision dots with no TF32,
+// which wgmma has no form for.
 //
 // Replaces infinistore_tpu/tpu/flash_prefill.py:_flash_prefill_pallas (bodies
-// _flash_kernel and _flash_update):
+// _flash_kernel and _flash_update) for f32 inputs:
 //   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H) -> out [B, S, H, D]
-// in q's dtype. Dots take the input dtype's values with f32 accumulation
-// (bf16 x bf16 products are exact in f32, so f32 FMAs on widened operands are
-// that contract; for f32 inputs they are the HIGHEST-precision dots). Softmax
-// statistics are f32. As on the TPU, the probabilities are rounded to V's
-// dtype before the PV product, while the row sum uses them unrounded.
+// in f32. Dots are full-precision f32 FMAs; softmax statistics are f32.
 // Causal masking is by global position and needs S == T (the wrapper checks).
 //
 // Bound: operations. Causal attention does 2 dots of 2*D flops over about
 // S^2 / 2 (query, key) pairs per head: 2*S^2*D*H = 34.4 GFLOP per layer at
-// S = 2048, H = 32, D = 128, about 35 us at the 989 TFLOP/s bf16 tensor-core
-// peak (bytes: ~25 MB, 7.5 us).
+// S = 2048, H = 32, D = 128, about 0.51 ms at the 67 TFLOP/s f32 CUDA-core
+// peak (bytes: q, k, v and out once, 84 MB, 25 us).
 //
 // Design: one CTA of 256 threads per (query tile of 64 rows, batch x head).
-// Q, K and V tiles are widened to f32 in shared memory (Q and K rows padded by
-// one word so that threads reading different rows hit distinct banks); each thread computes a
-// 4 x 4 patch of the 64 x 64 logit tile and a 4 x (D/16) patch of the output
-// accumulator, kept in registers. Key tiles stop at the causal diagonal, so
-// tiles above it are never read. A ragged last tile is handled by bounds
-// checks, not by a dividing tile size. Heavy (late) query tiles are scheduled
-// first.
-// Left on the table: everything the tensor cores offer. This runs on the
-// f32 CUDA cores (67 TFLOP/s peak, far less as written: shared-memory bound);
-// wgmma on bf16 tiles fed by TMA is the way to the bound.
+// Q, K and V tiles sit in shared memory (Q and K rows padded by one word so
+// that threads reading different rows hit distinct banks); each thread
+// computes a 4 x 4 patch of the 64 x 64 logit tile and a 4 x (D/16) patch
+// of the output accumulator, kept in registers. Key tiles stop at the causal
+// diagonal, so tiles above it are never read. A ragged last tile is handled
+// by bounds checks, not by a dividing tile size. Heavy (late) query tiles
+// are scheduled first. Left on the table: shared-memory bandwidth (each
+// FMA reads two shared operands); the small f32 models that run this path
+// do not need more.
 
 #include <math.h>
 
@@ -47,11 +45,11 @@ struct Smem {
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ out, int S, int T_len, int H, int KVH, bool causal,
-              float scale) {
+flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int S, int T_len, int H,
+              int KVH, bool causal, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + Smem<D>::kQ;
@@ -76,13 +74,13 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   const int64_t q_row = static_cast<int64_t>(H) * D;    // stride between tokens
   const int64_t kv_row = static_cast<int64_t>(KVH) * D;
-  const T* qb = q + (static_cast<int64_t>(b) * S) * q_row + h * D;
-  const T* kb = k + (static_cast<int64_t>(b) * T_len) * kv_row + kvh * D;
-  const T* vb = v + (static_cast<int64_t>(b) * T_len) * kv_row + kvh * D;
+  const float* qb = q + (static_cast<int64_t>(b) * S) * q_row + h * D;
+  const float* kb = k + (static_cast<int64_t>(b) * T_len) * kv_row + kvh * D;
+  const float* vb = v + (static_cast<int64_t>(b) * T_len) * kv_row + kvh * D;
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
-    Qs[r * KS + d] = (q0 + r < S) ? its::to_f32(qb[(q0 + r) * q_row + d]) : 0.f;
+    Qs[r * KS + d] = (q0 + r < S) ? qb[(q0 + r) * q_row + d] : 0.f;
   }
   if (tid < kBQ) {
     row_m[tid] = its::kNegInf;
@@ -104,8 +102,8 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int c = idx / D, d = idx % D;
       const bool in = k0 + c < T_len;
-      Ks[c * KS + d] = in ? its::to_f32(kb[(k0 + c) * kv_row + d]) : 0.f;
-      Vs[c * D + d] = in ? its::to_f32(vb[(k0 + c) * kv_row + d]) : 0.f;
+      Ks[c * KS + d] = in ? kb[(k0 + c) * kv_row + d] : 0.f;
+      Vs[c * D + d] = in ? vb[(k0 + c) * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -157,7 +155,7 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         const bool valid = (k0 + c < T_len) && (!causal || k0 + c <= q0 + r);
         const float p = valid ? expf(Ps[r * PS + c] - m_new) : 0.f;
         sum += p;
-        Ps[r * PS + c] = its::round_to<T>(p);
+        Ps[r * PS + c] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -192,7 +190,7 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
   __syncthreads();
 
-  T* ob = out + (static_cast<int64_t>(b) * S) * q_row + h * D;
+  float* ob = out + (static_cast<int64_t>(b) * S) * q_row + h * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -200,51 +198,39 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const float l = fmaxf(row_l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[(q0 + r) * q_row + tx + 16 * j] = its::from_f32<T>(acc[i][j] / l);
+      ob[(q0 + r) * q_row + tx + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
            int H, int KVH, bool causal, cudaStream_t stream) {
   const size_t bytes = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_prefill<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, T_len, H, KVH, causal, scale);
+  flash_prefill<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, T_len, H, KVH, causal, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int by_dim(int D, const void* q, const void* k, const void* v, void* out, int B, int S,
-           int T_len, int H, int KVH, bool causal, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, out, B, S, T_len, H, KVH, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, T_len, H, KVH, causal, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-extern "C" int its_flash_prefill(const void* q, const void* k, const void* v, void* out,
-                                 int dtype, int B, int S, int T_len, int H, int KVH,
-                                 int D, int causal, void* stream) {
+// f32 tensors only (bf16 goes to its_flash_prefill_wgmma).
+extern "C" int its_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
+                                 int S, int T_len, int H, int KVH, int D, int causal,
+                                 void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KVH <= 0 || H % KVH != 0 || T_len <= 0 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case its::kFloat32:
-      return by_dim<float>(D, q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case its::kBFloat16:
-      return by_dim<__nv_bfloat16>(D, q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

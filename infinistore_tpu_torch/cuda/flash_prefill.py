@@ -2,9 +2,11 @@
 ``infinistore_tpu/tpu/flash_prefill.py``).
 
 Streams K/V tile by tile with an online softmax, so no S x T logits are
-materialised. On CUDA tensors this is kernel K4 (``csrc/flash_prefill.cu``);
-on CPU tensors the plain dense version below, which mirrors the JAX
-package's ``flash_prefill_xla``.
+materialised. On CUDA tensors this is kernel K4, which has two kernels by
+dtype: bf16 runs on the tensor cores (``csrc/flash_prefill_wgmma.cu``: wgmma
+fed by TMA), f32 on the CUDA cores (``csrc/flash_prefill.cu``). On CPU
+tensors the plain dense version below, which mirrors the JAX package's
+``flash_prefill_xla``.
 
 Numerical contract: f32 softmax statistics, full-precision f32 dots, output
 cast to the query dtype. For bf16 inputs the kernel takes dots in bf16 with
@@ -39,6 +41,13 @@ def flash_prefill_plain(q, k, v, *, causal=True):
 
 
 def _flash_prefill_cuda(q, k, v, *, causal):
+    """K4 on CUDA tensors. The kernel is chosen by dtype, and nothing else:
+    bf16 goes to ``its_flash_prefill_wgmma`` (tensor cores), f32 to
+    ``its_flash_prefill`` (CUDA cores: the f32 contract is HIGHEST-precision
+    dots, which wgmma has no form for); any other dtype, or a head_dim other
+    than 64 or 128, raises. There is no fallback: a failed build, tensor-map
+    encode or launch raises. ``LAUNCHES["flash_prefill"]`` counts both;
+    ``LAUNCHES["flash_prefill_wgmma"]`` the bf16 launches alone."""
     name = "flash_prefill_attention"
     _ext.require_cuda(name, q.device, q=q, k=k, v=v)
     b, s, h, d = q.shape
@@ -48,18 +57,24 @@ def _flash_prefill_cuda(q, k, v, *, causal):
                          f"match q {tuple(q.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k and v must share a dtype")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: unsupported dtype {q.dtype} (bfloat16 or float32)")
     if h % kvh or d not in (64, 128):
         raise ValueError(
             f"{name}: kernel takes head_dim 64 or 128 and KV heads dividing the "
             f"query heads; got head_dim {d}, {h} heads, {kvh} KV heads"
         )
     out = torch.empty_like(q)
-    code = _ext.kernels().its_flash_prefill(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _ext.dtype_code(name, q.dtype), b, s, t, h, kvh, d, int(causal),
-        _ext.stream_of(q),
-    )
+    wgmma = q.dtype == torch.bfloat16
+    if wgmma and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"{name}: TMA needs 16-byte aligned q, k and v")
+    lib = _ext.kernels()
+    entry = lib.its_flash_prefill_wgmma if wgmma else lib.its_flash_prefill
+    code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, t, h, kvh, d, int(causal), _ext.stream_of(q))
     _ext.LAUNCHES["flash_prefill"] += 1
+    if wgmma:
+        _ext.LAUNCHES["flash_prefill_wgmma"] += 1
     _ext.check(code, name)
     return out
 

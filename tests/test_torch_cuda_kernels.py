@@ -3,7 +3,10 @@ over the edge cases the main path does not reach: unaligned blocks and
 out-of-range ids (K1/K2), every supported head_dim and GQA group, padded
 and over-long tables, zero-length rows (K3, and K6 over a ragged wave with
 pad pages, held bitwise against K3 row by row), ragged query tiles, full
-attention over a longer context and batch > 1 (K4); plus the layerwise
+attention over a longer context and batch > 1 (K4: its bf16 tensor-core
+kernel at every 128-row tile edge, GQA group 1 and 4, and on inputs where
+one leaked or dropped key would move the output by order 1; its f32 path
+on the CUDA cores, each counted by its own counter); plus the layerwise
 writer/reader round trip through pinned staging on the card and one engine
 wave against sequential decode (within the engine's stated tolerance).
 
@@ -131,6 +134,121 @@ def test_flash_prefill_full_attention_over_longer_context(dev, dtype):
     v = _randn(17, (1, 150, 4, 64), dtype, dev)
     got = fp.flash_prefill_attention(q, k, v, causal=False)
     assert _err(got, fp.flash_prefill_plain(q, k, v, causal=False)) <= TOL[dtype]
+
+
+def _k4_launch(fp, q, k, v, causal):
+    """One K4 call on bf16 inputs, which must go through the tensor-core
+    kernel: both counters move by one."""
+    from infinistore_tpu_torch.cuda import _ext
+
+    before = dict(_ext.LAUNCHES)
+    got = fp.flash_prefill_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["flash_prefill"] == before["flash_prefill"] + 1
+    assert _ext.LAUNCHES["flash_prefill_wgmma"] == before["flash_prefill_wgmma"] + 1
+    return got
+
+
+# Query-tile (128 rows) and key-tile (128 keys) edges, the engine's and the
+# main path's prompt lengths.
+@pytest.mark.parametrize("s", [1, 63, 64, 127, 128, 129, 1000, 1024, 2048])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("group", [1, 4], ids=["g1", "g4"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefill_wgmma_causal_matches_plain(dev, s, b, group, d):
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    kvh = 2
+    q = _randn(30, (b, s, kvh * group, d), torch.bfloat16, dev)
+    k = _randn(31, (b, s, kvh, d), torch.bfloat16, dev)
+    v = _randn(32, (b, s, kvh, d), torch.bfloat16, dev)
+    got = _k4_launch(fp, q, k, v, True)
+    assert _err(got, fp.flash_prefill_plain(q, k, v, causal=True)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("s,t", [(1, 300), (70, 150), (129, 1000), (300, 2100)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefill_wgmma_full_attention_matches_plain(dev, s, t, d):
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    q = _randn(33, (2, s, 8, d), torch.bfloat16, dev)
+    k = _randn(34, (2, t, 2, d), torch.bfloat16, dev)
+    v = _randn(35, (2, t, 2, d), torch.bfloat16, dev)
+    got = _k4_launch(fp, q, k, v, False)
+    assert _err(got, fp.flash_prefill_plain(q, k, v, causal=False)) <= TOL[torch.bfloat16]
+
+
+def _rising_keys(b, s, t, h, kvh, d, dev):
+    """Inputs whose logit rises by 256 / sqrt(d) (at least 22) from each key
+    to the next, for every query: q . k_t = 256 t - 2^20, exact in bf16
+    operands and f32 sums (k_t = [t // 256, t % 256, 1, 0, ...], q = [2^16,
+    2^8, -2^20, 0, ...]). So every row's output is, to bf16, the value of the
+    last key it may see, and one leaked or dropped key moves it to a
+    neighbour's random value: a change of order 1 against the 2e-2
+    tolerance. Real logits are negative, so a key read past T (zero-filled)
+    would win with logit 0 and give 0. Values are N(0, 1/16), below 2 in
+    size, where a bf16 step is 2^-7: the kernel's exponent (up to 2^20 /
+    sqrt(d) in size, rounded in f32) and its bf16 probabilities put the
+    output within 0.004 of the winning key's value, and within 2e-2 after
+    the output's own rounding."""
+    pos = torch.arange(t, dtype=torch.float32)
+    k = torch.zeros((b, t, kvh, d))
+    k[..., 0] = (pos // 256)[None, :, None]
+    k[..., 1] = (pos % 256)[None, :, None]
+    k[..., 2] = 1.0
+    q = torch.zeros((b, s, h, d))
+    q[..., 0], q[..., 1], q[..., 2] = 2.0 ** 16, 2.0 ** 8, -(2.0 ** 20)
+    v = (0.25 * _randn(36, (b, t, kvh, d), torch.float32, dev)).to(torch.bfloat16)
+    return q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16), v
+
+
+@pytest.mark.parametrize("s,t,causal", [(127, 127, True), (129, 129, True), (1000, 1000, True),
+                                        (2048, 2048, True), (129, 1000, False),
+                                        (300, 2100, False)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefill_wgmma_mask_is_exact(dev, s, t, causal, d):
+    """Every query row against the key it must end on: the diagonal (causal)
+    or the last key T - 1 (full attention over a ragged tail), across every
+    query-tile boundary and the ragged last tile."""
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    b, h, kvh = 2, 8, 2
+    q, k, v = _rising_keys(b, s, t, h, kvh, d, dev)
+    got = _k4_launch(fp, q, k, v, causal)
+    last = torch.arange(s, device=dev) if causal else torch.full((s,), t - 1, device=dev)
+    want = v[:, last].repeat_interleave(h // kvh, dim=2)  # [b, s, h, d]
+    # A neighbouring key's value differs from the right one by over 10x the
+    # tolerance in every row, so a leak or a drop cannot hide inside it.
+    prev = v[:, (last - 1).clamp(min=0)].repeat_interleave(h // kvh, dim=2)
+    gap = (want.float() - prev.float()).abs().amax(dim=(0, 2, 3))
+    assert float(gap[1:].min()) > 10 * TOL[torch.bfloat16]
+    assert _err(got, want) <= TOL[torch.bfloat16]
+    assert _err(got, fp.flash_prefill_plain(q, k, v, causal=causal)) <= TOL[torch.bfloat16]
+
+
+def test_flash_prefill_f32_stays_on_the_cuda_cores(dev):
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    q = _randn(37, (1, 300, 8, 128), torch.float32, dev)
+    k = _randn(38, (1, 300, 2, 128), torch.float32, dev)
+    v = _randn(39, (1, 300, 2, 128), torch.float32, dev)
+    before = dict(_ext.LAUNCHES)
+    got = fp.flash_prefill_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["flash_prefill"] == before["flash_prefill"] + 1
+    assert _ext.LAUNCHES["flash_prefill_wgmma"] == before["flash_prefill_wgmma"]
+    assert _err(got, fp.flash_prefill_plain(q, k, v, causal=True)) <= TOL[torch.float32]
+
+
+def test_flash_prefill_wgmma_rejects_misaligned_inputs(dev):
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    flat = _randn(40, (1 + 64 * 2 * 64,), torch.bfloat16, dev)
+    q = flat[1:].view(1, 64, 2, 64)  # contiguous, 2 bytes past a 16-byte boundary
+    k = _randn(41, (1, 64, 2, 64), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fp.flash_prefill_attention(q, k, k, causal=True)
 
 
 @pytest.mark.parametrize("enable_shm", [True, False], ids=["shm", "socket"])
