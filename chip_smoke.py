@@ -31,9 +31,15 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    device-side spin that keeps the wrapper's host work out of the
    interval) beside its plain version, one PyTorch library call where one
    computes the same function, and its bound (bytes over 3.35 TB/s or
-   operations over the peak rate of their type, from this run's inputs),
-   at the shapes of the path that runs it (K5 at the sharded decode's
-   32,768-token request). K4's wrapper host time per call is logged.
+   operations over the card's peak rate for the inputs' type, from this
+   run's inputs), at the shapes of the path that runs it (K5 at the sharded
+   decode's 32,768-token request). K3 is also held (f32 1e-5, bf16 2e-2)
+   and timed at the engine's ``prefill_continue`` shape (256 rows at
+   contexts 769-1,024 sharing one table), K6 at the engine's own wave (4 x
+   8-token verification chunks at 1,024 tokens, each chunk's rows sharing
+   their pages; bitwise K3 per row; its bound counts the distinct pages);
+   two launches of K3 and K6 on the same inputs must be bitwise equal.
+   K3's, K4's and K6's wrapper host time per call is logged.
 2. Main path at Llama-3-8B width (random weights from seed 0): engine A
    prefills 4 prompts of 2048 tokens and saves them through
    ``KVConnector.save`` to an in-process store; engine B looks each prompt up
@@ -229,6 +235,13 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def peak_dtype(t) -> str:
+    """The key of ``PEAK_FLOPS`` for work on ``t``'s dtype: the card's peak
+    rate for that input type (bf16 products are exact in f32, so a bf16
+    kernel that accumulates in f32 is held to the bf16 rate)."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -302,24 +315,32 @@ def kernel_phase(torch, timer):
         err = 0.0
         for lens in (full, ragged):
             got = pa.paged_decode_attention_batched(q, kc, vc, tables, lens)
+            again = pa.paged_decode_attention_batched(q, kc, vc, tables, lens)
             want = pa.paged_decode_attention_plain_batched(q, kc, vc, tables, lens)
             torch.cuda.synchronize()
             err = max(err, max_err(got, want))
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_decode_attention {dtype}: two launches differ")
         if not err <= tol:
             raise AssertionError(f"paged_decode_attention {dtype}: max abs err {err} > {tol}")
         if float(got[3].float().abs().max()) != 0.0:
             raise AssertionError("paged_decode_attention: seq_len 0 must give zeros")
-        log(f"K3 {dtype}: max abs err {err:.3e} (tol {tol})")
+        log(f"K3 {dtype}: max abs err {err:.3e} (tol {tol}); two launches bitwise equal")
         if dtype is torch.bfloat16:
             tokens = int(full.sum())
             nbytes = (2 * tokens * kvh * d + 2 * bsz * h * d) * kc.element_size() + tables.numel() * 4 + bsz * 4
-            bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, "float32")
+            bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, peak_dtype(q))
             results["paged_decode_attention"] = dict(
                 max_abs_err=err,
                 ms=timer.ms(lambda: pa.paged_decode_attention_batched(q, kc, vc, tables, full)),
                 plain_ms=timer.ms(lambda: pa.paged_decode_attention_plain_batched(q, kc, vc, tables, full)),
                 bound_ms=bms, bound_by=by, library_ms=None,
+                host_us=host_us(torch, lambda: pa.paged_decode_attention_batched(
+                    q, kc, vc, tables, full)),
             )
+            log(f"K3 bf16: {bms / results['paged_decode_attention']['ms']:.3f} of its bound; "
+                f"wrapper host time {results['paged_decode_attention']['host_us']:.1f} us "
+                "per call")
 
     # K4: one 2048-token prompt, all 32 heads (one layer of prefill); in bf16
     # also the engine's 1,024-token prompts. bf16 runs on the tensor cores,
@@ -362,8 +383,12 @@ def kernel_phase(torch, timer):
                 us = host_us(torch, lambda: fp.flash_prefill_attention(q, k, v, causal=True))
                 log(f"K4 bf16 S={s}: wrapper host time {us:.1f} us per call")
 
+    results["paged_decode_attention"]["prefill_continue"] = _prefill_continue_check(
+        torch, timer, g, pa)
     (results["paged_decode_attention_ragged"],
      results["paged_decode_attention_ragged_stats"]) = _ragged_kernel_check(torch, timer, g, pa)
+    results["paged_decode_attention_ragged"]["engine_wave"] = _engine_wave_check(
+        torch, timer, g, pa)
     # K8 and K5 at K3's wave (drawn last, so the earlier kernels keep their inputs).
     results["paged_decode_attention_quantized"] = _quant_kernel_check(
         torch, timer, g, tables, (full, ragged), n_cache)
@@ -381,6 +406,114 @@ def _slices(n_parts, width):
 def _slice_lens(lens, sl, bt):
     """The tokens of each row that fall in table slice ``sl``."""
     return [min(max(n - sl.start * bt, 0), (sl.stop - sl.start) * bt) for n in lens]
+
+
+def _decode_bound(torch, q, distinct_pages, lens, bt, kvh, meta_bytes):
+    """K3/K6's bound over the distinct pages its rows read (each read once),
+    q and the output, and the page metadata; its operations at the card's
+    peak for q's dtype."""
+    d = q.shape[-1]
+    nbytes = 2 * distinct_pages * bt * kvh * d * q.element_size() + \
+        2 * q.numel() * q.element_size() + meta_bytes
+    return bound_ms(nbytes, 4.0 * q.shape[1] * d * sum(lens), peak_dtype(q))
+
+
+def _prefill_continue_check(torch, timer, g, pa):
+    """K3 at the engine's prefill_continue shape: one request's 256-token
+    suffix resumed over its 768-token prefix (``verify_step_batched``'s
+    rows: 256 rows at contexts 769-1,024, all over one 72-block table, so
+    the rows share their pages). Against its plain version in f32 (1e-5) and
+    bf16 (2e-2), two launches bitwise equal; in bf16 timed, with its bound
+    over the 64 distinct pages."""
+    cfg = LLAMA3_8B
+    bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
+    d = cfg["dim"] // h
+    width, rows = ENGINE_REQ_BLOCKS, ENGINE["new"]
+    n_cache = width + 16
+    table = torch.randperm(n_cache, generator=g, device="cuda")[:width].to(torch.int32)
+    tables = table[None].expand(rows, width).contiguous()
+    lens_list = list(range(ENGINE["keep"] + 1, ENGINE["keep"] + rows + 1))
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn((rows, h, d), generator=g, device="cuda").to(dtype)
+        kc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+        vc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+        args = (q, kc, vc, tables, lens)
+        got = pa.paged_decode_attention_batched(*args)
+        again = pa.paged_decode_attention_batched(*args)
+        err = max_err(got, pa.paged_decode_attention_plain_batched(*args))
+        torch.cuda.synchronize()
+        if not err <= tol or not torch.equal(got, again):
+            raise AssertionError(f"K3 {dtype} at prefill_continue's shape: max abs err {err} "
+                                 f"(tol {tol}), two launches equal {torch.equal(got, again)}")
+        log(f"K3 {dtype} at prefill_continue's shape: max abs err {err:.3e} (tol {tol}); two "
+            "launches bitwise equal")
+    bms, by = _decode_bound(torch, q, -(-lens_list[-1] // bt), lens_list, bt, kvh,
+                            tables.numel() * 4 + rows * 4)
+    row = dict(max_abs_err=err, ms=timer.ms(lambda: pa.paged_decode_attention_batched(*args)),
+               plain_ms=timer.ms(lambda: pa.paged_decode_attention_plain_batched(*args),
+                                 iters=3),
+               bound_ms=bms, bound_by=by)
+    log(f"K3 bf16 at prefill_continue's shape ({rows} rows sharing one {width}-block table, "
+        f"contexts {lens_list[0]}-{lens_list[-1]}): {json.dumps(row)}; "
+        f"{bms / row['ms']:.3f} of its bound")
+    return row
+
+
+def _engine_wave_check(torch, timer, g, pa):
+    """K6 at the engine's own wave (the one ``_profile_wave`` profiles): 4
+    requests, each an 8-token verification chunk at 1,024 tokens of
+    context, the rows of a chunk sharing their pages. Against its plain
+    version in f32 (1e-5) and bf16 (2e-2), bitwise K3 per row, two launches
+    bitwise equal; in bf16 timed, with its wrapper host time and its bound
+    over the distinct pages."""
+    import numpy as np
+
+    cfg = LLAMA3_8B
+    bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
+    d = cfg["dim"] // h
+    width = ENGINE_REQ_BLOCKS
+    n_cache = 4 * width + 16
+    req_tables = np.random.default_rng(6).permutation(n_cache)[: 4 * width].astype(
+        np.int32).reshape(4, width)
+    ctx = ENGINE["shared"] + ENGINE["tail"]
+    lens = [ctx + j for _ in range(4) for j in range(8)]
+    row_tables = [req_tables[r // 8] for r in range(len(lens))]
+    m = pa.build_ragged_wave(row_tables, lens, bt, pad_to_pow2=True)
+    meta = [torch.from_numpy(x).cuda() for x in (m.pages, m.page_rows, m.page_starts,
+                                                   m.seq_lens)]
+    rows_k3 = pa._ragged_row_tables(meta[0], meta[2], width).contiguous()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn((len(lens), h, d), generator=g, device="cuda").to(dtype)
+        kc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+        vc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(dtype)
+
+        def run():
+            return pa.paged_decode_attention_ragged(q, kc, vc, *meta, table_width=width)
+
+        def plain():
+            return pa.paged_decode_attention_ragged_plain(q, kc, vc, meta[0], meta[2],
+                                                          meta[3], width)
+
+        got, again = run(), run()
+        k3 = pa.paged_decode_attention_batched(q, kc, vc, rows_k3, meta[3])
+        err = max_err(got, plain())
+        torch.cuda.synchronize()
+        if not err <= tol or not torch.equal(got, again) or not torch.equal(got, k3):
+            raise AssertionError(f"K6 {dtype} at the engine's wave: max abs err {err} (tol "
+                                 f"{tol}), two launches equal {torch.equal(got, again)}, "
+                                 f"bitwise K3 {torch.equal(got, k3)}")
+        log(f"K6 {dtype} at the engine's wave: max abs err {err:.3e} (tol {tol}); bitwise K3 "
+            "per row, two launches bitwise equal")
+    distinct = len({int(m.pages[m.page_starts[r] + j]) for r, n in enumerate(lens)
+                    for j in range(-(-n // bt))})
+    bms, by = _decode_bound(torch, q, distinct, lens, bt, kvh,
+                            (m.num_pages + 3 * len(lens) + 1) * 4)
+    row = dict(max_abs_err=err, ms=timer.ms(run), plain_ms=timer.ms(plain), bound_ms=bms,
+               bound_by=by, host_us=host_us(torch, run))
+    log(f"K6 bf16 at the engine's wave (4 x 8-token chunks at {ctx} tokens, {distinct} "
+        f"distinct pages): {json.dumps(row)}; {bms / row['ms']:.3f} of its bound")
+    return row
 
 
 def _quant_kernel_check(torch, timer, g, tables, waves, n_cache):
@@ -420,7 +553,7 @@ def _quant_kernel_check(torch, timer, g, tables, waves, n_cache):
             tokens = int(full.sum())
             nbytes = 2 * tokens * kvh * (d + 4) + 2 * q.numel() * q.element_size() + \
                 tables.numel() * 4 + bsz * 4  # int8 data + f32 scales, q and out
-            bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, "float32")
+            bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, peak_dtype(q))
             args = (q, kd, ks, vd, vs, tables, full)
             out = dict(max_abs_err=err,
                        ms=timer.ms(lambda: kq.paged_decode_attention_quantized(*args)),
@@ -483,7 +616,7 @@ def _stats_kernel_check(torch, timer, g, tables, waves, n_cache):
     if not err <= 2e-2:
         raise AssertionError(f"decode stats at {tokens} tokens: max abs err {err}")
     nbytes = 2 * tokens * kvh * d * 2 + q.numel() * 2 + (h * d + 2 * h) * 4 + table.numel() * 4 + 4
-    bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, "float32")
+    bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, peak_dtype(q))
     return dict(max_abs_err=err, ms=timer.ms(lambda: pa._decode_attention_stats(*args)),
                 plain_ms=timer.ms(lambda: pa.decode_attention_stats_plain(*args), iters=3),
                 bound_ms=bms, bound_by=by, library_ms=None)
@@ -545,12 +678,14 @@ def _ragged_kernel_check(torch, timer, g, pa):
             return pa.paged_decode_attention_ragged_plain(q, kc, vc, pages, page_starts, seq,
                                                           width)
 
-        got, want = run(), plain()
+        got, want, again = run(), plain(), run()
         k3 = pa.paged_decode_attention_batched(q, kc, vc, rows_k3, seq)
         torch.cuda.synchronize()
         err = max_err(got, want)
         if not err <= tol:
             raise AssertionError(f"ragged decode {dtype}: max abs err {err} > {tol}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"ragged decode {dtype}: two launches differ")
         if float(got[2].float().abs().max()) != 0.0:
             raise AssertionError("ragged decode: seq_len 0 must give zeros")
         if not torch.equal(got, k3):
@@ -564,7 +699,8 @@ def _ragged_kernel_check(torch, timer, g, pa):
             torch.cuda.synchronize()
             if not torch.equal(one[0], got[r]):
                 raise AssertionError(f"ragged decode {dtype}: row {r} differs from its solo launch")
-        log(f"K6 {dtype}: max abs err {err:.3e} (tol {tol}); bitwise K3 per row and solo per row; "
+        log(f"K6 {dtype}: max abs err {err:.3e} (tol {tol}); bitwise K3 per row and solo per "
+            "row, two launches bitwise equal; "
             f"{m.num_pages} pages ({m.pad_pages} pad), {len(read)} distinct read")
         err7 = _ragged_stats_check(torch, pa, q, kc, vc, (pages, page_rows, page_starts, seq),
                                    got, lens, row_tables, width, tol)
@@ -573,14 +709,17 @@ def _ragged_kernel_check(torch, timer, g, pa):
             kv_bytes = 2 * len(read) * bt * kvh * d * q.element_size()
             flops = 4.0 * h * d * sum(lens)
             bms, by = bound_ms(kv_bytes + 2 * q.numel() * q.element_size() + meta_bytes, flops,
-                               "float32")
+                               peak_dtype(q))
             out = dict(max_abs_err=err, ms=timer.ms(run), plain_ms=timer.ms(plain),
-                       bound_ms=bms, bound_by=by, library_ms=None)
+                       bound_ms=bms, bound_by=by, library_ms=None,
+                       host_us=host_us(torch, run))
+            log(f"K6 bf16 on the skewed wave: {bms / out['ms']:.3f} of its bound; wrapper host "
+                f"time {out['host_us']:.1f} us per call")
             stats_args = (q, kc, vc, pages, page_rows, page_starts, seq, width)
             # K7 writes f32 acc [R, H, D] and m, l [R, H] where K6 writes q's dtype.
             out_bytes = q.numel() * 4 + 2 * len(lens) * h * 4
             bms, by = bound_ms(kv_bytes + q.numel() * q.element_size() + out_bytes + meta_bytes,
-                               flops, "float32")
+                               flops, peak_dtype(q))
             out7 = dict(max_abs_err=err7,
                         ms=timer.ms(lambda: pa._decode_attention_stats_ragged(*stats_args)),
                         plain_ms=timer.ms(lambda: pa.decode_attention_stats_ragged_plain(

@@ -15,6 +15,13 @@ adds one exactly where it launches its kernel, so a run can show that its
 work went through the kernels. ``flash_prefill`` counts every launch of K4;
 ``flash_prefill_wgmma`` counts the ones that took its bf16 tensor-core
 kernel, so a run can show which of K4's two kernels its path took.
+
+The paged decode kernels (K3, K5-K8) split each row's pages across CTAs
+(``csrc/decode_fold.cuh``). Their wrappers size the split scratch from
+shapes alone, with the library's own split count for the table width
+(``decode_splits``: ``its_decode_splits``, asked once per width), and take
+the scratch and the ticket counters of the last-arriving split from the
+stream's workspace (``split_workspace``).
 """
 
 import ctypes
@@ -52,6 +59,11 @@ LAUNCHES = {
 
 _lib = None
 _lib_lock = threading.Lock()
+# (device, stream) -> [f32 split scratch, int32 ticket zeros] of the decode kernels.
+_WORKSPACE = {}
+_workspace_lock = threading.Lock()
+# table width -> the library's split count for it.
+_SPLITS = {}
 
 
 def reset_launches() -> None:
@@ -110,14 +122,22 @@ _P, _I = c_void_p, c_int
 ARGTYPES = {
     "its_gather_blocks": [_P, _P, _P, c_int64, c_int64, c_int64, _P],
     "its_scatter_blocks": [_P, _P, _P, c_int64, c_int64, c_int64, _P],
-    "its_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
-    "its_paged_decode_attention_ragged": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, tables, seq_lens, out, scratch, tickets,
+    # dtype, B, H, KVH, D, bt, N, max_blocks, splits, stream
+    "its_paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],
+    # q, k, v, pages, page_starts, seq_lens, out, scratch, tickets,
+    # dtype, R, H, KVH, D, bt, N, P, width, splits, stream
+    "its_paged_decode_attention_ragged": [_P] * 9 + [_I] * 10 + [_P],
     # q, k, v, out, B, S, T, H, KVH, D, causal, stream
     "its_flash_prefill": [_P] * 4 + [_I] * 7 + [_P],
     "its_flash_prefill_wgmma": [_P] * 4 + [_I] * 7 + [_P],
-    "its_paged_decode_attention_stats": [_P] * 8 + [_I] * 8 + [_P],
-    "its_paged_decode_attention_ragged_stats": [_P] * 9 + [_I] * 8 + [_P],
-    "its_paged_decode_attention_quantized": [_P] * 8 + [_I] * 8 + [_P],
+    # K3's, with acc, m, l in place of out
+    "its_paged_decode_attention_stats": [_P] * 10 + [_I] * 9 + [_P],
+    # K6's, with acc, m, l in place of out
+    "its_paged_decode_attention_ragged_stats": [_P] * 11 + [_I] * 10 + [_P],
+    # K3's, with k_data, k_scales, v_data, v_scales in place of k, v
+    "its_paged_decode_attention_quantized": [_P] * 10 + [_I] * 9 + [_P],
+    "its_decode_splits": [_I],
 }
 
 
@@ -140,6 +160,40 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def decode_splits(width: int) -> int:
+    """The decode kernels' split count for tables ``width`` pages wide (the
+    grid's split dimension, by which a wrapper sizes its scratch): the
+    library's ``its_decode_splits``, asked once per width, so a steady-state
+    launch makes no call for it."""
+    splits = _SPLITS.get(width)
+    if splits is None:
+        splits = _SPLITS[width] = kernels().its_decode_splits(width)
+    return splits
+
+
+def split_workspace(device: torch.device, stream: int, floats: int, tickets: int):
+    """(scratch, tickets) of a decode launch on ``stream``: at least
+    ``floats`` f32 of split scratch and at least ``tickets`` int32 ticket
+    counters, zeros. Both are allocated once per (device, stream), on that
+    stream, and grown when a launch needs more. Launches on one stream run in
+    order, so they share them: a launch reads only the partials it wrote
+    itself, and leaves the tickets zero (the last split of a row resets its
+    counter). A stream of its own gets its own."""
+    key = (device, stream)
+    with _workspace_lock:
+        ws = _WORKSPACE.get(key)
+        if ws is None:
+            ws = _WORKSPACE[key] = [torch.empty(0, dtype=torch.float32, device=device),
+                                    torch.zeros(0, dtype=torch.int32, device=device)]
+        if ws[0].numel() < floats:
+            ws[0] = torch.empty(max(floats, 2 * ws[0].numel()), dtype=torch.float32,
+                                device=device)
+        if ws[1].numel() < tickets:
+            ws[1] = torch.zeros(max(tickets, 2 * ws[1].numel(), 1024), dtype=torch.int32,
+                                device=device)
+        return ws[0], ws[1]
+
+
 def check(code: int, name: str) -> None:
     """Raise when a kernel entry reported a CUDA error (a negative code is
     minus the CUresult of a failed tensor-map encode)."""
@@ -147,6 +201,14 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: tensor-map encode failed with CUresult {-code}")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def require_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """The decode kernels copy cache rows 16 bytes at a time: each of
+    ``tensors`` must start on a 16-byte boundary."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
 
 
 def require_cuda(name: str, device: torch.device, **tensors: torch.Tensor) -> None:

@@ -1,77 +1,259 @@
-// The paged decode fold that K3, K5, K6, K7 and K8 share.
+// The paged decode fold that K3, K5, K6, K7 and K8 share: a split-KV
+// (flash-decoding) fold for Hopper.
 //
-// One query row (one request, or one flat row of a ragged wave) attends over
-// the cache pages its page list names. The fold is split in three parts so
-// that every decode kernel runs the same arithmetic:
-//   - a KV loader: widens one K or V value to f32 in registers; FloatKV
-//     reads f32/bf16 caches, Int8KV reads int8 data and multiplies by the
-//     f32 scale of the value's (token, KV head) row;
-//   - the fold (attend_row): 8 warps take the row's pages round-robin, each
-//     folds its tokens 8 at a time into its own running (max, sum, acc) with
-//     an f32 online softmax, and the warps' partial states are merged through
-//     shared memory;
-//   - an epilogue: Normalize writes acc / max(l, 1e-30) in the query's dtype
-//     (K3, K6, K8), RawStats writes the merged (acc, m, l) in f32 (K5, K7).
-// Only the first ceil(seq_len / bt) pages are read: the TPU kernels'
-// fully-masked blocks are bitwise no-ops, so skipping them changes nothing.
-// A page id outside [0, N) is skipped. Every product that feeds a sum is an
-// explicit fmaf or __fmul_rn, so FMA contraction cannot round two kernels
-// apart: a K6 row is bitwise the K3 row over the same pages, a K5/K7 row
-// normalised by its own statistics is bitwise K3/K6, and K8 is bitwise K3
-// over the f32-dequantised cache (dequantize_kv's data.float() * scale is
-// one f32 multiply, as Int8KV's __fmul_rn).
+// Replaces, through the entries of paged_attention.cu, paged_attention_stats.cu
+// and kv_quant.cu, the fold of infinistore_tpu/tpu/paged_attention.py
+// (_attn_block_update / _attn_block_fold / _ragged_fold) that the TPU kernels
+// _paged_decode_attention_pallas_batched, _pallas_stats, _pallas_ragged,
+// _pallas_ragged_stats and kv_quant.py:_quant_decode_pallas run. One query row
+// (a request, or a flat row of a ragged wave) attends over the cache pages its
+// page list names, for the G = H / KVH query heads of one KV head.
 //
-// Grid: one CTA per (KV head, row); the CTA holds the G = H / KVH query rows
-// of its KV group in registers, lane-strided over D.
+// Bound: bytes. The function must read the K and V of every valid token once
+// (a ragged wave: each distinct page once), plus q and the output.
+//
+// Design, point by point against the fold it replaces (one CTA per (KV head,
+// row), 8 warps taking the row's pages round-robin, 2-byte lane-strided loads,
+// a 32-lane warp sum per token and query head, no prefetch, 32 KiB of static
+// shared memory for the merge):
+//   1. The sequence is split across CTAs. A work item is (KV head, row,
+//      split); a split is split_pages(n) consecutive pages of the row's n
+//      pages (n = ceil(seq_len / bt)): 8 splits of 4 to 16 pages, 16-page
+//      splits from 128 pages up (a 1,152-token row is 8 splits of 9 pages, a
+//      2,048-token row 8 of 16, a 32,768-token row 128 of 16). A row's split
+//      count and boundaries depend only on its own (clamped) seq_len and
+//      compile-time constants: never on the number of rows, the grid or the
+//      other rows. So a K6 row is bitwise the K3 row over its own table and
+//      bitwise its solo launch, and a K5/K7 row is the state K3/K6
+//      normalise. The grid is (splits x KVH, rows), splits =
+//      grid_splits(width) for the launch's table width; a CTA past its row's
+//      split count exits at once.
+//   2. A lane owns kVec = 8 consecutive elements of a token's head row: one
+//      16-byte load in bf16, two in f32, one 8-byte load in int8. A token's
+//      D elements sit on D / 8 lanes (a token group: 16 lanes at D = 128),
+//      and a group folds 2 tokens a stage. Its 2 x G partial dot products
+//      are summed by a transposed butterfly (transpose_sum: each level sends
+//      half of the values left, so a lane ends holding whole sums, one per
+//      (token, head) pair at G = 4), and each lane runs the softmax of the
+//      scores it holds (its head's running max and denominator, one expf per
+//      score and one per correction) and shares the probabilities and
+//      corrections back by shuffles for the PV update every lane does on its
+//      8 elements. The mapping from elements to lanes, tokens to groups and
+//      stages, and scores to lanes is defined in elements and is the same
+//      for every loader, so f32 K3 and int8 K8 add the same products in the
+//      same order (K8 is bitwise K3 run on q.float() over the f32-dequantised
+//      cache: Int8KV widens each element as __fmul_rn(data, scale),
+//      dequantize_kv's one f32 multiply).
+//   3. Pages stream through a kStages-deep cp.async ring in dynamic shared
+//      memory (cp.async.cg, 16 bytes, L1 bypassed): each stage is kStageTok
+//      token rows of one KV head, K then V (then, for int8, the rows' f32
+//      scales), gathered from the pages of the split whose addresses the CTA
+//      computes once into shared memory; each copy's position advances by a
+//      stage without a division. Later stages load while the current one
+//      folds. cp.async needs no per-call host work (a TMA tensor map would
+//      cost a host-side encode per call on a host-bound decode path). Rows
+//      past seq_len and pages outside [0, N) are zero-filled (no bytes read)
+//      and masked.
+//   4. A split's token groups merge through shared memory, which the ring
+//      hands back once drained (so the 32 KiB merge at G = 8 costs no extra
+//      space); each (group, head) weight is one expf. A row of one split
+//      applies its epilogue at once. A row of several splits writes each
+//      split's partial (acc [D], m, l per query head) to f32 scratch; the
+//      last CTA of the (row, KV head) to arrive (an acq_rel atomic ticket,
+//      reset by that CTA) merges the partials in split order 0..n-1, never in
+//      arrival order, with its global reads issued together, and applies the
+//      epilogue: two launches on the same inputs are bitwise equal, and no
+//      floating-point atomic is used. An empty split (m -1e30, l 0, acc 0)
+//      merges as a no-op; a row with seq_len 0 is one empty split, so it
+//      gives acc 0, l 0, m -1e30 (zeros through Normalize).
+//
+// Every product that feeds a sum is an explicit fmaf or __fmul_rn, so FMA
+// contraction cannot round two kernels apart. Only the first ceil(seq_len /
+// bt) pages of a row are read (the TPU kernels' fully-masked blocks are bitwise
+// no-ops, so skipping them changes nothing).
+//
+// The parts each kernel instantiates:
+//   - a KV loader: FloatKV reads f32/bf16 caches, Int8KV int8 data with one
+//     f32 scale per (token, KV head) row;
+//   - an epilogue, applied once per (row, query head, d) after the merge:
+//     Normalize writes acc / max(l, 1e-30) in the query's dtype (K3, K6, K8),
+//     RawStats writes (acc, m, l) in f32 (K5, K7).
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kChunk = 8;  // tokens folded per online-softmax step
+// A row of n pages folds in splits of split_pages(n) consecutive pages: as
+// close to kTargetSplits splits as kMinSplitPages..kMaxSplitPages pages a
+// split allow (16-page splits from 128 pages up, 256 tokens at bt = 16).
+constexpr int kTargetSplits = 8;
+constexpr int kMinSplitPages = 4;
+constexpr int kMaxSplitPages = 16;
+
+__host__ __device__ constexpr int split_pages(int npages) {
+  return npages <= kTargetSplits * kMinSplitPages ? kMinSplitPages
+         : npages >= kTargetSplits * kMaxSplitPages ? kMaxSplitPages
+         : (npages + kTargetSplits - 1) / kTargetSplits;
+}
+
+// The most splits a row of at most `width` pages has: the grid's split
+// dimension, and the scratch's.
+__host__ __device__ constexpr int grid_splits(int width) {
+  return width <= kTargetSplits * kMinSplitPages ? (width + kMinSplitPages - 1) / kMinSplitPages
+         : width <= kTargetSplits * kMaxSplitPages ? kTargetSplits
+         : (width + kMaxSplitPages - 1) / kMaxSplitPages;
+}
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 5;  // depth of the cp.async ring
+constexpr int kVec = 8;     // consecutive elements of a head row per lane
+
+// How a CTA lays out head dim D: kLanes lanes per token, kGroups token groups,
+// each folding kTokPerGroup tokens of every kStageTok-token stage.
+template <int D>
+struct Fold {
+  static constexpr int kLanes = D / kVec;
+  static constexpr int kGroups = kThreads / kLanes;
+  static constexpr int kTokPerGroup = 2;
+  static constexpr int kStageTok = kGroups * kTokPerGroup;
+};
 
 // ---------------------------------------------------------------------------
-// KV loaders: one K or V value widened to f32. `off` is the element's index in
-// the cache, th * D + d, where th = (page * bt + token) * KVH + kvh indexes its
-// (token, KV head) row; `s` is the row's scale, read once per row by
-// k_scale / v_scale (a float cache has none: 0, and no load).
+// cp.async (sm_80+): a copy into shared memory that the thread does not wait
+// on; src-size 0 fills the destination with zeros and reads nothing.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The split merge's ticket: an atomic add at GPU scope that releases the
+// CTA's partial (written before the barrier that precedes it, which the
+// release covers) and acquires the partials of the splits that took their
+// tickets before it.
+__device__ __forceinline__ int ticket(int* counter) {
+  int t;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(t)
+               : "l"(counter)
+               : "memory");
+  return t;
+}
+
+// Transposed sum over an aligned group of lanes: each lane brings Cnt
+// values, and each level of the butterfly (offset Off, halving while more than
+// one value is left) sends half of them to the partner lane and adds the half
+// it keeps, so one shuffle per value moves where a sum per value would take
+// log2(lanes). The lane at position gl of an L-lane group ends with the sums
+// of values gl * Cnt / L + j, j < max(1, Cnt / L), in v[j]; a value two lanes
+// hold (Cnt < L) is added in both as a + b = b + a, so their copies are equal.
+template <int Cnt, int Off, int N>
+__device__ __forceinline__ void transpose_sum(float (&v)[N], int gl) {
+  if constexpr (Off > 0) {
+    if constexpr (Cnt > 1) {
+      constexpr int kHalf = Cnt / 2;
+      const bool hi = (gl & Off) != 0;
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j) {
+        const float keep = hi ? v[kHalf + j] : v[j];
+        const float send = hi ? v[j] : v[kHalf + j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, Off);
+      }
+      transpose_sum<kHalf, Off / 2>(v, gl);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], Off);
+      transpose_sum<1, Off / 2>(v, gl);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// KV loaders: the K and V arrays (side 0 and 1) whose (token, KV head) rows
+// the ring gathers, their per-row scales (a float cache has none), and how
+// kVec elements of a row are widened to f32 from the ring.
 // ---------------------------------------------------------------------------
 
 template <typename C>
 struct FloatKV {
+  using Elem = C;
+  static constexpr bool kScaled = false;
   const C* k;
   const C* v;
 
-  __device__ __forceinline__ float k_scale(int64_t) const { return 0.f; }
-  __device__ __forceinline__ float v_scale(int64_t) const { return 0.f; }
-  __device__ __forceinline__ float key(int64_t off, float) const {
-    return its::to_f32(k[off]);
-  }
-  __device__ __forceinline__ float value(int64_t off, float) const {
-    return its::to_f32(v[off]);
+  __device__ __forceinline__ const C* data(int side) const { return side ? v : k; }
+  __device__ __forceinline__ const float* scales(int) const { return nullptr; }
+  bool aligned() const {
+    return (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   }
 };
 
 // int8 data with one f32 scale per (token, KV head) row.
 struct Int8KV {
+  using Elem = int8_t;
+  static constexpr bool kScaled = true;
   const int8_t* k;
   const float* ks;
   const int8_t* v;
   const float* vs;
 
-  __device__ __forceinline__ float k_scale(int64_t th) const { return ks[th]; }
-  __device__ __forceinline__ float v_scale(int64_t th) const { return vs[th]; }
-  __device__ __forceinline__ float key(int64_t off, float s) const {
-    return __fmul_rn(static_cast<float>(k[off]), s);
-  }
-  __device__ __forceinline__ float value(int64_t off, float s) const {
-    return __fmul_rn(static_cast<float>(v[off]), s);
+  __device__ __forceinline__ const int8_t* data(int side) const { return side ? v : k; }
+  __device__ __forceinline__ const float* scales(int side) const { return side ? vs : ks; }
+  bool aligned() const {
+    return (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0 &&
+           (reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) % 4 == 0;
   }
 };
+
+__device__ __forceinline__ void widen(const float* p, float, float (&x)[kVec]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float, float (&x)[kVec]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // element 2i in the low half (bf16 -> f32 is exact)
+    x[2 * i] = __uint_as_float(u[i] << 16);
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void widen(const int8_t* p, float s, float (&x)[kVec]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // sign-extend byte i, then dequantise in one multiply
+    const int shift = 24 - 8 * i;
+    x[i] = __fmul_rn(static_cast<float>(static_cast<int32_t>(w.x << shift) >> 24), s);
+    x[4 + i] = __fmul_rn(static_cast<float>(static_cast<int32_t>(w.y << shift) >> 24), s);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Epilogues: called once per (query head, d) with the row's merged state.
@@ -103,184 +285,455 @@ struct RawStats {
   }
 };
 
+// Shared memory of one CTA: the ring, which the in-CTA merge reuses.
+template <int D, int G, typename KV>
+struct Smem {
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(typename KV::Elem));
+  static constexpr int kSideBytes = Fold<D>::kStageTok * kRowBytes;
+  static constexpr int kStageBytes =
+      2 * kSideBytes + (KV::kScaled ? 2 * Fold<D>::kStageTok * 4 : 0);
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kMergeBytes = (Fold<D>::kGroups * G * (D + 2) + 2 * G) * 4;
+  static constexpr int kBytes = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
+};
+
 // ---------------------------------------------------------------------------
-// The fold: query row `row` (KV group `kvh`) over page_list[0 .. nblk),
-// seq_len valid tokens. An empty row leaves acc 0, l 0 and m at kNegInf.
+// One work item: split `split` of query row `row` (KV group `kvh`) over
+// page_list[0 .. ceil(seq_len / bt)).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D, int G, typename KV, typename Epi>
-__device__ __forceinline__ void attend_row(const T* __restrict__ q, const KV& kv,
-                                           const int32_t* __restrict__ page_list, int nblk,
-                                           int seq_len, const Epi& epi, int64_t row, int kvh,
-                                           int H, int KVH, int bt, int num_blocks, float scale) {
-  constexpr int E = D / 32;  // elements of a head row held by each lane
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& kv,
+                                             const int32_t* __restrict__ page_list,
+                                             int seq_len, const Epi& epi,
+                                             float* __restrict__ scratch,
+                                             int* __restrict__ tickets, int row, int kvh,
+                                             int split, int H, int KVH, int bt, int num_blocks,
+                                             int splits, float scale) {
+  using F = Fold<D>;
+  using S = Smem<D, G, KV>;
+  using E = typename KV::Elem;
+  constexpr int kChunks = S::kRowBytes / 16;  // 16-byte chunks of a head row
+  constexpr int kCopies = 2 * F::kStageTok * kChunks / kThreads;
+  static_assert(2 * F::kStageTok * kChunks % kThreads == 0, "a stage splits evenly");
+  static_assert(2 * F::kStageTok <= kThreads, "one scale copy per thread");
 
-  float qr[G][E];
-  float m[G], l[G], acc[G][E];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const T* qrow = q + (row * H + kvh * G + g) * D;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      qr[g][e] = its::to_f32(qrow[lane + 32 * e]);
-      acc[g][e] = 0.f;
-    }
-    m[g] = its::kNegInf;
-    l[g] = 0.f;
+  const int npages = (seq_len + bt - 1) / bt;
+  const int spp = split_pages(npages);
+  const int nsplit = max(1, (npages + spp - 1) / spp);
+  if (split >= nsplit) return;  // the same for every thread of the CTA
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int64_t sm_base[kMaxSplitPages];  // element offset of (page, token 0, kvh), or -1
+  __shared__ bool sm_ok[kStages][F::kStageTok];  // a ring row holds a valid token
+  __shared__ int sm_ticket;
+
+  const int tid = threadIdx.x;
+  const int page0 = split * spp;
+  if (tid < spp) {
+    const int j = page0 + tid;
+    const int page = j < npages ? page_list[j] : -1;
+    sm_base[tid] = (page >= 0 && page < num_blocks)
+        ? (static_cast<int64_t>(page) * bt * KVH + kvh) * D : -1;
   }
+  const int ntok = min(seq_len - page0 * bt, spp * bt);
+  const int nstages = (ntok + F::kStageTok - 1) / F::kStageTok;
+  const int row_stride = KVH * D;  // elements from one token's row to the next
 
-  for (int j = warp; j < nblk; j += kWarps) {
-    const int page = page_list[j];
-    if (page < 0 || page >= num_blocks) continue;
-    const int64_t th0 = static_cast<int64_t>(page) * bt * KVH + kvh;  // token 0 of the page
-    const int ntok = min(bt, seq_len - j * bt);
-    for (int t0 = 0; t0 < ntok; t0 += kChunk) {
-      float x[kChunk][E];  // K rows, then V rows, of this chunk
-      float s[kChunk][G];
-      // Predicated loads, all issued before the first use (the fold is bound
-      // by load latency at decode's few CTAs).
+  // The producer's copies: copy k of this thread moves 16-byte chunk col_k
+  // of ring row r_k, whose token st * kStageTok + r_k sits at offset po[k] of
+  // the split's page pi[k]. Stages are issued in order, so the position
+  // advances by kStageTok tokens a stage, without a division.
+  int pi[kCopies + 1], po[kCopies + 1];  // [kCopies]: this thread's scale copy
 #pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int64_t th = th0 + static_cast<int64_t>(t0 + u) * KVH;
-        const float sc = (t0 + u < ntok) ? kv.k_scale(th) : 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          x[u][e] = (t0 + u < ntok) ? kv.key(th * D + lane + 32 * e, sc) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float part = 0.f;
-#pragma unroll
-          for (int e = 0; e < E; ++e) part = fmaf(qr[g][e], x[u][e], part);
-          s[u][g] = __fmul_rn(its::warp_sum(part), scale);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int64_t th = th0 + static_cast<int64_t>(t0 + u) * KVH;
-        const float sc = (t0 + u < ntok) ? kv.v_scale(th) : 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          x[u][e] = (t0 + u < ntok) ? kv.value(th * D + lane + 32 * e, sc) : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float mx = its::kNegInf;
-#pragma unroll
-        for (int u = 0; u < kChunk; ++u)
-          if (t0 + u < ntok) mx = fmaxf(mx, s[u][g]);
-        const float m_new = fmaxf(m[g], mx);
-        const float corr = expf(m[g] - m_new);
-        float psum = 0.f;
-        float pv[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) pv[e] = 0.f;
-#pragma unroll
-        for (int u = 0; u < kChunk; ++u) {
-          if (t0 + u < ntok) {
-            const float p = expf(s[u][g] - m_new);
-            psum += p;
-#pragma unroll
-            for (int e = 0; e < E; ++e) pv[e] = fmaf(p, x[u][e], pv[e]);
-          }
-        }
-        l[g] = fmaf(l[g], corr, psum);
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(acc[g][e], corr, pv[e]);
-        m[g] = m_new;
-      }
-    }
-  }
-
-  // Merge the warps' partial softmax states.
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][g][lane + 32 * e] = acc[g][e];
+  for (int k = 0; k <= kCopies; ++k) {
+    const int r = k < kCopies ? ((tid + k * kThreads) / kChunks) % F::kStageTok
+                              : tid % F::kStageTok;
+    pi[k] = r / bt;
+    po[k] = r % bt;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kWarps * 32) {
-    const int g = idx / D;
-    const int d = idx % D;
+
+  // Queue the copies of stage `st` (split-relative tokens st * kStageTok ...)
+  // into its ring slot; rows past the split or on a skipped page read as 0.
+  auto issue = [&](int st) {
+    unsigned char* slot = smem + (st % kStages) * S::kStageBytes;
+    const int tok0 = st * F::kStageTok;
+#pragma unroll
+    for (int k = 0; k <= kCopies; ++k) {
+      const int c = tid + k * kThreads;
+      const int side = k < kCopies ? c / (F::kStageTok * kChunks) : tid / F::kStageTok;
+      const int r = k < kCopies ? (c / kChunks) % F::kStageTok : tid % F::kStageTok;
+      const int64_t base = tok0 + r < ntok ? sm_base[pi[k]] : -1;
+      const int64_t at = base + static_cast<int64_t>(po[k]) * row_stride;
+      if (k < kCopies) {
+        const int col = c % kChunks;
+        const E* src = base >= 0 ? kv.data(side) + at + col * (16 / static_cast<int>(sizeof(E)))
+                                 : kv.data(side);
+        cp_async16(slot + side * S::kSideBytes + r * S::kRowBytes + col * 16, src, base >= 0);
+        if (side == 0 && col == 0) sm_ok[st % kStages][r] = base >= 0;
+      } else if (KV::kScaled && tid < 2 * F::kStageTok) {
+        const float* src = base >= 0 ? kv.scales(side) + at / D : kv.scales(side);
+        cp_async4(slot + 2 * S::kSideBytes + tid * 4, src, base >= 0);
+      }
+      po[k] += F::kStageTok;
+      while (po[k] >= bt) {
+        po[k] -= bt;
+        ++pi[k];
+      }
+    }
+  };
+
+  const int grp = tid / F::kLanes;  // token group (aligned lanes of one warp)
+  const int gl = tid % F::kLanes;   // lane in the group: elements gl*8 .. gl*8+7
+  const int lane0 = (tid & 31) - gl;  // the group's first lane in the warp
+
+  // The group's kNV scores of a stage, score u * G + g for token u and query
+  // head g, are shared out by transpose_sum: this lane holds scores idx0 + j,
+  // j < kHeld, of token u_own, and keeps the running max and denominator of
+  // their heads (the lane with the other token keeps equal copies).
+  constexpr int kNV = F::kTokPerGroup * G;
+  constexpr int kHeld = kNV > F::kLanes ? kNV / F::kLanes : 1;
+  static_assert(F::kTokPerGroup == 2, "a score's other token is on lane gl ^ kLanes / 2");
+  const int idx0 = gl * kNV / F::kLanes;
+  const int u_own = idx0 / G;
+  // The lane that holds score idx (the first, where two hold it).
+  auto holder = [](int idx) { return kNV > F::kLanes ? idx / kHeld : idx * F::kLanes / kNV; };
+
+  float qr[G][kVec], acc[G][kVec], m_own[kHeld], l_own[kHeld];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const T* qrow = q + (static_cast<int64_t>(row) * H + kvh * G + g) * D + gl * kVec;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      qr[g][e] = its::to_f32(qrow[e]);
+      acc[g][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    m_own[j] = its::kNegInf;
+    l_own[j] = 0.f;
+  }
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nstages) issue(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nstages; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage st landed for every thread; stage st-1's slot is free
+    if (st + kStages - 1 < nstages) issue(st + kStages - 1);
+    cp_async_commit();
+
+    const unsigned char* slot = smem + (st % kStages) * S::kStageBytes;
+    const E* ks = reinterpret_cast<const E*>(slot);
+    const E* vs = reinterpret_cast<const E*>(slot + S::kSideBytes);
+    const float* scl = reinterpret_cast<const float*>(slot + 2 * S::kSideBytes);
+    float x[F::kTokPerGroup][kVec];
+    float sv[kNV];  // this lane's partial dot products, then its held sums
+    bool ok[F::kTokPerGroup];
+#pragma unroll
+    for (int u = 0; u < F::kTokPerGroup; ++u) {
+      const int r = grp + F::kGroups * u;
+      ok[u] = sm_ok[st % kStages][r];
+      widen(ks + r * D + gl * kVec, KV::kScaled ? scl[r] : 0.f, x[u]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) part = fmaf(qr[g][e], x[u][e], part);
+        sv[u * G + g] = part;
+      }
+    }
+    transpose_sum<kNV, F::kLanes / 2>(sv, gl);
+#pragma unroll
+    for (int u = 0; u < F::kTokPerGroup; ++u) {
+      const int r = grp + F::kGroups * u;
+      widen(vs + r * D + gl * kVec, KV::kScaled ? scl[F::kStageTok + r] : 0.f, x[u]);
+    }
+    // The online softmax of the held heads: both tokens' scores, in token
+    // order, from this lane and its partner.
+    float p_own[kHeld], c_own[kHeld];
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j) {
+      const float mine = __fmul_rn(sv[j], scale);
+      const float other = __shfl_xor_sync(0xffffffffu, mine, F::kLanes / 2);
+      const float s0 = u_own ? other : mine;
+      const float s1 = u_own ? mine : other;
+      const float m_new = fmaxf(m_own[j], fmaxf(ok[0] ? s0 : its::kNegInf,
+                                                ok[1] ? s1 : its::kNegInf));
+      p_own[j] = (u_own ? ok[1] : ok[0]) ? expf(mine - m_new) : 0.f;
+      const float p_other = __shfl_xor_sync(0xffffffffu, p_own[j], F::kLanes / 2);
+      const float psum = u_own ? p_other + p_own[j] : p_own[j] + p_other;
+      c_own[j] = expf(m_own[j] - m_new);
+      l_own[j] = fmaf(l_own[j], c_own[j], psum);
+      m_own[j] = m_new;
+    }
+    // Every lane folds V for every head: it gathers the probabilities and
+    // corrections from their holders.
+    float p[kNV], corr[G];
+#pragma unroll
+    for (int idx = 0; idx < kNV; ++idx)
+      p[idx] = __shfl_sync(0xffffffffu, p_own[idx % kHeld], lane0 + holder(idx));
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      corr[g] = __shfl_sync(0xffffffffu, c_own[g % kHeld], lane0 + holder(g));
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float pv[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) pv[e] = fmaf(p[g], x[0][e], 0.f);
+#pragma unroll
+      for (int u = 1; u < F::kTokPerGroup; ++u) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) pv[e] = fmaf(p[u * G + g], x[u][e], pv[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[g][e] = fmaf(acc[g][e], corr[g], pv[e]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained: its memory now holds the merge
+
+  // Merge the token groups' states, in group order: each head's max and the
+  // groups' weights once (G threads), then every output.
+  float* sm_ml = reinterpret_cast<float*>(smem);  // [kGroups][G][m, l]; m becomes the weight
+  float* sm_acc = sm_ml + F::kGroups * G * 2;     // [kGroups][G][D]
+  float* sm_head = sm_acc + F::kGroups * G * D;   // [G][m, l], merged
+  if (u_own == 0 && gl == holder(idx0)) {  // idx0 + j is head idx0 + j's (m, l)
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j) {
+      sm_ml[(grp * G + idx0 + j) * 2] = m_own[j];
+      sm_ml[(grp * G + idx0 + j) * 2 + 1] = l_own[j];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
+  }
+  __syncthreads();
+  if (tid < G) {
     float mm = its::kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w][g]);
-    float ll = 0.f, aa = 0.f;
+    for (int w = 0; w < F::kGroups; ++w) mm = fmaxf(mm, sm_ml[(w * G + tid) * 2]);
+    float ll = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][g] - mm);
-      ll = fmaf(sm_l[w][g], c, ll);
-      aa = fmaf(sm_acc[w][g][d], c, aa);
+    for (int w = 0; w < F::kGroups; ++w) {
+      const float c = expf(sm_ml[(w * G + tid) * 2] - mm);
+      sm_ml[(w * G + tid) * 2] = c;
+      ll = fmaf(sm_ml[(w * G + tid) * 2 + 1], c, ll);
     }
-    epi(row * H + kvh * G + g, d, D, mm, ll, aa);
+    sm_head[tid * 2] = mm;
+    sm_head[tid * 2 + 1] = ll;
   }
+  __syncthreads();
+
+  const int64_t item = static_cast<int64_t>(row) * KVH + kvh;
+  const int64_t acc_floats = static_cast<int64_t>(gridDim.y) * KVH * splits * G * D;
+  float* part_acc = scratch + (item * splits + split) * G * D;
+  float* part_ml = scratch + acc_floats + (item * splits + split) * G * 2;
+  for (int idx = tid; idx < G * D; idx += kThreads) {
+    const int g = idx / D;
+    const int d = idx % D;
+    const float mm = sm_head[g * 2];
+    const float ll = sm_head[g * 2 + 1];
+    float aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < F::kGroups; ++w)
+      aa = fmaf(sm_acc[(w * G + g) * D + d], sm_ml[(w * G + g) * 2], aa);
+    if (nsplit == 1) {
+      epi(static_cast<int64_t>(row) * H + kvh * G + g, d, D, mm, ll, aa);
+    } else {
+      part_acc[idx] = aa;
+      if (d == 0) {
+        part_ml[g * 2] = mm;
+        part_ml[g * 2 + 1] = ll;
+      }
+    }
+  }
+  if (nsplit == 1) return;
+
+  // The last of the row's splits to arrive merges them all, in split order.
+  // Its global reads go out together: each thread prefetches its outputs'
+  // partial acc of the first kPre splits, and the splits' (m, l) stage in
+  // shared memory, kMergeSplits at a time, in one pass of all threads. Then
+  // each head's max (G threads), the weights (one expf per (split, head)),
+  // the denominators (G threads) and the outputs.
+  __syncthreads();  // the CTA's partial is written; thread 0 releases it
+  if (tid == 0) sm_ticket = ticket(tickets + item);
+  __syncthreads();
+  if (sm_ticket != nsplit - 1) return;
+  constexpr int kMergeSplits = 512 / G;
+  constexpr int kOuts = (G * D + kThreads - 1) / kThreads;
+  constexpr int kPre = 8;
+  const float* accs = scratch + item * splits * G * D;
+  const float* mls = scratch + acc_floats + item * splits * G * 2;
+  float pre[kOuts][kPre];
+#pragma unroll
+  for (int k = 0; k < kOuts; ++k) {
+#pragma unroll
+    for (int sp = 0; sp < kPre; ++sp) {
+      const int idx = tid + k * kThreads;
+      pre[k][sp] = idx < G * D && sp < nsplit
+          ? __ldcg(accs + static_cast<int64_t>(sp) * G * D + idx) : 0.f;
+    }
+  }
+  float* head = reinterpret_cast<float*>(smem);  // [G] maxima, then [G] denominators
+  float* sm_mw = head + 2 * G;                   // [kMergeSplits][G] m, then the weights
+  float* sm_l = sm_mw + kMergeSplits * G;        // [kMergeSplits][G] l
+  auto stage_ml = [&](int sp0, int cn) {
+    for (int t = tid; t < cn * G; t += kThreads) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(mls) + (sp0 * G + t));
+      sm_mw[t] = v.x;
+      sm_l[t] = v.y;
+    }
+  };
+  float run = its::kNegInf;  // tid < G: head tid's max so far
+  for (int sp0 = 0; sp0 < nsplit; sp0 += kMergeSplits) {
+    const int cn = min(kMergeSplits, nsplit - sp0);
+    __syncthreads();  // the last chunk is read
+    stage_ml(sp0, cn);
+    __syncthreads();
+    if (tid < G)
+      for (int sp = 0; sp < cn; ++sp) run = fmaxf(run, sm_mw[sp * G + tid]);
+  }
+  if (tid < G) {
+    head[tid] = run;
+    head[G + tid] = 0.f;
+  }
+  float aa[kOuts];
+#pragma unroll
+  for (int k = 0; k < kOuts; ++k) aa[k] = 0.f;
+  for (int sp0 = 0; sp0 < nsplit; sp0 += kMergeSplits) {
+    const int cn = min(kMergeSplits, nsplit - sp0);
+    if (nsplit > kMergeSplits) {  // one chunk is still staged from the maxima's pass
+      __syncthreads();
+      stage_ml(sp0, cn);
+    }
+    __syncthreads();  // the maxima and the chunk are in
+    for (int t = tid; t < cn * G; t += kThreads) sm_mw[t] = expf(sm_mw[t] - head[t % G]);
+    __syncthreads();
+    if (tid < G) {
+      float ll = head[G + tid];
+      for (int sp = 0; sp < cn; ++sp) ll = fmaf(sm_l[sp * G + tid], sm_mw[sp * G + tid], ll);
+      head[G + tid] = ll;
+    }
+#pragma unroll
+    for (int k = 0; k < kOuts; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < G * D) {
+        const int g = idx / D;
+        int sp = 0;
+        if (sp0 == 0) {
+#pragma unroll
+          for (int j = 0; j < kPre; ++j)
+            if (j < cn) aa[k] = fmaf(pre[k][j], sm_mw[j * G + g], aa[k]);
+          sp = min(kPre, cn);
+        }
+        for (; sp < cn; ++sp)
+          aa[k] = fmaf(__ldcg(accs + static_cast<int64_t>(sp0 + sp) * G * D + idx),
+                       sm_mw[sp * G + g], aa[k]);
+      }
+    }
+  }
+  __syncthreads();  // the denominators are in
+#pragma unroll
+  for (int k = 0; k < kOuts; ++k) {
+    const int idx = tid + k * kThreads;
+    if (idx < G * D) {
+      const int g = idx / D;
+      epi(static_cast<int64_t>(row) * H + kvh * G + g, idx % D, D, head[g], head[G + g],
+          aa[k]);
+    }
+  }
+  if (tid == 0) tickets[item] = 0;  // ready for the next launch on this stream
 }
 
-// Rows of a batched block table (K3, K5, K8): grid (KVH, B). Row b attends
-// over tables[b, :], its seq_len clamped to the table's max_blocks * bt.
+// Rows of a batched block table (K3, K5, K8): grid (splits x KVH, B). Row b
+// attends over tables[b, :], its seq_len clamped to the table's max_blocks * bt.
+// Registers cap the CTAs an SM holds: 3 up to G = 4, 2 at G = 8 (128 floats
+// of q and acc a thread).
 template <typename T, int D, int G, typename KV, typename Epi>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, (G <= 4 ? 3 : 2))
 paged_decode(const T* __restrict__ q, KV kv, const int32_t* __restrict__ tables,
-             const int32_t* __restrict__ seq_lens, Epi epi, int H, int KVH, int bt,
-             int num_blocks, int max_blocks, float scale) {
+             const int32_t* __restrict__ seq_lens, Epi epi, float* __restrict__ scratch,
+             int* __restrict__ tickets, int H, int KVH, int bt, int num_blocks, int max_blocks,
+             int splits, float scale) {
   const int b = blockIdx.y;
   const int seq_len = max(0, min(seq_lens[b], max_blocks * bt));
-  attend_row<T, D, G>(q, kv, tables + static_cast<int64_t>(b) * max_blocks,
-                      (seq_len + bt - 1) / bt, seq_len, epi, b, blockIdx.x, H, KVH, bt,
-                      num_blocks, scale);
+  attend_split<T, D, G>(q, kv, tables + static_cast<int64_t>(b) * max_blocks, seq_len, epi,
+                        scratch, tickets, b, blockIdx.x / splits, blockIdx.x % splits, H, KVH,
+                        bt, num_blocks, splits, scale);
 }
 
-// Rows of a ragged wave (K6, K7): grid (KVH, R). Row r's pages are
+// Rows of a ragged wave (K6, K7): grid (splits x KVH, R). Row r's pages are
 // pages[page_starts[r] + j], clamped to the pages the row owns in the flat
-// list (up to the next row's start, or P for the last row).
+// list (up to the next row's start, or P for the last row) and to the
+// launch's table width.
 template <typename T, int D, int G, typename KV, typename Epi>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, (G <= 4 ? 3 : 2))
 paged_decode_ragged(const T* __restrict__ q, KV kv, const int32_t* __restrict__ pages,
                     const int32_t* __restrict__ page_starts,
-                    const int32_t* __restrict__ seq_lens, Epi epi, int H, int KVH, int bt,
-                    int num_blocks, int R, int P, float scale) {
+                    const int32_t* __restrict__ seq_lens, Epi epi, float* __restrict__ scratch,
+                    int* __restrict__ tickets, int H, int KVH, int bt, int num_blocks, int P,
+                    int width, int splits, float scale) {
   const int r = blockIdx.y;
+  const int R = gridDim.y;
   const int start = min(max(page_starts[r], 0), P);
   const int end = (r + 1 < R) ? min(max(page_starts[r + 1], start), P) : P;
-  const int seq_len = max(0, min(seq_lens[r], (end - start) * bt));
-  attend_row<T, D, G>(q, kv, pages + start, (seq_len + bt - 1) / bt, seq_len, epi, r,
-                      blockIdx.x, H, KVH, bt, num_blocks, scale);
+  const int seq_len = max(0, min(seq_lens[r], min(end - start, width) * bt));
+  attend_split<T, D, G>(q, kv, pages + start, seq_len, epi, scratch, tickets, r,
+                        blockIdx.x / splits, blockIdx.x % splits, H, KVH, bt, num_blocks,
+                        splits, scale);
 }
 
 // ---------------------------------------------------------------------------
 // Launch and dispatch over (query dtype, head_dim, group size).
 // ---------------------------------------------------------------------------
 
-// The launch shape every decode kernel shares: rows on grid.y, KV heads on
-// grid.x. `width` is max_blocks for a table, P for a ragged page list.
+// The launch shape every decode kernel shares. `width` bounds a row's pages
+// (max_blocks for a table; the table width, at most P, for a ragged wave),
+// `splits` = grid_splits(width) as the wrapper sized its scratch, `P`
+// the length of a ragged page list.
 struct Shape {
-  int rows, H, KVH, bt, num_blocks, width;
+  int rows, H, KVH, bt, num_blocks, width, P, splits;
   cudaStream_t stream;
 };
 
+// The split scratch of a launch: per (row, KV head, split, query head) an f32
+// partial acc [D], then all the (m, l) pairs: rows * splits * H * (D + 2)
+// floats. `tickets`: rows * KVH int32 zeros, left zero by every launch.
 template <typename T, int D, int G, bool kRagged, typename KV, typename Epi>
 int launch(const T* q, const KV& kv, const int32_t* index, const int32_t* starts,
-           const int32_t* seq_lens, const Epi& epi, const Shape& s) {
+           const int32_t* seq_lens, const Epi& epi, float* scratch, int* tickets,
+           const Shape& s) {
+  if (!kv.aligned()) return static_cast<int>(cudaErrorMisalignedAddress);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  const dim3 grid(s.KVH, s.rows);
+  constexpr int smem = Smem<D, G, KV>::kBytes;
+  const dim3 grid(s.splits * s.KVH, s.rows);
   if constexpr (kRagged) {
-    paged_decode_ragged<T, D, G, KV, Epi><<<grid, kWarps * 32, 0, s.stream>>>(
-        q, kv, index, starts, seq_lens, epi, s.H, s.KVH, s.bt, s.num_blocks, s.rows, s.width,
-        scale);
+    auto kernel = paged_decode_ragged<T, D, G, KV, Epi>;
+    if constexpr (smem > 40 * 1024) {  // beside the static shared memory
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<grid, kThreads, smem, s.stream>>>(q, kv, index, starts, seq_lens, epi, scratch,
+                                               tickets, s.H, s.KVH, s.bt, s.num_blocks, s.P,
+                                               s.width, s.splits, scale);
   } else {
-    paged_decode<T, D, G, KV, Epi><<<grid, kWarps * 32, 0, s.stream>>>(
-        q, kv, index, seq_lens, epi, s.H, s.KVH, s.bt, s.num_blocks, s.width, scale);
+    auto kernel = paged_decode<T, D, G, KV, Epi>;
+    if constexpr (smem > 40 * 1024) {  // beside the static shared memory
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<grid, kThreads, smem, s.stream>>>(q, kv, index, seq_lens, epi, scratch, tickets,
+                                               s.H, s.KVH, s.bt, s.num_blocks, s.width,
+                                               s.splits, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -304,12 +757,15 @@ int by_group(int G, F& f) {
   }
 }
 
-// Validates the shape, then calls f(Config<T, D, G>{}) for the kernels'
-// instantiation; 0 without a launch when there are no rows.
+// Validates the shape (the scratch's split count included), then calls
+// f(Config<T, D, G>{}) for the kernels' instantiation; 0 without a launch
+// when there are no rows.
 template <typename F>
 int dispatch(int dtype, int D, const Shape& s, F f) {
   if (s.rows <= 0) return 0;
-  if (s.KVH <= 0 || s.H % s.KVH != 0 || s.bt <= 0 || s.width <= 0 || s.rows > 65535)
+  if (s.KVH <= 0 || s.H % s.KVH != 0 || s.bt <= 0 || s.width <= 0 || s.rows > 65535 ||
+      s.splits != grid_splits(s.width) ||
+      static_cast<int64_t>(s.splits) * s.KVH > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = s.H / s.KVH;
   switch (dtype) {

@@ -16,27 +16,29 @@
 // is 16 MiB of data and 0.5 MiB of scales per layer per step, about 5.2 us at
 // 3.35 TB/s, half of K3's bf16 read.
 //
-// Design: the fold of decode_fold.cuh (grid (KVH, B), as K3) with the int8
-// loader: each lane reads its bytes of a (token, head) row, lane + 32 e as K3
-// reads its elements, and the row's one scale once (the same address across
-// the warp, a broadcast), and widens in registers. Left on the table: a byte
-// load moves 32 bytes a warp; wider loads would give each lane other
-// elements, so the warp sums would add in another order and K8 would no
-// longer be bitwise K3 unless K3 changed with it. That, and the K3 work (a
-// split over the sequence, prefetch of the next page), are the next steps.
+// Design: the split-KV fold of decode_fold.cuh with the int8 loader. It
+// inherits K3's design whole: the split over the sequence, the cp.async ring
+// (a stage's int8 rows in 16-byte copies, its rows' f32 scales in 4-byte
+// ones), and the in-order merge of the splits. Each lane widens the same 8
+// elements K3's lane reads (one 8-byte read from the ring), in the same
+// order, so the products and sums are K3's over the dequantised values.
+// Left on the table: a stage holds as many tokens as K3's (the mapping must
+// match K3's for the bitwise contract), so it moves half K3's bytes per
+// stage; deeper stages for int8 alone would change the fold's order.
 
 #include "decode_fold.cuh"
 
 extern "C" int its_paged_decode_attention_quantized(
     const void* q, const int8_t* k_data, const float* k_scales, const int8_t* v_data,
     const float* v_scales, const int32_t* tables, const int32_t* seq_lens, void* out,
-    int dtype, int B, int H, int KVH, int D, int bt, int num_blocks, int max_blocks,
-    void* stream) {
-  const Shape s{B, H, KVH, bt, num_blocks, max_blocks, static_cast<cudaStream_t>(stream)};
+    float* scratch, int* tickets, int dtype, int B, int H, int KVH, int D, int bt,
+    int num_blocks, int max_blocks, int splits, void* stream) {
+  const Shape s{B, H, KVH, bt, num_blocks, max_blocks, 0, splits,
+                static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, s, [&](auto c) {
     using T = typename decltype(c)::T;
     return launch<T, decltype(c)::D, decltype(c)::G, false>(
         static_cast<const T*>(q), Int8KV{k_data, k_scales, v_data, v_scales}, tables, nullptr,
-        seq_lens, Normalize<T>{static_cast<T*>(out)}, s);
+        seq_lens, Normalize<T>{static_cast<T*>(out)}, scratch, tickets, s);
   });
 }

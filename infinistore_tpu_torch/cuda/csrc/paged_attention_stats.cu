@@ -17,42 +17,49 @@
 // sharded decode path (one request, 32,768 tokens of context, 8 KV heads x
 // 128 x bf16) that is 128 MiB, about 40 us at 3.35 TB/s.
 //
-// Design: the fold of decode_fold.cuh with the raw-statistics epilogue, so a
-// row's (acc, m, l) are exactly the state K3/K6 normalise: acc / max(l, 1e-30)
-// of a K5 (K7) row is bitwise the K3 (K6) row, which is what makes the
-// one-shard combine bitwise the unsharded kernel. The cross-shard combine
-// (one max and two sums, on torch.distributed) runs outside the kernel.
-// Left on the table: as K3; a long single request is 8 CTAs (one per KV
-// head) on 132 SMs, so the 32,768-token call wants a split over the sequence.
+// Design: the split-KV fold of decode_fold.cuh with the raw-statistics
+// epilogue, which runs once per row after the split merge, so a row's
+// (acc, m, l) are exactly the state K3/K6 normalise: acc / max(l, 1e-30) of a
+// K5 (K7) row is bitwise the K3 (K6) row, which is what makes the one-shard
+// combine bitwise the unsharded kernel. It inherits K3's design whole: the
+// split over the sequence (the 32,768-token request is 8 KV heads x 128
+// splits = 1,024 CTAs, where it was 8), 16-byte cp.async loads through the
+// ring, and the in-order merge of the splits. The cross-shard combine (one
+// max and two sums, on torch.distributed) runs outside the kernel.
+// Left on the table: the last CTA of each KV head merges 128 partials alone;
+// a long single request would rather merge in a tree.
 
 #include "decode_fold.cuh"
 
-extern "C" int its_paged_decode_attention_stats(const void* q, const void* k_cache,
-                                                const void* v_cache, const int32_t* tables,
-                                                const int32_t* seq_lens, float* acc, float* m,
-                                                float* l, int dtype, int B, int H, int KVH,
-                                                int D, int bt, int num_blocks, int max_blocks,
-                                                void* stream) {
-  const Shape s{B, H, KVH, bt, num_blocks, max_blocks, static_cast<cudaStream_t>(stream)};
+extern "C" int its_paged_decode_attention_stats(
+    const void* q, const void* k_cache, const void* v_cache, const int32_t* tables,
+    const int32_t* seq_lens, float* acc, float* m, float* l, float* scratch, int* tickets,
+    int dtype, int B, int H, int KVH, int D, int bt, int num_blocks, int max_blocks, int splits,
+    void* stream) {
+  const Shape s{B, H, KVH, bt, num_blocks, max_blocks, 0, splits,
+                static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, s, [&](auto c) {
     using T = typename decltype(c)::T;
     return launch<T, decltype(c)::D, decltype(c)::G, false>(
         static_cast<const T*>(q),
         FloatKV<T>{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)}, tables,
-        nullptr, seq_lens, RawStats{acc, m, l}, s);
+        nullptr, seq_lens, RawStats{acc, m, l}, scratch, tickets, s);
   });
 }
 
 extern "C" int its_paged_decode_attention_ragged_stats(
     const void* q, const void* k_cache, const void* v_cache, const int32_t* pages,
     const int32_t* page_starts, const int32_t* seq_lens, float* acc, float* m, float* l,
-    int dtype, int R, int H, int KVH, int D, int bt, int num_blocks, int P, void* stream) {
-  const Shape s{R, H, KVH, bt, num_blocks, P, static_cast<cudaStream_t>(stream)};
+    float* scratch, int* tickets, int dtype, int R, int H, int KVH, int D, int bt,
+    int num_blocks, int P, int width, int splits, void* stream) {
+  if (P <= 0 || width > P) return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{R, H, KVH, bt, num_blocks, width, P, splits,
+                static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, s, [&](auto c) {
     using T = typename decltype(c)::T;
     return launch<T, decltype(c)::D, decltype(c)::G, true>(
         static_cast<const T*>(q),
         FloatKV<T>{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)}, pages,
-        page_starts, seq_lens, RawStats{acc, m, l}, s);
+        page_starts, seq_lens, RawStats{acc, m, l}, scratch, tickets, s);
   });
 }

@@ -32,6 +32,7 @@ from .paged import PagedKVCacheSpec, gather_blocks, scatter_blocks
 from .paged_attention import (
     _check_decode_args,
     _check_table_args,
+    _split_scratch,
     paged_decode_attention_plain_batched,
 )
 
@@ -89,14 +90,19 @@ def _quant_decode_cuda(q, k_data, k_scales, v_data, v_scales, block_tables, seq_
     for arg, t in (("k_scales", k_scales), ("v_scales", v_scales)):
         if tuple(t.shape) != want or t.dtype != torch.float32:
             raise ValueError(f"{name}: {arg} must be {list(want)} float32")
+    _ext.require_aligned(name, k_data=k_data, v_data=v_data)
+    dtype = _ext.dtype_code(name, q.dtype)
     bsz, h, d = q.shape
     n, bt, kvh, _ = k_data.shape
+    width = block_tables.shape[1]
+    stream = _ext.stream_of(q)
+    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     out = torch.empty_like(q)
     code = _ext.kernels().its_paged_decode_attention_quantized(
         q.data_ptr(), k_data.data_ptr(), k_scales.data_ptr(), v_data.data_ptr(),
         v_scales.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        _ext.dtype_code(name, q.dtype), bsz, h, kvh, d, bt, n, block_tables.shape[1],
-        _ext.stream_of(q),
+        scratch.data_ptr(), tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits,
+        stream,
     )
     _ext.LAUNCHES["paged_decode_attention_quantized"] += 1
     _ext.check(code, name)

@@ -6,6 +6,11 @@ block-table row names, without materialising the gathered context. On CUDA
 tensors this is kernel K3 (``csrc/paged_attention.cu``); on CPU tensors the
 plain version below, which mirrors the JAX package's XLA reference
 (``_decode_attention_stats_xla`` + ``paged_decode_attention_xla_batched``).
+The decode kernels (K3, K5-K8) split each row's pages across CTAs; a
+wrapper sizes the split scratch from shapes alone (rows x splits x H x
+(D + 2) f32, splits from the table width, asked of the library once per
+width), takes it from the stream's workspace (allocated once, grown when a
+launch needs more), and reads no device value.
 
 The ragged half (``RaggedWaveMeta``, ``build_ragged_wave``,
 ``paged_decode_attention_ragged``, ``paged_decode_attention_rows``) serves a
@@ -107,8 +112,9 @@ def _check_decode_args(name, q, k_cache, v_cache, same_dtype=True):
 
 def _check_table_args(name, q, block_tables, seq_lens):
     bsz = q.shape[0]
-    if block_tables.dim() != 2 or block_tables.shape[0] != bsz or block_tables.dtype != torch.int32:
-        raise ValueError(f"{name}: block_tables must be [{bsz}, max_blocks] int32")
+    if block_tables.dim() != 2 or block_tables.shape[0] != bsz or \
+            block_tables.shape[1] < 1 or block_tables.dtype != torch.int32:
+        raise ValueError(f"{name}: block_tables must be [{bsz}, max_blocks >= 1] int32")
     if tuple(seq_lens.shape) != (bsz,) or seq_lens.dtype != torch.int32:
         raise ValueError(f"{name}: seq_lens must be [{bsz}] int32")
 
@@ -123,6 +129,27 @@ def _check_ragged_args(name, q, pages, page_rows, page_starts, seq_lens) -> int:
             raise ValueError(f"{name}: {arg} must be {list(want)} int32 (pages [P], "
                              f"page_rows [P + 1], page_starts and seq_lens [{r}])")
     return p
+
+
+def _ragged_width(name, table_width, p: int) -> int:
+    """The pages a ragged row may span on the kernel (its splits): the
+    caller's table width, at most the flat list's P."""
+    if int(table_width) < 1:
+        raise ValueError(f"{name}: table_width must be >= 1, got {table_width}")
+    return min(int(table_width), p)
+
+
+def _split_scratch(q, kvh: int, width: int, stream: int):
+    """(scratch, tickets, splits) of one decode launch over tables ``width``
+    pages wide, from shapes alone: the library's split count of the width,
+    and the stream's workspace, at least f32 partials for every (row, split,
+    query head), acc [D] and (m, l), and one ticket counter per (row, KV
+    head)."""
+    rows, h, d = q.shape
+    splits = _ext.decode_splits(width)
+    scratch, tickets = _ext.split_workspace(q.device, stream, rows * splits * h * (d + 2),
+                                            rows * kvh)
+    return scratch, tickets, splits
 
 
 def _stats_outputs(q):
@@ -140,13 +167,18 @@ def _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens):
     )
     _check_decode_args(name, q, k_cache, v_cache)
     _check_table_args(name, q, block_tables, seq_lens)
+    _ext.require_aligned(name, k_cache=k_cache, v_cache=v_cache)
+    dtype = _ext.dtype_code(name, q.dtype)
     bsz, h, d = q.shape
     n, bt, kvh, _ = k_cache.shape
+    width = block_tables.shape[1]
+    stream = _ext.stream_of(q)
+    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     out = torch.empty_like(q)
     code = _ext.kernels().its_paged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), _ext.dtype_code(name, q.dtype),
-        bsz, h, kvh, d, bt, n, block_tables.shape[1], _ext.stream_of(q),
+        seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), dtype,
+        bsz, h, kvh, d, bt, n, width, splits, stream,
     )
     _ext.LAUNCHES["paged_decode_attention"] += 1
     _ext.check(code, name)
@@ -306,7 +338,7 @@ def paged_decode_attention_ragged_plain(q, k_cache, v_cache, pages, page_starts,
 
 
 def _paged_decode_attention_ragged_cuda(q, k_cache, v_cache, pages, page_rows,
-                                        page_starts, seq_lens):
+                                        page_starts, seq_lens, table_width):
     name = "paged_decode_attention_ragged"
     _ext.require_cuda(
         name, q.device, q=q, k_cache=k_cache, v_cache=v_cache, pages=pages,
@@ -314,13 +346,18 @@ def _paged_decode_attention_ragged_cuda(q, k_cache, v_cache, pages, page_rows,
     )
     _check_decode_args(name, q, k_cache, v_cache)
     p = _check_ragged_args(name, q, pages, page_rows, page_starts, seq_lens)
+    width = _ragged_width(name, table_width, p)
+    _ext.require_aligned(name, k_cache=k_cache, v_cache=v_cache)
+    dtype = _ext.dtype_code(name, q.dtype)
     r, h, d = q.shape
     n, bt, kvh, _ = k_cache.shape
+    stream = _ext.stream_of(q)
+    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     out = torch.empty_like(q)
     code = _ext.kernels().its_paged_decode_attention_ragged(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
-        page_starts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        _ext.dtype_code(name, q.dtype), r, h, kvh, d, bt, n, p, _ext.stream_of(q),
+        page_starts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p, width, splits, stream,
     )
     _ext.LAUNCHES["paged_decode_attention_ragged"] += 1
     _ext.check(code, name)
@@ -334,10 +371,11 @@ def paged_decode_attention_ragged(q, k_cache, v_cache, pages, page_rows, page_st
 
     q: [R, n_heads, head_dim]; the flat metadata follows
     :class:`RaggedWaveMeta` (tensors, or numpy arrays moved to q's device).
-    ``table_width``: the most pages any row spans; only the plain version
-    uses it, to rebuild rectangular tables. Kernel K6 on CUDA (one launch,
-    sum(ceil(len_i / bt)) page folds), the plain version on CPU. Rows with
-    seq_len 0 return zeros."""
+    ``table_width``: the most pages any row spans; a row attends to at most
+    that many, on both paths (the plain version rebuilds rectangular tables
+    of that width, the kernel sizes its splits by it). Kernel K6 on CUDA
+    (one launch, sum(ceil(len_i / bt)) page folds), the plain version on
+    CPU. Rows with seq_len 0 return zeros."""
     pages, page_rows, page_starts, seq_lens = (
         torch.as_tensor(x, dtype=torch.int32, device=q.device)
         for x in (pages, page_rows, page_starts, seq_lens))
@@ -345,7 +383,7 @@ def paged_decode_attention_ragged(q, k_cache, v_cache, pages, page_rows, page_st
         return paged_decode_attention_ragged_plain(
             q, k_cache, v_cache, pages, page_starts, seq_lens, table_width)
     return _paged_decode_attention_ragged_cuda(
-        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens)
+        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens, table_width)
 
 
 def paged_decode_attention_rows(q, k_cache, v_cache, row_tables, seq_lens, pages,
@@ -354,12 +392,14 @@ def paged_decode_attention_rows(q, k_cache, v_cache, row_tables, seq_lens, pages
     wave body (``models/llama.py verify_step_ragged``) calls this with one
     row per flat wave token. Same semantics as
     :func:`paged_decode_attention_batched` over ``row_tables``. On CUDA the
-    flat metadata goes to kernel K6; on CPU the plain batched version runs
-    over ``row_tables``, as the JAX package's fallback does."""
+    flat metadata goes to kernel K6, its table width ``row_tables``'
+    (``row_tables.shape[1]`` bounds its splits); on CPU the plain batched
+    version runs over ``row_tables``, as the JAX package's fallback does."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain_batched(q, k_cache, v_cache, row_tables, seq_lens)
     return _paged_decode_attention_ragged_cuda(
-        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens.to(torch.int32))
+        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens.to(torch.int32),
+        row_tables.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -375,14 +415,18 @@ def _decode_attention_stats_cuda(q, k_cache, v_cache, block_tables, seq_lens):
     )
     _check_decode_args(name, q, k_cache, v_cache)
     _check_table_args(name, q, block_tables, seq_lens)
+    _ext.require_aligned(name, k_cache=k_cache, v_cache=v_cache)
+    dtype = _ext.dtype_code(name, q.dtype)
     bsz, h, d = q.shape
     n, bt, kvh, _ = k_cache.shape
+    width = block_tables.shape[1]
+    stream = _ext.stream_of(q)
+    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     acc, m, l = _stats_outputs(q)
     code = _ext.kernels().its_paged_decode_attention_stats(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        _ext.dtype_code(name, q.dtype), bsz, h, kvh, d, bt, n, block_tables.shape[1],
-        _ext.stream_of(q),
+        seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), scratch.data_ptr(),
+        tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits, stream,
     )
     _ext.LAUNCHES["paged_decode_attention_stats"] += 1
     _ext.check(code, name)
@@ -398,7 +442,7 @@ def _decode_attention_stats(q, k_cache, v_cache, block_tables, seq_lens):
 
 
 def _decode_attention_stats_ragged_cuda(q, k_cache, v_cache, pages, page_rows, page_starts,
-                                        seq_lens):
+                                        seq_lens, table_width):
     name = "paged_decode_attention_ragged_stats"
     _ext.require_cuda(
         name, q.device, q=q, k_cache=k_cache, v_cache=v_cache, pages=pages,
@@ -406,14 +450,19 @@ def _decode_attention_stats_ragged_cuda(q, k_cache, v_cache, pages, page_rows, p
     )
     _check_decode_args(name, q, k_cache, v_cache)
     p = _check_ragged_args(name, q, pages, page_rows, page_starts, seq_lens)
+    width = _ragged_width(name, table_width, p)
+    _ext.require_aligned(name, k_cache=k_cache, v_cache=v_cache)
+    dtype = _ext.dtype_code(name, q.dtype)
     r, h, d = q.shape
     n, bt, kvh, _ = k_cache.shape
+    stream = _ext.stream_of(q)
+    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     acc, m, l = _stats_outputs(q)
     code = _ext.kernels().its_paged_decode_attention_ragged_stats(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
         page_starts.data_ptr(), seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), _ext.dtype_code(name, q.dtype), r, h, kvh, d, bt, n, p,
-        _ext.stream_of(q),
+        l.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p,
+        width, splits, stream,
     )
     _ext.LAUNCHES["paged_decode_attention_ragged_stats"] += 1
     _ext.check(code, name)
@@ -423,8 +472,9 @@ def _decode_attention_stats_ragged_cuda(q, k_cache, v_cache, pages, page_rows, p
 def _decode_attention_stats_ragged(q, k_cache, v_cache, pages, page_rows, page_starts,
                                    seq_lens, table_width: int):
     """Raw ragged (acc [R, H, D], m [R, H, 1], l [R, H, 1]), f32: kernel K7
-    on CUDA tensors, the plain version on CPU tensors (``table_width`` is
-    only its)."""
+    on CUDA tensors, the plain version on CPU tensors; ``table_width``
+    bounds each row's pages on both, as in
+    :func:`paged_decode_attention_ragged`."""
     pages, page_rows, page_starts, seq_lens = (
         torch.as_tensor(x, dtype=torch.int32, device=q.device)
         for x in (pages, page_rows, page_starts, seq_lens))
@@ -432,7 +482,7 @@ def _decode_attention_stats_ragged(q, k_cache, v_cache, pages, page_rows, page_s
         return decode_attention_stats_ragged_plain(
             q, k_cache, v_cache, pages, page_starts, seq_lens, table_width)
     return _decode_attention_stats_ragged_cuda(
-        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens)
+        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens, table_width)
 
 
 def combine_stats(acc, m, l, dtype, all_max, all_sum):

@@ -6,9 +6,14 @@ pad pages, held bitwise against K3 row by row), ragged query tiles, full
 attention over a longer context and batch > 1 (K4: its bf16 tensor-core
 kernel at every 128-row tile edge, GQA group 1 and 4, and on inputs where
 one leaked or dropped key would move the output by order 1; its f32 path
-on the CUDA cores, each counted by its own counter); plus the layerwise
-writer/reader round trip through pinned staging on the card and one engine
-wave against sequential decode (within the engine's stated tolerance).
+on the CUDA cores, each counted by its own counter); the split-KV decode
+fold of K3, K5-K8 at and around every split edge (rows of 0 and 1 tokens,
+one split less, equal and more by a token, several splits), with tables
+padded by out-of-range ids and every bitwise contract (two launches, K6 ==
+K3 per row, solo == wave, K5/K7's one-shard combine == K3/K6, K8 == K3 over
+the dequantised cache); plus the layerwise writer/reader round trip through
+pinned staging on the card and one engine wave against sequential decode
+(within the engine's stated tolerance).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere (the decision is taken in
 a fixture, never at import). On the card:
@@ -517,3 +522,255 @@ def test_quantized_store_roundtrip_through_pinned_staging(dev, enable_shm):
         qc.close()
         conn.close()
         srv.stop()
+
+
+# The split-KV decode fold (csrc/decode_fold.cuh): a row of n pages folds in
+# about 8 splits of 4 to 16 pages (one of 4 pages up to 4 pages, 16-page ones
+# from 128 pages up), merged in split order by the row's last CTA. Rows at
+# and around the split edges, many splits long, every supported group,
+# head_dim and dtype.
+SPLIT_BT = 16
+# 0 and 1 token; one 4-page split, less, equal and more by a token; 8 splits
+# of 4 pages, and 7 of 5; 8 splits of 16 pages, less, equal and more by a
+# token; 10 splits of 16 pages.
+SPLIT_EDGE_LENS = [0, 1, 4 * SPLIT_BT - 1, 4 * SPLIT_BT, 4 * SPLIT_BT + 1, 32 * SPLIT_BT,
+                   32 * SPLIT_BT + 1, 128 * SPLIT_BT - 1, 128 * SPLIT_BT, 128 * SPLIT_BT + 1,
+                   150 * SPLIT_BT + 7]
+
+
+def _split_case(dtype, d, h, kvh, dev, seed):
+    """Rows of SPLIT_EDGE_LENS tokens, tables padded 4 pages past the
+    longest. Returns (q, k, v, good tables, tables whose entries past each
+    row's sequence are out of range, lens)."""
+    bt = SPLIT_BT
+    lens = SPLIT_EDGE_LENS
+    width = -(-max(lens) // bt) + 4
+    n = len(lens) * width
+    g = torch.Generator().manual_seed(seed)
+    good = torch.randperm(n, generator=g)[: len(lens) * width].reshape(len(lens), width)
+    bad = good.clone()
+    for r, length in enumerate(lens):
+        used = -(-length // bt)
+        bad[r, used:] = torch.tensor([-1, n, n + 1000, -7] * width)[: width - used]
+    q = _randn(seed + 1, (len(lens), h, d), dtype, dev)
+    k = _randn(seed + 2, (n, bt, kvh, d), dtype, dev)
+    v = _randn(seed + 3, (n, bt, kvh, d), dtype, dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, good.to(dev, torch.int32), bad.to(dev, torch.int32), lens_t
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_k3_k6_at_split_edges(dev, d, h, kvh, dtype):
+    """K3 and K6 against their plain versions around every split edge;
+    padding past the sequence with out-of-range ids changes nothing; two
+    launches are bitwise equal; K6 is bitwise K3 per row."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    q, k, v, good, bad, lens = _split_case(dtype, d, h, kvh, dev, 70)
+    got = pa.paged_decode_attention_batched(q, k, v, bad, lens)
+    again = pa.paged_decode_attention_batched(q, k, v, bad, lens)
+    on_good = pa.paged_decode_attention_batched(q, k, v, good, lens)
+    want = pa.paged_decode_attention_plain_batched(q, k, v, good, lens)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[dtype]
+    assert torch.equal(got, again) and torch.equal(got, on_good)
+    assert torch.all(got[0] == 0)
+
+    bt, width = k.shape[1], good.shape[1]
+    m = pa.build_ragged_wave([t.cpu().numpy() for t in good], lens.cpu().numpy(), bt,
+                             pad_to_pow2=True)
+    meta = [torch.from_numpy(x).to(dev) for x in (m.pages, m.page_rows, m.page_starts,
+                                                    m.seq_lens)]
+    k6 = pa.paged_decode_attention_ragged(q, k, v, *meta, table_width=width)
+    k6_again = pa.paged_decode_attention_ragged(q, k, v, *meta, table_width=width)
+    k6_plain = pa.paged_decode_attention_ragged_plain(q, k, v, meta[0], meta[2], meta[3], width)
+    torch.cuda.synchronize()
+    assert torch.equal(k6, got) and torch.equal(k6, k6_again)
+    assert _err(k6, k6_plain) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_rows_equal_their_solo_launch(dev, dtype):
+    """A wave whose rows span 1 to 5 splits of 4 pages, 8 of 9 and 13 of 16
+    (beside a one-token row): each row is bitwise its solo launch and its K3
+    launch."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, h, kvh, d = SPLIT_BT, 32, 8, 128
+    lens = [4 * s * bt - 3 for s in range(1, 6)] + [1, 72 * bt, 200 * bt + 5]
+    width = 201
+    g = torch.Generator().manual_seed(71)
+    tables = [torch.randperm(len(lens) * width, generator=g)[:width].numpy()
+              for _ in lens]
+    k = _randn(72, (len(lens) * width, bt, kvh, d), dtype, dev)
+    v = _randn(73, (len(lens) * width, bt, kvh, d), dtype, dev)
+    q = _randn(74, (len(lens), h, d), dtype, dev)
+    m = pa.build_ragged_wave(tables, lens, bt, pad_to_pow2=True)
+    wave = pa.paged_decode_attention_ragged(q, k, v, m.pages, m.page_rows, m.page_starts,
+                                            m.seq_lens, table_width=width)
+    for r in range(len(lens)):
+        solo = pa.build_ragged_wave([tables[r]], [lens[r]], bt)
+        one = pa.paged_decode_attention_ragged(q[r:r + 1].contiguous(), k, v, solo.pages,
+                                               solo.page_rows, solo.page_starts, solo.seq_lens,
+                                               table_width=width)
+        k3 = pa.paged_decode_attention_batched(
+            q[r:r + 1].contiguous(), k, v,
+            torch.from_numpy(tables[r][None].astype(np.int32)).to(dev),
+            torch.tensor([lens[r]], dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], wave[r]), r
+        assert torch.equal(k3[0], wave[r]), r
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
+    """K5 and K7 at the split edges: within tolerance of their plain
+    statistics (the empty row: acc 0, l 0, m -1e30), and their one-shard
+    combine bitwise K3 / K6."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    q, k, v, good, bad, lens = _split_case(dtype, d, h, kvh, dev, 80)
+    ident = lambda t: t  # noqa: E731
+    stats = pa._decode_attention_stats(q, k, v, bad, lens)
+    plain = pa.decode_attention_stats_plain(q, k, v, good, lens)
+    torch.cuda.synchronize()
+    for a, b in zip(stats, plain):
+        assert _err(a, b) <= 1e-4 * max(1.0, float(b.abs().max()))
+    assert torch.all(stats[1][0] == -1e30) and torch.all(stats[2][0] == 0)
+    assert torch.all(stats[0][0] == 0)
+    k3 = pa.paged_decode_attention_batched(q, k, v, bad, lens)
+    assert torch.equal(pa.combine_stats(*stats, dtype, ident, ident), k3)
+
+    bt, width = k.shape[1], good.shape[1]
+    m = pa.build_ragged_wave([t.cpu().numpy() for t in good], lens.cpu().numpy(), bt,
+                             pad_to_pow2=True)
+    meta = [torch.from_numpy(x).to(dev) for x in (m.pages, m.page_rows, m.page_starts,
+                                                    m.seq_lens)]
+    rstats = pa._decode_attention_stats_ragged(q, k, v, *meta, table_width=width)
+    k6 = pa.paged_decode_attention_ragged(q, k, v, *meta, table_width=width)
+    torch.cuda.synchronize()
+    assert torch.equal(pa.combine_stats(*rstats, dtype, ident, ident), k6)
+    for a, b in zip(rstats, stats):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_quantized_decode_is_k3_over_the_dequantised_cache(dev, d, h, kvh, dtype):
+    """K8 at the split edges: within tolerance of its plain version, bitwise
+    K3 run on q.float() over the f32-dequantised cache, and two launches
+    bitwise equal."""
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    q, k, v, good, bad, lens = _split_case(torch.float32, d, h, kvh, dev, 90)
+    q = q.to(dtype)
+    kd, ks = kq.quantize_kv(k * 3)
+    vd, vs = kq.quantize_kv(v)
+    got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, bad, lens)
+    again = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, bad, lens)
+    want = kq._quant_decode_plain(q, kd, ks, vd, vs, good, lens)
+    k3 = pa.paged_decode_attention_batched(
+        q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), good, lens).to(dtype)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[dtype]
+    assert torch.equal(got, k3) and torch.equal(got, again)
+    assert torch.all(got[0] == 0)
+
+
+def test_split_ragged_row_is_clamped_to_the_table_width(dev):
+    """A ragged row that asks for more pages than the wave's table width
+    attends to the first table_width pages, as the plain version's rebuilt
+    tables do."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, h, kvh, d = SPLIT_BT, 8, 2, 128
+    pages_row = 150
+    k = _randn(91, (pages_row, bt, kvh, d), torch.bfloat16, dev)
+    v = _randn(92, (pages_row, bt, kvh, d), torch.bfloat16, dev)
+    q = _randn(93, (1, h, d), torch.bfloat16, dev)
+    table = np.arange(pages_row, dtype=np.int32)
+    m = pa.build_ragged_wave([table], [pages_row * bt], bt)
+    for width in (pages_row - 1, 129, 128, 33, 5):
+        got = pa.paged_decode_attention_ragged(q, k, v, m.pages, m.page_rows, m.page_starts,
+                                               m.seq_lens, table_width=width)
+        want = pa.paged_decode_attention_ragged_plain(
+            q, k, v, *(torch.from_numpy(x).to(dev) for x in (m.pages, m.page_starts,
+                                                              m.seq_lens)), width)
+        torch.cuda.synchronize()
+        assert _err(got, want) <= TOL[torch.bfloat16], width
+
+
+def test_split_count_covers_every_row_of_the_width(dev):
+    """The library's split count for a table width (the grid's split
+    dimension, by which the wrappers size their scratch) is the most splits
+    any row of at most that many pages takes: a row of n pages folds in
+    about 8 splits of 4 to 16 pages, a count that is not monotone in n."""
+    from infinistore_tpu_torch.cuda import _ext
+
+    def row_splits(n):
+        per = min(max(-(-n // 8), 4), 16)
+        return max(1, -(-n // per))
+
+    lib = _ext.kernels()
+    for width in list(range(1, 300)) + [2048, 4097]:
+        want = max(row_splits(n) for n in range(width + 1))
+        assert lib.its_decode_splits(width) == want, width
+
+
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_merge_past_one_chunk_of_splits(dev, h, kvh, dtype):
+    """The last CTA stages a row's (m, l) pairs 512 / G splits at a time; a
+    row of more splits merges chunk by chunk. Rows of exactly one chunk of
+    16-page splits, three splits and a part past it, and two chunks and one
+    page: K3 against its plain version, two launches bitwise equal, K6 bitwise
+    K3 per row, K5's one-shard combine bitwise K3, K8 bitwise K3 over the
+    dequantised cache."""
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, d = SPLIT_BT, 128
+    chunk = 16 * (512 // (h // kvh))  # pages in one chunk of 16-page splits
+    pages = [chunk, chunk + 3 * 16 + 5, 2 * chunk + 1, 0]
+    lens = [max(0, n * bt - 5 * (i % 2)) for i, n in enumerate(pages)]
+    width = max(pages)
+    n = width + 8
+    g = torch.Generator().manual_seed(95)
+    tables_np = [torch.randperm(n, generator=g)[:width].numpy().astype(np.int32)
+                 for _ in pages]
+    tables = torch.from_numpy(np.stack(tables_np)).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = _randn(96, (len(pages), h, d), dtype, dev)
+    k = _randn(97, (n, bt, kvh, d), torch.float32, dev)
+    v = _randn(98, (n, bt, kvh, d), torch.float32, dev)
+    kc, vc = k.to(dtype), v.to(dtype)
+
+    got = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    again = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    want = pa.paged_decode_attention_plain_batched(q, kc, vc, tables, lens_t)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[dtype]
+    assert torch.equal(got, again) and torch.all(got[-1] == 0)
+
+    m = pa.build_ragged_wave(tables_np, lens, bt, pad_to_pow2=True)
+    k6 = pa.paged_decode_attention_ragged(q, kc, vc, m.pages, m.page_rows, m.page_starts,
+                                          m.seq_lens, table_width=width)
+    ident = lambda t: t  # noqa: E731
+    stats = pa._decode_attention_stats(q, kc, vc, tables, lens_t)
+    torch.cuda.synchronize()
+    assert torch.equal(k6, got)
+    assert torch.equal(pa.combine_stats(*stats, dtype, ident, ident), got)
+
+    kd, ks = kq.quantize_kv(k)
+    vd, vs = kq.quantize_kv(v)
+    k8 = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens_t)
+    k3 = pa.paged_decode_attention_batched(
+        q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables, lens_t).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(k8, k3)

@@ -198,7 +198,7 @@ def test_build_ragged_wave_validates_and_cuda_path_checks_before_launch():
     kc = torch.zeros(4, 8, 2, 64)
     meta = [torch.from_numpy(x) for x in (m.pages, m.page_rows, m.page_starts, m.seq_lens)]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pa._paged_decode_attention_ragged_cuda(q, kc, kc, *meta)
+        pa._paged_decode_attention_ragged_cuda(q, kc, kc, *meta, table_width=2)
 
 
 # -- the model's ragged wave and chunked resume -------------------------------
