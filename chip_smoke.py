@@ -39,7 +39,14 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    8-token verification chunks at 1,024 tokens, each chunk's rows sharing
    their pages; bitwise K3 per row; its bound counts the distinct pages);
    two launches of K3 and K6 on the same inputs must be bitwise equal.
-   K3's, K4's and K6's wrapper host time per call is logged.
+   K3's, K4's and K6's wrapper host time per call is logged. K1/K2 are
+   also held bitwise (bf16 and f32, every launch on the TMA bulk ring) and
+   timed through their batched entries at the paths' shapes: the writer's
+   and the reader's layer ([K, V] x 128 blocks), the engine's save snapshot
+   (64 caches x 64 blocks), the install span (64 caches x 48 blocks) and the
+   int8 round trip's 16 KiB data and 512 B scale blocks, beside their bound
+   and the unfused sequence the paths ran before (one launch a cache, plus
+   the writer's ``torch.cat``), with K1/K2's wrapper host time.
 2. Main path at Llama-3-8B width (random weights from seed 0): engine A
    prefills 4 prompts of 2048 tokens and saves them through
    ``KVConnector.save`` to an in-process store; engine B looks each prompt up
@@ -47,7 +54,9 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    the same bytes, and both engines decode 16 steps as one wave of 4 with
    bitwise-equal logits. Launch counts are zeroed just before this phase
    and every kernel must have launched in it; here and in both engine
-   phases every K4 launch must have taken the bf16 tensor-core kernel.
+   phases every K4 launch must have taken the bf16 tensor-core kernel, and
+   here, in the int8 round trip and in both engine phases every K1/K2
+   launch the TMA bulk ring.
 3. A small f32 model through the same round trip twice, on the card (the
    kernels) and on the CPU (the plain versions): logits agree to 2e-4.
 4. int8 round trip at Llama-3-8B width: engine A's 4 x 2,048-token bf16
@@ -170,6 +179,9 @@ PATH_KERNELS = {
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
 BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine")
+# Paths whose every K1/K2 launch moves 16-byte aligned blocks, so must take
+# the TMA bulk ring.
+BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine")
 
 
 def log(msg: str) -> None:
@@ -195,7 +207,9 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, iters: int = 11, warmup: int = 2) -> float:
+    def ms(self, fn, iters: int = 11, warmup: int = 2, spin: int = 1) -> float:
+        """Median ms of ``fn``; ``spin`` multiplies the spin, for calls that
+        queue many launches (their host work must stay inside it too)."""
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -204,7 +218,7 @@ class Timer:
         for _ in range(iters):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(self.SPIN_CYCLES)
+            torch.cuda._sleep(self.SPIN_CYCLES * spin)
             self.flush.zero_()
             start.record()
             fn()
@@ -301,6 +315,12 @@ def kernel_phase(torch, timer):
                 bound_ms=bms, bound_by=by,
                 library_ms=timer.ms(lambda: cache.index_copy_(0, ids_long, blocks)),
             )
+            results["gather_blocks"]["host_us"] = host_us(
+                torch, lambda: paged.gather_blocks(cache, ids))
+            results["scatter_blocks"]["host_us"] = host_us(
+                torch, lambda: paged.scatter_blocks(cache, ids, blocks))
+    for name, shapes in _copy_kernel_check(torch, timer, g, paged, _ext).items():
+        results[name]["shapes"] = shapes
 
     # K3: a wave of 4 requests at 2048 tokens of context.
     bsz = PROMPTS
@@ -395,6 +415,144 @@ def kernel_phase(torch, timer):
     results["paged_decode_attention_stats"] = _stats_kernel_check(
         torch, timer, g, tables, (full, ragged), n_cache)
     return results
+
+
+# K1/K2 at the shapes of the paths' batched calls: the writer's and the
+# reader's layer ([K, V] x 128 blocks), the engine's save snapshot (every
+# layer's K and V, 64 caches x 64 blocks), the install span's scatter (64
+# caches x the engine's 48-block hit) and the int8 round trip's layer (16 KiB
+# int8 data blocks, 512 B f32 scale blocks).
+COPY_NUM_BLOCKS = 1024
+COPY_SHAPES = {
+    "gather_blocks": {"a_writer_layer": (2, 128), "b_engine_snapshot": (64, 64)},
+    "scatter_blocks": {"a_reader_layer": (2, 128), "c_install_span": (64, 48)},
+}
+
+
+def copy_inputs(torch, g, dtype, block_shape, caches, device="cuda"):
+    """``caches`` caches of ``COPY_NUM_BLOCKS`` blocks, random ids for every
+    block count of ``COPY_SHAPES`` (and the table's 128) and a pool of
+    source blocks, all drawn from ``g`` on ``device``."""
+    def draw(shape):
+        if dtype is torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=device, dtype=dtype)
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    return dict(
+        caches=[draw((COPY_NUM_BLOCKS, *block_shape)) for _ in range(caches)],
+        ids={n: torch.randperm(COPY_NUM_BLOCKS, generator=g, device=device)[:n].to(torch.int32)
+             for n in (128, 64, 48)},
+        src=draw((max(c * n for shapes in COPY_SHAPES.values() for c, n in shapes.values()),
+                  *block_shape)),
+    )
+
+
+def copy_calls(inp, gather, scatter, gather_many=None, scatter_many=None):
+    """(kernel, shape) -> a call at that shape: through ``gather_many`` /
+    ``scatter_many`` when given (one call for every cache), else the
+    sequence the paths ran before the batched entries existed (one
+    ``gather`` / ``scatter`` a cache, and the ``torch.cat`` the writer put
+    around its layer's two gathers; the snapshot and the install span kept
+    their per-cache results as they were). The table's single-cache shape
+    always takes ``gather`` / ``scatter``."""
+    import torch
+
+    cs, ids, src = inp["caches"], inp["ids"], inp["src"]
+    calls = {
+        ("gather_blocks", "table"): lambda: gather(cs[0], ids[128]),
+        ("scatter_blocks", "table"): lambda: scatter(cs[0], ids[128], src[:128]),
+    }
+    for kind, shapes in COPY_SHAPES.items():
+        for name, (count, n) in shapes.items():
+            if count > len(cs):
+                continue
+            sub, b = cs[:count], ids[n]
+            if kind == "gather_blocks":
+                if gather_many is not None:
+                    fn = (lambda sub=sub, b=b: gather_many(sub, b))
+                elif name == "a_writer_layer":
+                    fn = (lambda sub=sub, b=b: torch.cat([gather(c, b) for c in sub]))
+                else:
+                    fn = (lambda sub=sub, b=b: [gather(c, b) for c in sub])
+            else:
+                packed = src[: count * n]
+                if scatter_many is not None:
+                    fn = (lambda sub=sub, b=b, p=packed: scatter_many(sub, b, p))
+                else:
+                    fn = (lambda sub=sub, b=b, p=packed, n=n:
+                          [scatter(c, b, p[i * n:(i + 1) * n]) for i, c in enumerate(sub)])
+            calls[(kind, name)] = fn
+    return calls
+
+
+def copy_matches(torch, inp, key, mine, theirs) -> bool:
+    """Whether ``copy_calls(inp, *mine)[key]`` gives bitwise what
+    ``copy_calls(inp, *theirs)[key]`` gives: the gathered blocks, or every
+    cache after the scatter (each side scatters into its own clones)."""
+    if key[0] == "gather_blocks":
+        got = copy_calls(inp, *mine)[key]()
+        return torch.equal(got, copy_calls(inp, *theirs)[key]())
+    sides = []
+    for calls in (mine, theirs):
+        cloned = dict(inp, caches=[c.clone() for c in inp["caches"]])
+        copy_calls(cloned, *calls)[key]()
+        sides.append(cloned["caches"])
+    return all(torch.equal(a, b) for a, b in zip(*sides))
+
+
+def _copy_kernel_check(torch, timer, g, paged, _ext):
+    """K1/K2 at ``COPY_SHAPES`` in bf16 and f32 and at the int8 round trip's
+    data and scale blocks: bitwise the plain versions, every launch on the
+    bulk route; timed (bf16, int8) beside their bound and, at the bf16
+    shapes, the unfused sequence (``copy_calls`` without the batched
+    entries). Returns kernel -> shape -> numbers."""
+    bt, kvh = LLAMA3_8B["block_tokens"], LLAMA3_8B["n_kv_heads"]
+    d = LLAMA3_8B["dim"] // LLAMA3_8B["n_heads"]
+    singles = (paged.gather_blocks, paged.scatter_blocks)
+    fused = (*singles, paged.gather_blocks_many, paged.scatter_blocks_many)
+    plain = (paged.gather_blocks_plain, paged.scatter_blocks_plain,
+             paged.gather_blocks_many_plain, paged.scatter_blocks_many_plain)
+    cases = (("bf16", torch.bfloat16, (bt, kvh, d), 64),
+             ("f32", torch.float32, (bt, kvh, d), 64),
+             ("d_int8_data", torch.int8, (bt, kvh, d), 2),
+             ("d_int8_scales", torch.float32, (bt, kvh, 1), 2))
+    out = {"gather_blocks": {}, "scatter_blocks": {}}
+    for label, dtype, block_shape, count in cases:
+        inp = copy_inputs(torch, g, dtype, block_shape, count)
+        calls = copy_calls(inp, *fused)
+        for (kind, shape), fn in calls.items():
+            before = dict(_ext.LAUNCHES)
+            equal = copy_matches(torch, inp, (kind, shape), fused, plain)
+            torch.cuda.synchronize()
+            moved = _ext.LAUNCHES[kind] - before[kind]
+            if moved < 1 or _ext.LAUNCHES[f"{kind}_bulk"] - before[f"{kind}_bulk"] != moved:
+                raise AssertionError(
+                    f"{kind} {shape} {label}: not every launch took the bulk route")
+            if not equal:
+                raise AssertionError(f"{kind} {shape} {label}: differs from the plain version")
+            # Timed: bf16 at the batched shapes (the table's row is timed
+            # above), int8 data and scales at the layer's.
+            if not (shape != "table" and label == "bf16" or shape.startswith("a_")
+                    and label.startswith("d_")):
+                continue
+            count_, n = COPY_SHAPES[kind][shape]
+            block = inp["caches"][0][0]
+            nbytes = 2 * count_ * n * block.numel() * block.element_size() + 4 * n
+            bms, by = bound_ms(nbytes, 0.0, "bfloat16")
+            ms = timer.ms(fn)
+            row = dict(ms=ms, bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+                       caches=count_, blocks=n, block_bytes=block.numel() * block.element_size())
+            if label == "bf16":
+                unfused = copy_calls(inp, *singles)[(kind, shape)]
+                row["unfused_ms"] = timer.ms(unfused, spin=count_)
+            name = shape if label == "bf16" else f"{label}_{shape[2:]}"
+            out[kind][name] = row
+            log(f"{kind} {name}: {json.dumps(row)}")
+        log(f"K1/K2 {label}: bitwise equal to the plain versions at every shape, "
+            "every launch on the bulk route")
+        del inp, calls
+        torch.cuda.empty_cache()
+    return out
 
 
 def _slices(n_parts, width):
@@ -930,7 +1088,7 @@ def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
 # own kernels, cuBLAS's GEMMs, copies (dtype casts, contiguous), reductions,
 # and PyTorch's other elementwise kernels (norms, RoPE, activations, adds).
 PROFILE_KINDS = (
-    ("port_kernels", ("flash_prefill", "paged_decode", "copy_blocks")),
+    ("port_kernels", ("flash_prefill", "paged_decode", "bulk_copy", "vector_copy")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copy", ("copy",)),
     ("reduce", ("reduce_kernel",)),
@@ -1568,6 +1726,11 @@ def main() -> int:
         k4, wgmma = paths[path]["flash_prefill"], paths[path]["flash_prefill_wgmma"]
         if wgmma == 0 or wgmma != k4:
             raise AssertionError(f"{path}: {k4} K4 launches but {wgmma} on the tensor cores")
+    for path in BULK_COPY_PATHS:
+        for name in ("gather_blocks", "scatter_blocks"):
+            every, bulk = paths[path][name], paths[path][f"{name}_bulk"]
+            if bulk != every:
+                raise AssertionError(f"{path}: {every} {name} launches but {bulk} on the bulk ring")
 
     rows = []
     for name, (replaces, *sources) in TPU_KERNELS.items():
@@ -1585,6 +1748,8 @@ def main() -> int:
             row["sources"] = [f"infinistore_tpu_torch/cuda/csrc/{src}" for src in sources]
         if name == "flash_prefill":
             row["tensor_core_launches"] = sum(c["flash_prefill_wgmma"] for c in paths.values())
+        if name in ("gather_blocks", "scatter_blocks"):
+            row["bulk_launches"] = sum(c[f"{name}_bulk"] for c in paths.values())
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

@@ -32,7 +32,7 @@ from .cuda.layerwise import (
     LayerwisePrefetch,
     PartialReadError,
 )
-from .cuda.paged import PagedKVCacheSpec, gather_blocks
+from .cuda.paged import PagedKVCacheSpec, gather_blocks_many
 from .cuda.staging import HostStagingPool, StagingPoolExhausted
 from .lib import (
     InfiniStoreColdTier,
@@ -618,11 +618,9 @@ class KVConnector:
         bn = self.spec.block_nbytes
         ids = torch.as_tensor(np.asarray(block_ids[:n]), dtype=torch.int32,
                               device=k_cache.device)
-        # One packed [K blocks | V blocks] tensor -> one D2H copy (the
-        # writer's shape, cuda/layerwise.py).
-        tr = self.pool.stage_out([
-            torch.cat([gather_blocks(k_cache, ids), gather_blocks(v_cache, ids)])
-        ])
+        # One packed [K blocks | V blocks] tensor from one gather -> one D2H
+        # copy (the writer's shape, cuda/layerwise.py).
+        tr = self.pool.stage_out([gather_blocks_many((k_cache, v_cache), ids)])
         keys_k = [(self.block_key(layer, "k", chains[i]), i * bn) for i in range(n)]
         keys_v = [(self.block_key(layer, "v", chains[i]), (n + i) * bn) for i in range(n)]
         pri_kw = wire.qos_kwargs(self.conn, priority)

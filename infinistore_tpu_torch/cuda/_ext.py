@@ -14,7 +14,10 @@ non-zero code.
 adds one exactly where it launches its kernel, so a run can show that its
 work went through the kernels. ``flash_prefill`` counts every launch of K4;
 ``flash_prefill_wgmma`` counts the ones that took its bf16 tensor-core
-kernel, so a run can show which of K4's two kernels its path took.
+kernel, so a run can show which of K4's two kernels its path took. In the
+same way ``gather_blocks`` / ``scatter_blocks`` count every launch of K1 /
+K2, and ``gather_blocks_bulk`` / ``scatter_blocks_bulk`` the ones that
+took the TMA bulk ring rather than the vector kernel.
 
 The paged decode kernels (K3, K5-K8) split each row's pages across CTAs
 (``csrc/decode_fold.cuh``). Their wrappers size the split scratch from
@@ -47,7 +50,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {
     "gather_blocks": 0,
+    "gather_blocks_bulk": 0,
     "scatter_blocks": 0,
+    "scatter_blocks_bulk": 0,
     "paged_decode_attention": 0,
     "paged_decode_attention_ragged": 0,
     "flash_prefill": 0,
@@ -120,8 +125,12 @@ _P, _I = c_void_p, c_int
 # Each entry point's C arguments, in order (pointers and the stream last as
 # c_void_p; ctypes would otherwise pass them as 32-bit ints).
 ARGTYPES = {
-    "its_gather_blocks": [_P, _P, _P, c_int64, c_int64, c_int64, _P],
-    "its_scatter_blocks": [_P, _P, _P, c_int64, c_int64, c_int64, _P],
+    # caches[C], flats[C] (ctypes arrays of c_void_p), ids, C, n, num_blocks,
+    # block_bytes, stream: the TMA bulk ring and the vector kernel
+    "its_gather_blocks_many": [_P, _P, _P] + [c_int64] * 4 + [_P],
+    "its_scatter_blocks_many": [_P, _P, _P] + [c_int64] * 4 + [_P],
+    "its_gather_blocks_many_vec": [_P, _P, _P] + [c_int64] * 4 + [_P],
+    "its_scatter_blocks_many_vec": [_P, _P, _P] + [c_int64] * 4 + [_P],
     # q, k, v, tables, seq_lens, out, scratch, tickets,
     # dtype, B, H, KVH, D, bt, N, max_blocks, splits, stream
     "its_paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],

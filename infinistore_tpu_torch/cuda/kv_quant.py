@@ -28,7 +28,7 @@ import torch
 
 from .. import wire
 from . import _ext
-from .paged import PagedKVCacheSpec, gather_blocks, scatter_blocks
+from .paged import PagedKVCacheSpec, gather_blocks_many, scatter_blocks_many
 from .paged_attention import (
     _check_decode_args,
     _check_table_args,
@@ -333,9 +333,14 @@ class QuantizingKVAdapter:
         n = len(block_table)
         ids = torch.as_tensor(np.asarray(block_table), dtype=torch.int32,
                               device=caches[0][0].device)
+        # Every layer's K and V blocks in one gather, quantised at once (the
+        # scheme is per (token, head) vector); handed on as per-(layer, kind)
+        # views.
+        data, scales = quantize_kv(gather_blocks_many([t for kv in caches for t in kv], ids))
         quant = [
-            (quantize_kv(gather_blocks(k_cache, ids)), quantize_kv(gather_blocks(v_cache, ids)))
-            for k_cache, v_cache in caches
+            tuple((data[j * n : (j + 1) * n], scales[j * n : (j + 1) * n])
+                  for j in (2 * i, 2 * i + 1))
+            for i in range(len(caches))
         ]
         return await self.qconn.save(
             token_ids, quant, np.arange(n, dtype=np.int32), first_block=first_block)
@@ -357,10 +362,10 @@ class QuantizingKVAdapter:
                               device=caches[0][0].device)
         out = []
         for (k_cache, v_cache), ((kq, ks), (vq, vs)) in zip(caches, staged):
-            out.append((
-                scatter_blocks(k_cache, ids, dequantize_kv(kq[:got], ks[:got], k_cache.dtype)),
-                scatter_blocks(v_cache, ids, dequantize_kv(vq[:got], vs[:got], v_cache.dtype)),
-            ))
+            # The two dequantised halves scattered by one launch.
+            out.append(tuple(scatter_blocks_many((k_cache, v_cache), ids, (
+                dequantize_kv(kq[:got], ks[:got], k_cache.dtype),
+                dequantize_kv(vq[:got], vs[:got], v_cache.dtype)))))
         return out, got * self.block_tokens
 
     def evict_request(self, token_ids) -> int:

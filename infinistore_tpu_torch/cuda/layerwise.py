@@ -24,7 +24,7 @@ import torch
 
 from .. import wire
 from ..lib import InfiniStoreException, InfiniStoreKeyNotFound, InfiniStoreResourcePressure
-from .paged import PagedKVCacheSpec, gather_blocks, scatter_blocks
+from .paged import PagedKVCacheSpec, gather_blocks_many, scatter_blocks_many
 from .staging import HostStagingPool, StagingPoolExhausted
 
 KeyFn = Callable[[int, str, int], str]  # (layer, "k"|"v", block_index) -> key
@@ -167,14 +167,10 @@ class LayerwiseKVWriter:
                 if nxt is None:
                     return
                 pos, layer = nxt
-                k_cache, v_cache = caches[layer]
-                # K blocks then V blocks packed into ONE tensor -> one
-                # device-to-host copy per layer.
+                # K blocks then V blocks packed into ONE tensor by one
+                # gather -> one device-to-host copy per layer.
                 staged.append((pos, layer, pool.stage_out([
-                    torch.cat([
-                        gather_blocks(k_cache, ids_dev),
-                        gather_blocks(v_cache, ids_dev),
-                    ])
+                    gather_blocks_many(caches[layer], ids_dev)
                 ])))
 
         try:
@@ -318,11 +314,7 @@ class LayerwiseKVReader:
                 else:
                     kv_dev, done = kv_host, None
                 uploads[layer] = done
-                k_cache, v_cache = out[layer]
-                out[layer] = (
-                    scatter_blocks(k_cache, ids_dev, kv_dev[:n]),
-                    scatter_blocks(v_cache, ids_dev, kv_dev[n:]),
-                )
+                out[layer] = tuple(scatter_blocks_many(out[layer], ids_dev, kv_dev))
                 if on_layer is not None:
                     on_layer(layer, out[layer])
                 start(layer + W)
@@ -601,25 +593,20 @@ class LayerwisePrefetch:
         loop.run_in_executor(None, wait_and_mark)
 
     def _upload_and_scatter(self, caches, ids_dev, kv_host):
-        """Upload one span of staged layers and scatter each into its cache
-        (K2 on CUDA). Returns (the per-layer caches, the upload's event or
-        None on CPU)."""
+        """Upload one span of staged layers and scatter it into the caches,
+        every layer's K and V at once (K2 on CUDA: the packed span is
+        ``[layer 0 K | layer 0 V | layer 1 K | ...]``, the layout of
+        ``scatter_blocks_many``). Returns (the per-layer caches, the upload's
+        event or None on CPU)."""
         device = caches[0][0].device
-        n = self.n_blocks
         if device.type == "cuda":
             kv_dev = kv_host.to(device, non_blocking=True)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(device))
         else:
             kv_dev, done = kv_host, None
-        out = []
-        for i, (k_cache, v_cache) in enumerate(caches):
-            base = i * 2 * n
-            out.append((
-                scatter_blocks(k_cache, ids_dev, kv_dev[base : base + n]),
-                scatter_blocks(v_cache, ids_dev, kv_dev[base + n : base + 2 * n]),
-            ))
-        return out, done
+        flat = scatter_blocks_many([t for kv in caches for t in kv], ids_dev, kv_dev)
+        return [tuple(flat[2 * i : 2 * i + 2]) for i in range(len(caches))], done
 
     async def install(self, caches, block_ids: np.ndarray, on_layer=None):
         """Scatter the staged prefix into the engine's paged cache, in place;

@@ -8,10 +8,20 @@ gather/scatter over block ids: the store's own device ops. On a CUDA tensor
 they launch the hand-written kernels K1 and K2 (``csrc/paged_copy.cu``); on
 a CPU tensor they run the plain versions beside them, ``index_select`` and
 an in-place ``index_copy_``.
+
+``gather_blocks_many`` / ``scatter_blocks_many`` move the same block ids of
+several caches (a layer's K and V, or every layer's) in one launch, to and
+from the packed ``[cache 0 blocks | cache 1 blocks | ...]`` layout the
+staging buffers use: what the JAX package writes as a ``jnp.concatenate``
+of per-cache gathers (fused there by XLA) and per-cache scatters. A launch
+takes the kernel's TMA bulk ring when every pointer and the block size are
+16-byte aligned, and its vector kernel otherwise (``_launch``).
 """
 
+import math
+from ctypes import c_void_p
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -75,54 +85,139 @@ def scatter_blocks_plain(
     return cache.index_copy_(0, block_ids.to(torch.long), blocks.to(cache.dtype))
 
 
+def gather_blocks_many_plain(caches: Sequence[torch.Tensor],
+                             block_ids: torch.Tensor) -> torch.Tensor:
+    """out[c * n + i] = caches[c][block_ids[i]]: every cache's blocks, packed
+    cache after cache."""
+    ids = block_ids.to(torch.long)
+    return torch.cat([cache.index_select(0, ids) for cache in caches])
+
+
+def scatter_blocks_many_plain(caches: Sequence[torch.Tensor], block_ids: torch.Tensor,
+                              blocks) -> List[torch.Tensor]:
+    """caches[c][block_ids[i]] = the i-th block of source c, in place;
+    ``blocks`` is one packed tensor [C * n, ...] or C tensors [n, ...].
+    Returns the caches."""
+    ids = block_ids.to(torch.long)
+    for cache, part in zip(caches, _sources(blocks, len(caches), ids.shape[0])):
+        cache.index_copy_(0, ids, part.to(cache.dtype))
+    return list(caches)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (K1, K2).
 # ---------------------------------------------------------------------------
 
+# Caches one launch takes (csrc/paged_copy.cu: kMaxCaches); a longer list is
+# split into several launches.
+MAX_CACHES = 64
 
-def _check_blocks(name, cache, block_ids, blocks=None):
-    if cache.dim() < 2:
-        raise ValueError(f"{name}: cache must be [num_blocks, ...], got {tuple(cache.shape)}")
+
+def _block_bytes(cache: torch.Tensor) -> int:
+    return math.prod(cache.shape[1:]) * cache.element_size()
+
+
+def _sources(blocks, count: int, n: int):
+    """The per-cache sources of a scatter: views of one packed tensor, or the
+    sequence as given."""
+    if isinstance(blocks, torch.Tensor):
+        return [blocks[c * n:(c + 1) * n] for c in range(count)]
+    return list(blocks)
+
+
+def _check_caches(name, caches, block_ids):
+    """The first cache; raises unless every cache shares device, dtype,
+    num_blocks and block shape, and the ids are one 1-D int32 tensor."""
+    if not caches:
+        raise ValueError(f"{name}: no caches given")
+    first = caches[0]
+    if first.dim() < 2:
+        raise ValueError(f"{name}: cache must be [num_blocks, ...], got {tuple(first.shape)}")
     if block_ids.dim() != 1 or block_ids.dtype != torch.int32:
         raise ValueError(f"{name}: block_ids must be a 1-D int32 tensor")
-    tensors = {"cache": cache, "block_ids": block_ids}
-    if blocks is not None:
-        want = (block_ids.shape[0], *cache.shape[1:])
-        if tuple(blocks.shape) != want or blocks.dtype != cache.dtype:
+    for cache in caches[1:]:
+        if cache.shape != first.shape or cache.dtype != first.dtype or \
+                cache.device != first.device:
             raise ValueError(
-                f"{name}: blocks must be {want} {cache.dtype}, got "
-                f"{tuple(blocks.shape)} {blocks.dtype}"
+                f"{name}: every cache must share device, dtype, num_blocks and block shape; "
+                f"got {tuple(cache.shape)} {cache.dtype} on {cache.device} beside "
+                f"{tuple(first.shape)} {first.dtype} on {first.device}"
             )
-        tensors["blocks"] = blocks
-    _ext.require_cuda(name, cache.device, **tensors)
+    return first
 
 
-def _gather_blocks_cuda(cache: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
-    _check_blocks("gather_blocks", cache, block_ids)
+def _check_sources(name, first, count, n, blocks):
+    """Raises unless ``blocks`` is [count * n, ...] or ``count`` tensors
+    [n, ...] of the caches' dtype."""
+    if isinstance(blocks, torch.Tensor):
+        srcs, want = [blocks], [(count * n, *first.shape[1:])]
+    else:
+        if len(blocks) != count:
+            raise ValueError(f"{name}: {len(blocks)} sources for {count} caches")
+        srcs, want = blocks, [(n, *first.shape[1:])] * count
+    for src, shape in zip(srcs, want):
+        if tuple(src.shape) != shape or src.dtype != first.dtype:
+            raise ValueError(
+                f"{name}: blocks must be {shape} {first.dtype}, got "
+                f"{tuple(src.shape)} {src.dtype}"
+            )
+
+
+def _launch(name, caches, block_ids, flats):
+    """K1 (``gather_blocks``) or K2 over ``caches`` and their contiguous
+    sides at ``flats`` (one pointer each), ``MAX_CACHES`` caches a launch.
+    Every pointer 16-byte aligned and a whole number of 16-byte units a
+    block: the TMA bulk ring (``its_*_blocks_many``, counted also under
+    ``*_bulk``); anything else: the vector kernel (``*_many_vec``)."""
+    first = caches[0]
     n = block_ids.shape[0]
-    out = torch.empty((n, *cache.shape[1:]), dtype=cache.dtype, device=cache.device)
-    block_bytes = cache[0].numel() * cache.element_size()
-    code = _ext.kernels().its_gather_blocks(
-        cache.data_ptr(), block_ids.data_ptr(), out.data_ptr(), n, cache.shape[0],
-        block_bytes, _ext.stream_of(cache),
-    )
-    _ext.LAUNCHES["gather_blocks"] += 1
-    _ext.check(code, "gather_blocks")
+    block_bytes = _block_bytes(first)
+    ptrs = [cache.data_ptr() for cache in caches]
+    bulk = block_bytes % 16 == 0 and all(p % 16 == 0 for p in (*ptrs, *flats))
+    entry = getattr(_ext.kernels(), f"its_{name}_many" if bulk else f"its_{name}_many_vec")
+    stream = _ext.stream_of(first)
+    for lo in range(0, len(caches), MAX_CACHES):
+        count = min(MAX_CACHES, len(caches) - lo)
+        table = c_void_p * count
+        code = entry(table(*ptrs[lo:lo + count]), table(*flats[lo:lo + count]),
+                     block_ids.data_ptr(), count, n, first.shape[0], block_bytes, stream)
+        _ext.LAUNCHES[name] += 1
+        if bulk:
+            _ext.LAUNCHES[f"{name}_bulk"] += 1
+        _ext.check(code, name)
+
+
+def _gather_many_cuda(caches, block_ids):
+    first = _check_caches("gather_blocks", caches, block_ids)
+    _ext.require_cuda("gather_blocks", first.device, block_ids=block_ids,
+                      **{f"caches[{c}]": cache for c, cache in enumerate(caches)})
+    n = block_ids.shape[0]
+    out = torch.empty((len(caches) * n, *first.shape[1:]), dtype=first.dtype,
+                      device=first.device)
+    if n:
+        step, base = n * _block_bytes(first), out.data_ptr()
+        _launch("gather_blocks", caches, block_ids,
+                [base + c * step for c in range(len(caches))])
     return out
 
 
-def _scatter_blocks_cuda(
-    cache: torch.Tensor, block_ids: torch.Tensor, blocks: torch.Tensor
-) -> torch.Tensor:
-    _check_blocks("scatter_blocks", cache, block_ids, blocks)
-    block_bytes = cache[0].numel() * cache.element_size()
-    code = _ext.kernels().its_scatter_blocks(
-        cache.data_ptr(), block_ids.data_ptr(), blocks.data_ptr(), block_ids.shape[0],
-        cache.shape[0], block_bytes, _ext.stream_of(cache),
-    )
-    _ext.LAUNCHES["scatter_blocks"] += 1
-    _ext.check(code, "scatter_blocks")
-    return cache
+def _scatter_many_cuda(caches, block_ids, blocks):
+    first = _check_caches("scatter_blocks", caches, block_ids)
+    n = block_ids.shape[0]
+    _check_sources("scatter_blocks", first, len(caches), n, blocks)
+    packed = isinstance(blocks, torch.Tensor)
+    _ext.require_cuda("scatter_blocks", first.device, block_ids=block_ids,
+                      **{f"caches[{c}]": cache for c, cache in enumerate(caches)},
+                      **({"blocks": blocks} if packed else
+                         {f"blocks[{c}]": src for c, src in enumerate(blocks)}))
+    if n:
+        if packed:
+            step, base = n * _block_bytes(first), blocks.data_ptr()
+            flats = [base + c * step for c in range(len(caches))]
+        else:
+            flats = [src.data_ptr() for src in blocks]
+        _launch("scatter_blocks", caches, block_ids, flats)
+    return list(caches)
 
 
 def gather_blocks(cache: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
@@ -132,7 +227,7 @@ def gather_blocks(cache: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
     output block unwritten."""
     if cache.device.type == "cpu":
         return gather_blocks_plain(cache, block_ids)
-    return _gather_blocks_cuda(cache, block_ids)
+    return _gather_many_cuda([cache], block_ids)
 
 
 def scatter_blocks(
@@ -143,4 +238,33 @@ def scatter_blocks(
     keep their bytes. Duplicate ids have no defined winner."""
     if cache.device.type == "cpu":
         return scatter_blocks_plain(cache, block_ids, blocks)
-    return _scatter_blocks_cuda(cache, block_ids, blocks)
+    return _scatter_many_cuda([cache], block_ids, blocks)[0]
+
+
+def gather_blocks_many(caches: Sequence[torch.Tensor],
+                       block_ids: torch.Tensor) -> torch.Tensor:
+    """The same blocks of several caches in one call: ``out[c * n + i] =
+    caches[c][block_ids[i]]``, shape ``[C * n, *block_shape]`` (the packed
+    ``[K blocks | V blocks]`` layout of the staging buffers, for one layer or
+    all of them). One K1 launch for up to ``MAX_CACHES`` caches on CUDA;
+    ``index_select`` and ``torch.cat`` on CPU. Every cache must share device,
+    dtype, num_blocks and block shape."""
+    if caches and caches[0].device.type == "cpu":
+        _check_caches("gather_blocks", caches, block_ids)
+        return gather_blocks_many_plain(caches, block_ids)
+    return _gather_many_cuda(caches, block_ids)
+
+
+def scatter_blocks_many(caches: Sequence[torch.Tensor], block_ids: torch.Tensor,
+                        blocks) -> List[torch.Tensor]:
+    """Write the same block ids of several caches in one call, in place:
+    ``caches[c][block_ids[i]] = `` block ``i`` of source ``c``, where
+    ``blocks`` is one packed tensor ``[C * n, ...]`` (source ``c`` is rows
+    ``c * n`` to ``c * n + n``) or a sequence of ``C`` tensors ``[n, ...]``.
+    Returns the caches. One K2 launch for up to ``MAX_CACHES`` caches on
+    CUDA; ``index_copy_`` on CPU."""
+    if caches and caches[0].device.type == "cpu":
+        first = _check_caches("scatter_blocks", caches, block_ids)
+        _check_sources("scatter_blocks", first, len(caches), block_ids.shape[0], blocks)
+        return scatter_blocks_many_plain(caches, block_ids, blocks)
+    return _scatter_many_cuda(caches, block_ids, blocks)

@@ -43,7 +43,7 @@ import torch
 
 from . import tracing
 from .cuda import _ext
-from .cuda.paged import gather_blocks
+from .cuda.paged import gather_blocks, gather_blocks_many
 from .cuda.paged_attention import build_ragged_wave
 from .cuda.staging import StagingPoolExhausted
 from .models.llama import prefill, prefill_continue, verify_step_ragged
@@ -1082,12 +1082,13 @@ class ContinuousBatchingHarness:
             caches = self.caches  # stable under the shared gate
 
             def snap():
-                s = [
-                    (gather_blocks(k, dev), gather_blocks(v, dev))
-                    for k, v in caches
-                ]
+                # Every layer's K and V blocks in one gather (one K1 launch),
+                # handed on as per-(layer, kind) views of the packed result.
+                n = len(phys_blocks)
+                flat = gather_blocks_many([t for kv in caches for t in kv], dev)
                 self._sync()
-                return s
+                return [(flat[2 * i * n : (2 * i + 1) * n],
+                         flat[(2 * i + 1) * n : (2 * i + 2) * n]) for i in range(len(caches))]
 
             # Executor: the gathers + readiness wait must not pin the event
             # loop (it is the artery every gate-free fetch completion and

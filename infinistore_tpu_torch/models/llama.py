@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..cuda import _ext
 from ..cuda.flash_prefill import flash_prefill_attention
-from ..cuda.paged import PagedKVCacheSpec, scatter_blocks
+from ..cuda.paged import PagedKVCacheSpec, scatter_blocks_many
 from ..cuda.paged_attention import paged_decode_attention_batched, paged_decode_attention_rows
 
 Params = Dict[str, torch.Tensor]
@@ -264,14 +264,10 @@ def prefill(
     for layer, (k_cache, v_cache) in enumerate(caches):
         k, v = _kv_proj(params, layer, x, positions, config)
         x = _block(params, layer, x, k, v, positions, None, config)
-        # Scatter this prompt's K/V into its cache blocks.
+        # Scatter this prompt's K and V into their cache blocks (one launch).
         block = (s // bt, bt, config.n_kv_heads, config.head_dim)
-        new_caches.append(
-            (
-                scatter_blocks(k_cache, block_table, k[0].reshape(block)),
-                scatter_blocks(v_cache, block_table, v[0].reshape(block)),
-            )
-        )
+        new_caches.append(tuple(scatter_blocks_many(
+            (k_cache, v_cache), block_table, (k[0].reshape(block), v[0].reshape(block)))))
     # Only the last row's logits are returned, so only it meets the LM head.
     x = _rms_norm(x[:, -1:], params["final_norm"])
     logits = x @ params["lm_head"]

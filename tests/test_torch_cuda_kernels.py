@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over the edge cases the main path does not reach: unaligned blocks and
-out-of-range ids (K1/K2), every supported head_dim and GQA group, padded
-and over-long tables, zero-length rows (K3, and K6 over a ragged wave with
-pad pages, held bitwise against K3 row by row), ragged query tiles, full
+out-of-range ids on both routes, and blocks at the TMA bulk ring's chunk
+and stage edges, over one cache and many (K1/K2), every supported
+head_dim and GQA group, padded and over-long tables, zero-length rows
+(K3, and K6 over a ragged wave with pad pages, held bitwise against K3 row by row), ragged query tiles, full
 attention over a longer context and batch > 1 (K4: its bf16 tensor-core
 kernel at every 128-row tile edge, GQA group 1 and 4, and on inputs where
 one leaked or dropped key would move the output by order 1; its f32 path
@@ -74,6 +75,128 @@ def test_scatter_skips_out_of_range_ids(dev):
     assert torch.equal(cache[3], blocks[0])
     keep = [i for i in range(8) if i != 3]
     assert torch.equal(cache[keep], before[keep])
+
+
+# Blocks at the bulk ring's chunk edges (a chunk is 16 or 32 KiB): exactly
+# one chunk, a chunk and 16 bytes (a 16-byte tail chunk), the 512 B scale
+# block, the 16 KiB int8 block, the 64 KiB f32 block.
+COPY_BLOCKS = {
+    "16KiB-bf16": ((16, 8, 64), torch.bfloat16),
+    "16KiB+16": ((8200,), torch.bfloat16),
+    "32KiB-bf16": ((16, 8, 128), torch.bfloat16),
+    "32KiB+16": ((16392,), torch.bfloat16),
+    "512B-scales": ((16, 8, 1), torch.float32),
+    "16KiB-int8": ((16, 8, 128), torch.int8),
+    "64KiB-f32": ((16, 8, 128), torch.float32),
+}
+
+
+def _draw(seed, shape, dtype, dev):
+    if dtype is torch.int8:
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
+    return _randn(seed, shape, dtype, dev)
+
+
+def _copy_counts():
+    from infinistore_tpu_torch.cuda import _ext
+
+    return {k: v for k, v in _ext.LAUNCHES.items() if "blocks" in k}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _copy_counts().items()}
+
+
+@pytest.mark.parametrize("count", [1, 2, 5])
+@pytest.mark.parametrize("block", list(COPY_BLOCKS))
+def test_many_bitwise_at_chunk_edges(dev, block, count):
+    from infinistore_tpu_torch.cuda import paged
+
+    shape, dtype = COPY_BLOCKS[block]
+    caches = [_draw(100 + c, (40, *shape), dtype, dev) for c in range(count)]
+    ids = torch.tensor([7, 0, 32, 2, 19, 39], dtype=torch.int32, device=dev)
+    before = _copy_counts()
+    got = paged.gather_blocks_many(caches, ids)
+    assert torch.equal(got, paged.gather_blocks_many_plain(caches, ids))
+    blocks = _draw(200, (count * 6, *shape), dtype, dev)
+    mine = paged.scatter_blocks_many([c.clone() for c in caches], ids, blocks)
+    theirs = paged.scatter_blocks_many_plain([c.clone() for c in caches], ids, blocks)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    parts = [blocks[c * 6:(c + 1) * 6].clone() for c in range(count)]
+    mine = paged.scatter_blocks_many([c.clone() for c in caches], ids, parts)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    torch.cuda.synchronize()
+    assert _delta(before) == {"gather_blocks": 1, "gather_blocks_bulk": 1,
+                              "scatter_blocks": 2, "scatter_blocks_bulk": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_many_bitwise_with_more_items_than_ctas_times_stages(dev, dtype):
+    """8,192 items and more (4 caches x 1,024 blocks of 32 or 64 KiB): every
+    CTA walks many items and refills each stage many times."""
+    from infinistore_tpu_torch.cuda import paged
+
+    caches = [_randn(300 + c, (1100, 16, 8, 128), dtype, dev) for c in range(4)]
+    ids = torch.randperm(1100, generator=torch.Generator().manual_seed(5))[:1024]
+    ids = ids.to(device=dev, dtype=torch.int32)
+    got = paged.gather_blocks_many(caches, ids)
+    assert torch.equal(got, paged.gather_blocks_many_plain(caches, ids))
+    blocks = got.flip(0).contiguous()
+    mine = paged.scatter_blocks_many([c.clone() for c in caches], ids, blocks)
+    theirs = paged.scatter_blocks_many_plain([c.clone() for c in caches], ids, blocks)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+
+
+def test_many_splits_65_caches_into_two_launches(dev):
+    from infinistore_tpu_torch.cuda import paged
+
+    caches = [_randn(400 + c, (12, 16, 8, 16), torch.bfloat16, dev) for c in range(65)]
+    ids = torch.tensor([11, 3, 0], dtype=torch.int32, device=dev)
+    before = _copy_counts()
+    got = paged.gather_blocks_many(caches, ids)
+    assert torch.equal(got, paged.gather_blocks_many_plain(caches, ids))
+    blocks = got.roll(1, 0)
+    mine = paged.scatter_blocks_many([c.clone() for c in caches], ids, blocks)
+    theirs = paged.scatter_blocks_many_plain([c.clone() for c in caches], ids, blocks)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    assert _delta(before) == {"gather_blocks": 2, "gather_blocks_bulk": 2,
+                              "scatter_blocks": 2, "scatter_blocks_bulk": 2}
+
+
+@pytest.mark.parametrize("route", ["bulk", "vector", "bytes"])
+def test_out_of_range_ids_are_left_unwritten_on_both_routes(dev, route):
+    """Ids -1 and num_blocks: the scatter leaves every cache block it does
+    not name as it was, and the gather's in-range rows are right. The
+    vector kernel is reached by a cache 2 bytes off a 16-byte boundary
+    (``vector``) or a 60-byte block (``bytes``)."""
+    from infinistore_tpu_torch.cuda import paged
+
+    shape = (10, 15) if route == "bytes" else (10, 16, 8, 128)
+    dtype = torch.float32 if route == "bytes" else torch.bfloat16
+    caches = [_randn(500 + c, shape, dtype, dev) for c in range(2)]
+    if route == "vector":
+        shifted = torch.empty(caches[1].numel() + 1, dtype=dtype, device=dev)[1:].view(shape)
+        shifted.copy_(caches[1])
+        caches[1] = shifted
+    ids = torch.tensor([4, -1, 10, 0], dtype=torch.int32, device=dev)
+    before = _copy_counts()
+    got = paged.gather_blocks_many(caches, ids)
+    for c in range(2):
+        assert torch.equal(got[c * 4], caches[c][4])
+        assert torch.equal(got[c * 4 + 3], caches[c][0])
+    blocks = _randn(600, (8, *shape[1:]), dtype, dev)
+    olds = [c.clone() for c in caches]
+    paged.scatter_blocks_many(caches, ids, blocks)
+    torch.cuda.synchronize()
+    keep = [i for i in range(10) if i not in (4, 0)]
+    for c in range(2):
+        assert torch.equal(caches[c][4], blocks[c * 4])
+        assert torch.equal(caches[c][0], blocks[c * 4 + 3])
+        assert torch.equal(caches[c][keep], olds[c][keep])
+    bulk = int(route == "bulk")
+    assert _delta(before) == {"gather_blocks": 1, "gather_blocks_bulk": bulk,
+                              "scatter_blocks": 1, "scatter_blocks_bulk": bulk}
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -288,8 +411,10 @@ def test_layerwise_roundtrip_through_pinned_staging(dev, enable_shm):
         for layer in range(3):
             for kind in (0, 1):
                 assert torch.equal(out[layer][kind][dst.tolist()], caches[layer][kind][src.tolist()])
-        assert _ext.LAUNCHES["gather_blocks"] - before["gather_blocks"] == 6
-        assert _ext.LAUNCHES["scatter_blocks"] - before["scatter_blocks"] == 6
+        # One launch a layer (its K and V together), each on the bulk ring.
+        for name in ("gather_blocks", "gather_blocks_bulk", "scatter_blocks",
+                     "scatter_blocks_bulk"):
+            assert _ext.LAUNCHES[name] - before[name] == 3, name
     finally:
         pool.close()
         conn.close()
@@ -516,8 +641,10 @@ def test_quantized_store_roundtrip_through_pinned_staging(dev, enable_shm):
                     # The loaded scales landed in the caller's own tensors.
                     assert loaded[layer][side][part].data_ptr() == \
                         fresh[layer][side][part].data_ptr()
-        assert _ext.LAUNCHES["gather_blocks"] - before["gather_blocks"] == 2 * 2 * 3
-        assert _ext.LAUNCHES["scatter_blocks"] - before["scatter_blocks"] == 2 * 2 * 3
+        # One launch a layer and plane (data, scales), each on the bulk ring.
+        for name in ("gather_blocks", "gather_blocks_bulk", "scatter_blocks",
+                     "scatter_blocks_bulk"):
+            assert _ext.LAUNCHES[name] - before[name] == 2 * 3, name
     finally:
         qc.close()
         conn.close()
