@@ -20,9 +20,13 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    wave (1 to 1,152 tokens, a 4-row verification chunk sharing its pages, a
    zero-length row, power-of-two pad pages) and must also be bitwise equal
    to K3 on each row's rebuilt table, and each row bitwise equal to a solo
-   launch of that row. K8 must be bitwise K3 over the f32-dequantised cache.
-   K5 (at K3's wave) and K7 (at K6's wave) are held against their plain
-   statistics; their one-shard combine must be bitwise K3/K6, and the
+   launch of that row. K8 (its own int8 fold) is held to the JAX package's
+   contract, the same tolerances against its plain version, and against K3
+   run on q.float() over the f32-dequantised cache to 1e-5 plus, with bf16
+   q, the two results' rounding to bf16 (2^-7 of the value); two launches
+   bitwise equal, each row bitwise its solo launch, a zero-length row
+   zeros. K5 (at K3's wave) and K7 (at K6's wave) are held against their
+   plain statistics; their one-shard combine must be bitwise K3/K6, and the
    combine of 4 disjoint slices of each row's pages within 1e-5 of K3/K6 in
    f32. K4 takes bf16 on its tensor-core kernel (at the main path's 2,048
    tokens and the engine's 1,024) and f32 on its CUDA-core kernel, and each
@@ -33,11 +37,14 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    computes the same function, and its bound (bytes over 3.35 TB/s or
    operations over the card's peak rate for the inputs' type, from this
    run's inputs), at the shapes of the path that runs it (K5 at the sharded
-   decode's 32,768-token request). K3 is also held (f32 1e-5, bf16 2e-2)
-   and timed at the engine's ``prefill_continue`` shape (256 rows at
-   contexts 769-1,024 sharing one table), K6 at the engine's own wave (4 x
-   8-token verification chunks at 1,024 tokens, each chunk's rows sharing
-   their pages; bitwise K3 per row; its bound counts the distinct pages);
+   decode's 32,768-token request, also timed without its cross-split merge,
+   ``fold_ms``: its source built with ``-DITS_DECODE_NOMERGE`` into
+   ``_build/probe`` as ``cuda/decode_probe.py`` builds it, whose ``k5`` mode
+   also gives the CTAs, the CTAs an SM holds and the waves). K3 is also
+   held (f32 1e-5, bf16 2e-2) and timed at the engine's ``prefill_continue``
+   shape (256 rows at contexts 769-1,024 sharing one table), K6 at the
+   engine's own wave (4 x 8-token verification chunks at 1,024 tokens, each
+   chunk's rows sharing their pages; bitwise K3 per row; its bound counts the distinct pages);
    two launches of K3 and K6 on the same inputs must be bitwise equal.
    K3's, K4's and K6's wrapper host time per call is logged. K1/K2 are
    also held bitwise (bf16 and f32, every launch on the TMA bulk ring) and
@@ -65,10 +72,13 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    ``INT8_STORE_UNIT``); engine B looks them up (all 128 blocks hit) and
    loads them into its own int8 caches at other block ids; data and scales
    must be byte-equal. K8 then decodes a seeded bf16 query wave [4, 32,
-   128] over the 2,048-token contexts for all 32 layers, bitwise K3 over the
-   dequantised cache; its largest difference from K3 over the original
-   bf16 cache (the int8 scheme's error), save/load GB/s and the store's
-   bytes per key are logged beside the bf16 main path's.
+   128] over the 2,048-token contexts for all 32 layers, held to K8's
+   contract as in phase 1 (within 2e-2 of its plain version, within one
+   bf16 rounding of K3 over the dequantised cache, two launches and solo
+   rows bitwise); its largest difference from K3 over the
+   original bf16 cache (the int8 scheme's error, at most 2e-2), save/load
+   GB/s and the store's bytes per key are logged beside the bf16 main
+   path's.
 5. Engine phase at Llama-3-8B width (bf16, the main path's weights; a fresh
    store with a 2 GiB pool): one ``ContinuousBatchingHarness`` (1,024
    blocks = 2 GiB of KV, 72 blocks per request, n-gram drafts of up to 7)
@@ -118,8 +128,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 CUDA cores
 
 # Main-path geometry: Meta-Llama-3-8B's published config.json widths.
 LLAMA3_8B = dict(
@@ -151,6 +159,19 @@ SMALL_ENGINE = dict(shared=32, tail=32, span=8, keep=48, new=16, gen=16)
 INT8_STORE_UNIT = 16 << 10
 SHARDED_CONTEXT = 32768  # tokens of the sharded decode's one request
 
+# What each kernel's design is now (the ``kernels`` line's ``design``).
+DESIGNS = {
+    "gather_blocks": "TMA bulk-copy ring over up to 64 caches a launch",
+    "scatter_blocks": "TMA bulk-copy ring over up to 64 caches a launch",
+    "paged_decode_attention": "split-KV fold, cp.async ring, in-order split merge",
+    "flash_prefill": "bf16: wgmma fed by a TMA/mbarrier ring; f32: CUDA cores",
+    "paged_decode_attention_ragged": "K3's split-KV fold over a flat page list",
+    "paged_decode_attention_stats": "K3's split-KV fold; rows of more than 16 splits merge "
+                                    "in a two-level tree across the card",
+    "paged_decode_attention_ragged_stats": "K6's fold, raw statistics",
+    "paged_decode_attention_quantized": "int8-native split-KV fold: 16-byte lanes, exact "
+                                        "byte-permute widening, scales once per token",
+}
 TPU_KERNELS = {
     "gather_blocks": ("infinistore_tpu/tpu/paged.py:115", "paged_copy.cu"),
     "scatter_blocks": ("infinistore_tpu/tpu/paged.py:135", "paged_copy.cu"),
@@ -193,60 +214,25 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-class Timer:
-    """Per-launch CUDA-event timing with the L2 cache flushed before each
-    launch (the main path finds its KV cold). Before each start event the
-    card spins (``torch.cuda._sleep``, about 1 ms) while the host queues the
-    flush, the events and the call, so the card reaches the start event only
-    after the launch is queued and the wrapper's host work stays out of the
-    measurement. The median of the launches is reported."""
+def _timing():
+    """The package's timing helpers (``cuda/timing.py``), imported at first
+    use: a probe may load this file for its shapes beside another tree's
+    package."""
+    from infinistore_tpu_torch.cuda import timing
 
-    SPIN_CYCLES = 2_000_000
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-
-    def ms(self, fn, iters: int = 11, warmup: int = 2, spin: int = 1) -> float:
-        """Median ms of ``fn``; ``spin`` multiplies the spin, for calls that
-        queue many launches (their host work must stay inside it too)."""
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(self.SPIN_CYCLES * spin)
-            self.flush.zero_()
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        times.sort()
-        return times[len(times) // 2]
+    return timing
 
 
 def host_us(torch, fn, calls: int = 50) -> float:
-    """The host's time per call of ``fn`` (its launches queued, not run):
-    the card is kept busy by a spin, so the queue never waits on it."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(Timer.SPIN_CYCLES * 20)
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return elapsed * 1e6 / calls
+    return _timing().host_us(torch, fn, calls)
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _timing().bound_ms(nbytes, flops, dtype_name)
+
+
+def max_err(a, b) -> float:
+    return _timing().max_err(a, b)
 
 
 def peak_dtype(t) -> str:
@@ -256,16 +242,12 @@ def peak_dtype(t) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
-def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
-
-
 # ---------------------------------------------------------------------------
 # Phase 1: every kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch, timer):
+def kernel_phase(torch, timer, nomerge):
     import torch.nn.functional as F
 
     from infinistore_tpu_torch.cuda import _ext
@@ -413,7 +395,7 @@ def kernel_phase(torch, timer):
     results["paged_decode_attention_quantized"] = _quant_kernel_check(
         torch, timer, g, tables, (full, ragged), n_cache)
     results["paged_decode_attention_stats"] = _stats_kernel_check(
-        torch, timer, g, tables, (full, ragged), n_cache)
+        torch, timer, g, tables, (full, ragged), n_cache, nomerge)
     return results
 
 
@@ -674,10 +656,49 @@ def _engine_wave_check(torch, timer, g, pa):
     return row
 
 
+# K8's tolerances by q's dtype: against its plain version, the JAX package's
+# contract (its kernel against the dequantise-then-decode reference); against
+# K3 on q.float() over the f32-dequantised cache, 1e-5 plus, with bf16 q, the
+# rounding of each f32 result to bf16 (2^-7 of the value).
+K8_PLAIN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+K8_K3_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+
+
+def _k8_contract(torch, kq, pa, q, kd, ks, vd, vs, tables, lens, got, what):
+    """K8's contract on its output ``got``: within ``K8_PLAIN_TOL`` of its
+    plain version, within 1e-5 + ``K8_K3_RTOL`` x |K3| of K3 run on q.float()
+    over the f32-dequantised cache, a second launch bitwise equal, each row
+    bitwise its solo launch. Returns (the largest difference from the plain
+    version, from K3)."""
+    args = (q, kd, ks, vd, vs, tables, lens)
+    plain = kq._quant_decode_plain(*args)
+    k3 = pa.paged_decode_attention_batched(
+        q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables, lens).to(q.dtype)
+    again = kq.paged_decode_attention_quantized(*args)
+    solo = [kq.paged_decode_attention_quantized(q[r:r + 1], kd, ks, vd, vs, tables[r:r + 1],
+                                                lens[r:r + 1]) for r in range(q.shape[0])]
+    _sync(torch, q.device)
+    name = peak_dtype(q)
+    err = max_err(got, plain)
+    if not err <= K8_PLAIN_TOL[name]:
+        raise AssertionError(f"{what}: K8 is {err} from its plain version "
+                             f"(tol {K8_PLAIN_TOL[name]})")
+    diff = (got.float() - k3.float()).abs()
+    if not bool((diff <= 1e-5 + K8_K3_RTOL[name] * k3.float().abs()).all()):
+        raise AssertionError(f"{what}: K8 is up to {float(diff.max())} from K3 over the "
+                             f"dequantised cache (tol 1e-5 + {K8_K3_RTOL[name]} x |K3|)")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two K8 launches differ")
+    for r, one in enumerate(solo):
+        if not torch.equal(one[0], got[r]):
+            raise AssertionError(f"{what}: K8 row {r} differs from its solo launch")
+    return err, float(diff.max())
+
+
 def _quant_kernel_check(torch, timer, g, tables, waves, n_cache):
-    """K8 at the int8 round trip's wave (4 requests at 2,048 tokens): against
-    its plain version, and bitwise K3 on q.float() over the f32-dequantised
-    cache."""
+    """K8 at the int8 round trip's wave (4 requests at 2,048 tokens), each
+    wave in f32 and bf16 q, held to ``_k8_contract``; a zero-length row
+    gives zeros."""
     from infinistore_tpu_torch.cuda import kv_quant as kq
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
@@ -687,26 +708,22 @@ def _quant_kernel_check(torch, timer, g, tables, waves, n_cache):
     bsz = tables.shape[0]
     kd, ks = kq.quantize_kv(torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda"))
     vd, vs = kq.quantize_kv(torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda"))
-    kf, vf = kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs)
     full = waves[0]
     out = None
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn((bsz, h, d), generator=g, device="cuda").to(dtype)
-        err = 0.0
+        err = err3 = 0.0
         for lens in waves:
             got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
-            want = kq._quant_decode_plain(q, kd, ks, vd, vs, tables, lens)
-            k3 = pa.paged_decode_attention_batched(q.float(), kf, vf, tables, lens).to(dtype)
-            torch.cuda.synchronize()
-            err = max(err, max_err(got, want))
-            if not torch.equal(got, k3):
-                raise AssertionError(f"quantized decode {dtype}: not bitwise K3 over the "
-                                     "dequantised cache")
-        if not err <= tol:
-            raise AssertionError(f"quantized decode {dtype}: max abs err {err} > {tol}")
+            e, e3 = _k8_contract(torch, kq, pa, q, kd, ks, vd, vs, tables, lens, got,
+                                 f"quantized decode {dtype}")
+            err, err3 = max(err, e), max(err3, e3)
         if float(got[-1].float().abs().max()) != 0.0:
             raise AssertionError("quantized decode: seq_len 0 must give zeros")
-        log(f"K8 {dtype}: max abs err {err:.3e} (tol {tol}); bitwise K3 over the dequantised cache")
+        name = peak_dtype(q)
+        log(f"K8 {dtype}: max abs err {err:.3e} from its plain version (tol "
+            f"{K8_PLAIN_TOL[name]}), {err3:.3e} from K3 over the dequantised cache (tol 1e-5 + "
+            f"{K8_K3_RTOL[name]} x |K3|); two launches and solo rows bitwise equal")
         if dtype is torch.bfloat16:
             tokens = int(full.sum())
             nbytes = 2 * tokens * kvh * (d + 4) + 2 * q.numel() * q.element_size() + \
@@ -720,11 +737,14 @@ def _quant_kernel_check(torch, timer, g, tables, waves, n_cache):
     return out
 
 
-def _stats_kernel_check(torch, timer, g, tables, waves, n_cache):
+def _stats_kernel_check(torch, timer, g, tables, waves, n_cache, nomerge):
     """K5 at K3's wave: against its plain statistics, its one-shard combine
     bitwise K3, the combine of 4 disjoint slices of each row's pages within
     1e-5 of K3 (f32). Timed at the sharded decode's one request of
-    ``SHARDED_CONTEXT`` tokens."""
+    ``SHARDED_CONTEXT`` tokens (one-shard combine bitwise K3 there too), and
+    there also through ``nomerge`` (K5's entry built with its cross-split
+    merge compiled out, called directly): the fold's time, ``fold_ms``."""
+    from infinistore_tpu_torch.cuda import decode_probe
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
     cfg = LLAMA3_8B
@@ -769,15 +789,23 @@ def _stats_kernel_check(torch, timer, g, tables, waves, n_cache):
     table = torch.randperm(tokens // bt, generator=g, device="cuda").to(torch.int32)[None]
     lens = torch.tensor([tokens], dtype=torch.int32, device="cuda")
     args = (q, kc, vc, table, lens)
-    err = _stats_err(torch, pa._decode_attention_stats(*args),
-                     pa.decode_attention_stats_plain(*args))
+    stats = pa._decode_attention_stats(*args)
+    err = _stats_err(torch, stats, pa.decode_attention_stats_plain(*args))
     if not err <= 2e-2:
         raise AssertionError(f"decode stats at {tokens} tokens: max abs err {err}")
+    if not torch.equal(pa.combine_stats(*stats, q.dtype, ident, ident),
+                       pa.paged_decode_attention_batched(*args)):
+        raise AssertionError(f"decode stats at {tokens} tokens: one-shard combine is not K3")
     nbytes = 2 * tokens * kvh * d * 2 + q.numel() * 2 + (h * d + 2 * h) * 4 + table.numel() * 4 + 4
     bms, by = bound_ms(nbytes, 4.0 * h * d * tokens, peak_dtype(q))
-    return dict(max_abs_err=err, ms=timer.ms(lambda: pa._decode_attention_stats(*args)),
-                plain_ms=timer.ms(lambda: pa.decode_attention_stats_plain(*args), iters=3),
-                bound_ms=bms, bound_by=by, library_ms=None)
+    row = dict(max_abs_err=err, ms=timer.ms(lambda: pa._decode_attention_stats(*args)),
+               plain_ms=timer.ms(lambda: pa.decode_attention_stats_plain(*args), iters=3),
+               bound_ms=bms, bound_by=by, library_ms=None)
+    row["fold_ms"] = timer.ms(decode_probe.stats_call(nomerge, *args))
+    log(f"K5 bf16 at {tokens} tokens: {row['ms']:.5f} ms; the fold alone (its merge compiled "
+        f"out) {row['fold_ms']:.5f} ms, so about {row['ms'] - row['fold_ms']:.5f} ms (the "
+        "difference) is the merge; one-shard combine bitwise K3")
+    return row
 
 
 def _stats_err(torch, stats, plain):
@@ -792,18 +820,12 @@ def _stats_err(torch, stats, plain):
 
 
 def _skewed_wave():
-    """The kernel phase's skewed ragged wave at the engine's widths: (per-row
-    lens, per-row tables, table width, cache blocks). Rows 3-6 are one
-    request's 4-token verification chunk (shared pages)."""
-    import numpy as np
+    """The kernel phase's skewed ragged wave at the engine's widths
+    (``decode_probe.skewed_wave``): (per-row lens, per-row tables, table
+    width, cache blocks)."""
+    from infinistore_tpu_torch.cuda import decode_probe
 
-    width = ENGINE_REQ_BLOCKS
-    lens = [1, 1152, 0, 300, 301, 302, 303, 700, 64, 17, 1000]
-    req_of = [0, 1, 2, 3, 3, 3, 3, 4, 5, 6, 7]
-    n_cache = 8 * width + 16
-    rng = np.random.default_rng(5)
-    req_tables = rng.permutation(n_cache)[: 8 * width].astype(np.int32).reshape(8, width)
-    return lens, [req_tables[i] for i in req_of], width, n_cache
+    return decode_probe.skewed_wave(ENGINE_REQ_BLOCKS)
 
 
 def _ragged_kernel_check(torch, timer, g, pa):
@@ -1258,22 +1280,22 @@ def int8_round_trip(torch, server_port, state, bf16_metrics):
                         raise AssertionError(f"int8 layer {layer} side {side} part {part} prompt "
                                              f"{p}: loaded bytes differ")
     log("int8: engine B holds engine A's int8 data and scales byte for byte")
-    scheme_err = 0.0
+    scheme_err = plain_err = k3_err = 0.0
     for layer in range(cfg.n_layers):
         (kd, ks), (vd, vs) = quant_b[layer]
-        k3 = pa.paged_decode_attention_batched(
-            qs[layer].float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables_b,
-            lens).to(torch.bfloat16)
-        ref = pa.paged_decode_attention_batched(qs[layer], *caches_a[layer], tables_a, lens)
         out = outs[layer]
         if out.shape != (n_req, cfg.n_heads, head_dim) or not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"int8 decode layer {layer}: bad output {tuple(out.shape)}")
-        if not torch.equal(out, k3):
-            raise AssertionError(f"int8 decode layer {layer}: K8 is not bitwise K3 over the "
-                                 "dequantised cache")
+        e, e3 = _k8_contract(torch, kq, pa, qs[layer], kd, ks, vd, vs, tables_b, lens, out,
+                             f"int8 decode layer {layer}")
+        plain_err, k3_err = max(plain_err, e), max(k3_err, e3)
+        ref = pa.paged_decode_attention_batched(qs[layer], *caches_a[layer], tables_a, lens)
         scheme_err = max(scheme_err, max_err(out, ref))
-    log(f"int8 decode: K8 bitwise K3 over the dequantised cache in all {cfg.n_layers} layers; "
-        f"largest difference from K3 over the bf16 cache {scheme_err:.3e}")
+    if not scheme_err <= 2e-2:
+        raise AssertionError(f"int8 decode: {scheme_err} from K3 over the bf16 cache (tol 2e-2)")
+    log(f"int8 decode: K8 within {plain_err:.3e} of its plain version and {k3_err:.3e} of K3 "
+        f"over the dequantised cache in all {cfg.n_layers} layers, two launches and solo rows "
+        f"bitwise equal; largest difference from K3 over the bf16 cache {scheme_err:.3e}")
     data_bytes = n_req * nb * cfg.n_layers * 2 * (qa.data.spec.block_nbytes
                                                  + qa.scales.spec.block_nbytes)
     metrics = {
@@ -1288,6 +1310,8 @@ def int8_round_trip(torch, server_port, state, bf16_metrics):
         "bf16_save_GBps": bf16_metrics["save_GBps"],
         "bf16_load_GBps": bf16_metrics["load_GBps"],
         "max_abs_err_vs_bf16_cache": scheme_err,
+        "max_abs_err_vs_plain": plain_err,
+        "max_abs_err_vs_k3_dequantised": k3_err,
     }
     return metrics, launches
 
@@ -1621,8 +1645,11 @@ def sharded_decode_phase(torch, device="cuda", backend="nccl", geometry=LLAMA3_8
 
 def _build_all(torch):
     """Compile the kernels (nvcc) while the native store library builds
-    (g++, at its first import); both must succeed."""
-    from infinistore_tpu_torch.cuda import _ext
+    (g++, at its first import), and K5's source with its cross-split merge
+    compiled out (``-DITS_DECODE_NOMERGE``, as ``cuda/decode_probe.py``
+    builds it, for the fold's time); all must succeed. Returns the latter
+    library."""
+    from infinistore_tpu_torch.cuda import _ext, decode_probe
 
     errors = []
 
@@ -1633,6 +1660,8 @@ def _build_all(torch):
             errors.append(exc)
 
     t0 = time.perf_counter()
+    nomerge = decode_probe.build("nomerge", ("paged_attention_stats.cu",),
+                                 defines=(decode_probe.NOMERGE,))
     worker = threading.Thread(target=build_kernels)
     worker.start()
     from infinistore_tpu_torch import lib  # noqa: F401  (builds the native core)
@@ -1640,7 +1669,9 @@ def _build_all(torch):
     worker.join()
     if errors:
         raise errors[0]
+    nomerge = decode_probe.load(nomerge)
     log(f"built the store library and the kernels in {time.perf_counter() - t0:.1f} s")
+    return nomerge
 
 
 def main() -> int:
@@ -1659,12 +1690,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    _build_all(torch)
+    nomerge = _build_all(torch)
     from infinistore_tpu_torch import lib
     from infinistore_tpu_torch.cuda import _ext
 
-    timer = Timer(torch)
-    kernels = kernel_phase(torch, timer)
+    timer = _timing().Timer(torch)
+    kernels = kernel_phase(torch, timer, nomerge)
     del timer
     torch.cuda.empty_cache()
 
@@ -1742,6 +1773,7 @@ def main() -> int:
             # Every launch on the paths this script drives; per path below.
             "launches": sum(counts[name] for counts in paths.values()),
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+            "design": DESIGNS[name],
             **kernels[name],
         }
         if len(sources) > 1:

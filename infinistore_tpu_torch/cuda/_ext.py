@@ -23,8 +23,8 @@ The paged decode kernels (K3, K5-K8) split each row's pages across CTAs
 (``csrc/decode_fold.cuh``). Their wrappers size the split scratch from
 shapes alone, with the library's own split count for the table width
 (``decode_splits``: ``its_decode_splits``, asked once per width), and take
-the scratch and the ticket counters of the last-arriving split from the
-stream's workspace (``split_workspace``).
+the scratch and the ticket counters of the splits' merge from the stream's
+workspace (``split_workspace``).
 """
 
 import ctypes

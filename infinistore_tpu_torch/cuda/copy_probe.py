@@ -11,7 +11,7 @@ of 4,096 32 KiB blocks (Llama-3-8B widths) at n = 1, 8, 32, 128, 512 and
 2,048 blocks, fitted as time = a + b x bytes (least squares; a is the
 per-launch part), beside a contiguous ``dst.copy_(src)`` of the same bytes
 (the card's own copy) and an empty launch (a 0-cycle ``torch.cuda._sleep``),
-all under ``chip_smoke.Timer``. With ``--root`` (a checkout of another tree,
+all under ``timing.Timer``. With ``--root`` (a checkout of another tree,
 e.g. the parent unpacked by ``git archive``) that tree's
 ``paged_copy.cu`` is built into ``_build/probe/root`` and its single-cache
 entries are timed too: at the same n (and fitted), and at ``chip_smoke.py``'s
@@ -20,7 +20,7 @@ engine's snapshot, the install span) as the sequence its paths ran there
 (``chip_smoke.copy_calls`` without batched entries), in the order root,
 this, this, root, beside this tree's batched call and its unfused sequence.
 
-``host``: the K1/K2 wrappers' host time per call (``chip_smoke.host_us``:
+``host``: the K1/K2 wrappers' host time per call (``timing.host_us``:
 the card is kept busy by a spin, so only the host's work is timed) at the
 same shapes, for the package of the checkout at ``--root`` (default: this
 one), through its batched entries where it has them. Two checkouts run in
@@ -35,6 +35,7 @@ back again. Prints one JSON line per measurement.
 
 import argparse
 import ctypes
+import functools
 import importlib.util
 import json
 import os
@@ -80,6 +81,17 @@ def _chip_smoke():
     checkout may hold another)."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   os.path.join(CHECKOUT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=None)
+def _timing():
+    """This checkout's ``timing`` module, loaded by path (the package on
+    ``sys.path`` may be a ``--root`` checkout's, which may have none)."""
+    spec = importlib.util.spec_from_file_location("_probe_timing",
+                                                  os.path.join(HERE, "timing.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -159,7 +171,7 @@ def device(args):
     from infinistore_tpu_torch.cuda import _ext, paged
 
     _ext.kernels()
-    timer = cs.Timer(torch)
+    timer = _timing().Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(17)
     root = _root_singles(torch, os.path.abspath(args.root), _ext._nvcc()) if args.root else None
 
@@ -171,7 +183,7 @@ def device(args):
         series["root"] = []
     # The same calls with the L2 left warm (a 1-byte flush): what of the
     # floor the dirty 1 GiB flush adds.
-    warm = cs.Timer(torch)
+    warm = _timing().Timer(torch)
     warm.flush = torch.empty(1, dtype=torch.uint8, device="cuda")
     _emit(empty_launch_ms=timer.ms(lambda: torch.cuda._sleep(0)),
           empty_launch_warm_ms=warm.ms(lambda: torch.cuda._sleep(0)))
@@ -235,7 +247,7 @@ def host(args):
     for (kind, shape), fn in calls.items():
         _emit(root=args.root or ".", package=os.path.dirname(paged.__file__),
               batched=hasattr(paged, "gather_blocks_many"), shape=f"{kind}/{shape}",
-              host_us=cs.host_us(torch, fn, calls=100))
+              host_us=_timing().host_us(torch, fn, calls=100))
     return 0
 
 
@@ -276,7 +288,7 @@ def tune(args):
         for key in calls:
             if not cs.copy_matches(torch, inp, key, fused, plain):
                 raise AssertionError(f"{name} {key}: differs from the plain version")
-    timer = cs.Timer(torch)
+    timer = _timing().Timer(torch)
     times = {name: {f"{k}/{s}": [] for k, s in calls} for name in libs}
     for name in [*libs, *reversed(list(libs))]:
         _ext._lib = libs[name]

@@ -1,13 +1,14 @@
-// The paged decode fold that K3, K5, K6, K7 and K8 share: a split-KV
-// (flash-decoding) fold for Hopper.
+// The paged decode fold that K3, K5, K6 and K7 share: a split-KV
+// (flash-decoding) fold for Hopper, and the split merge K8 shares with it.
 //
-// Replaces, through the entries of paged_attention.cu, paged_attention_stats.cu
-// and kv_quant.cu, the fold of infinistore_tpu/tpu/paged_attention.py
+// Replaces, through the entries of paged_attention.cu and
+// paged_attention_stats.cu, the fold of infinistore_tpu/tpu/paged_attention.py
 // (_attn_block_update / _attn_block_fold / _ragged_fold) that the TPU kernels
-// _paged_decode_attention_pallas_batched, _pallas_stats, _pallas_ragged,
-// _pallas_ragged_stats and kv_quant.py:_quant_decode_pallas run. One query row
-// (a request, or a flat row of a ragged wave) attends over the cache pages its
-// page list names, for the G = H / KVH query heads of one KV head.
+// _paged_decode_attention_pallas_batched, _pallas_stats, _pallas_ragged and
+// _pallas_ragged_stats run. One query row (a request, or a flat row of a
+// ragged wave) attends over the cache pages its page list names, for the
+// G = H / KVH query heads of one KV head. (K8, kv_quant.cu, folds int8 pages
+// in a fold of its own and shares this file's split merge.)
 //
 // Bound: bytes. The function must read the K and V of every valid token once
 // (a ragged wave: each distinct page once), plus q and the output.
@@ -26,46 +27,52 @@
 //      other rows. So a K6 row is bitwise the K3 row over its own table and
 //      bitwise its solo launch, and a K5/K7 row is the state K3/K6
 //      normalise. The grid is (splits x KVH, rows), splits =
-//      grid_splits(width) for the launch's table width; a CTA past its row's
-//      split count exits at once.
+//      grid_splits(width) for the launch's table width, a row's splits of
+//      one KV head on adjacent CTAs; a CTA past its row's split count exits
+//      at once.
 //   2. A lane owns kVec = 8 consecutive elements of a token's head row: one
-//      16-byte load in bf16, two in f32, one 8-byte load in int8. A token's
-//      D elements sit on D / 8 lanes (a token group: 16 lanes at D = 128),
-//      and a group folds 2 tokens a stage. Its 2 x G partial dot products
-//      are summed by a transposed butterfly (transpose_sum: each level sends
-//      half of the values left, so a lane ends holding whole sums, one per
-//      (token, head) pair at G = 4), and each lane runs the softmax of the
-//      scores it holds (its head's running max and denominator, one expf per
-//      score and one per correction) and shares the probabilities and
-//      corrections back by shuffles for the PV update every lane does on its
-//      8 elements. The mapping from elements to lanes, tokens to groups and
-//      stages, and scores to lanes is defined in elements and is the same
-//      for every loader, so f32 K3 and int8 K8 add the same products in the
-//      same order (K8 is bitwise K3 run on q.float() over the f32-dequantised
-//      cache: Int8KV widens each element as __fmul_rn(data, scale),
-//      dequantize_kv's one f32 multiply).
+//      16-byte load in bf16, two in f32. A token's D elements sit on D / 8
+//      lanes (a token group: 16 lanes at D = 128), and a group folds 2
+//      tokens a stage. Its 2 x G partial dot products are summed by a
+//      transposed butterfly (transpose_sum: each level sends half of the
+//      values left, so a lane ends holding whole sums, one per (token, head)
+//      pair at G = 4), and each lane runs the softmax of the scores it holds
+//      (its head's running max and denominator, one expf per score and one
+//      per correction) and shares the probabilities and corrections back by
+//      shuffles for the PV update every lane does on its 8 elements. The
+//      mapping from elements to lanes, tokens to groups and stages, and
+//      scores to lanes is defined in elements and is the same for the f32
+//      and bf16 loaders, so f32 K3 over a bf16 cache widened to f32 adds the
+//      same products in the same order as bf16 K3.
 //   3. Pages stream through a kStages-deep cp.async ring in dynamic shared
 //      memory (cp.async.cg, 16 bytes, L1 bypassed): each stage is kStageTok
-//      token rows of one KV head, K then V (then, for int8, the rows' f32
-//      scales), gathered from the pages of the split whose addresses the CTA
-//      computes once into shared memory; each copy's position advances by a
-//      stage without a division. Later stages load while the current one
-//      folds. cp.async needs no per-call host work (a TMA tensor map would
-//      cost a host-side encode per call on a host-bound decode path). Rows
-//      past seq_len and pages outside [0, N) are zero-filled (no bytes read)
-//      and masked.
+//      token rows of one KV head, K then V, gathered from the pages of the
+//      split whose addresses the CTA computes once into shared memory; each
+//      copy's position advances by a stage without a division. Later stages
+//      load while the current one folds. cp.async needs no per-call host work
+//      (a TMA tensor map would cost a host-side encode per call on a
+//      host-bound decode path). Rows past seq_len and pages outside [0, N)
+//      are zero-filled (no bytes read) and masked.
 //   4. A split's token groups merge through shared memory, which the ring
 //      hands back once drained (so the 32 KiB merge at G = 8 costs no extra
-//      space); each (group, head) weight is one expf. A row of one split
-//      applies its epilogue at once. A row of several splits writes each
-//      split's partial (acc [D], m, l per query head) to f32 scratch; the
-//      last CTA of the (row, KV head) to arrive (an acq_rel atomic ticket,
-//      reset by that CTA) merges the partials in split order 0..n-1, never in
-//      arrival order, with its global reads issued together, and applies the
-//      epilogue: two launches on the same inputs are bitwise equal, and no
-//      floating-point atomic is used. An empty split (m -1e30, l 0, acc 0)
-//      merges as a no-op; a row with seq_len 0 is one empty split, so it
-//      gives acc 0, l 0, m -1e30 (zeros through Normalize).
+//      space); each (group, head) weight is one expf (finish_split). A row
+//      of one split applies its epilogue at once. A row of several splits
+//      writes each split's partial (acc [D], m, l per query head) to f32
+//      scratch, and the last CTA to arrive merges them (merge_partials) in
+//      split order, never in arrival order, with its global reads issued
+//      together, and applies the epilogue. Arrival is an acq_rel atomic
+//      ticket, reset by the CTA that merges. Up to kMergeGroup splits, the
+//      last CTA of the (row, KV head) merges them all. A longer row merges
+//      in a fixed two-level tree, so its merge is spread across the card and
+//      no CTA reads more than kMergeGroup partials at a time: the last CTA of
+//      each group of kMergeGroup consecutive splits merges its group in
+//      split order into the group's first slot, and the last of the group
+//      mergers merges the groups in group order. The tree depends only on
+//      the row's own split count, so K3 and K5 take the same one. Two
+//      launches on the same inputs are bitwise equal, and no floating-point
+//      atomic is used. An empty split (m -1e30, l 0, acc 0) merges as a
+//      no-op; a row with seq_len 0 is one empty split, so it gives acc 0,
+//      l 0, m -1e30 (zeros through Normalize).
 //
 // Every product that feeds a sum is an explicit fmaf or __fmul_rn, so FMA
 // contraction cannot round two kernels apart. Only the first ceil(seq_len /
@@ -73,8 +80,7 @@
 // no-ops, so skipping them changes nothing).
 //
 // The parts each kernel instantiates:
-//   - a KV loader: FloatKV reads f32/bf16 caches, Int8KV int8 data with one
-//     f32 scale per (token, KV head) row;
+//   - a KV loader: FloatKV reads f32/bf16 caches;
 //   - an epilogue, applied once per (row, query head, d) after the merge:
 //     Normalize writes acc / max(l, 1e-30) in the query's dtype (K3, K6, K8),
 //     RawStats writes (acc, m, l) in f32 (K5, K7).
@@ -90,6 +96,8 @@ namespace {
 // A row of n pages folds in splits of split_pages(n) consecutive pages: as
 // close to kTargetSplits splits as kMinSplitPages..kMaxSplitPages pages a
 // split allow (16-page splits from 128 pages up, 256 tokens at bt = 16).
+// (Long rows keep 16-page splits: 8- and 32-page splits past 256 pages
+// measured slower at 32,768 tokens; PERF.md.)
 constexpr int kTargetSplits = 8;
 constexpr int kMinSplitPages = 4;
 constexpr int kMaxSplitPages = 16;
@@ -192,66 +200,37 @@ __device__ __forceinline__ void transpose_sum(float (&v)[N], int gl) {
 }
 
 // ---------------------------------------------------------------------------
-// KV loaders: the K and V arrays (side 0 and 1) whose (token, KV head) rows
-// the ring gathers, their per-row scales (a float cache has none), and how
-// kVec elements of a row are widened to f32 from the ring.
+// The KV loader: the K and V arrays (side 0 and 1) whose (token, KV head)
+// rows the ring gathers, and how kVec elements of a row are widened to f32
+// from the ring.
 // ---------------------------------------------------------------------------
 
 template <typename C>
 struct FloatKV {
   using Elem = C;
-  static constexpr bool kScaled = false;
   const C* k;
   const C* v;
 
   __device__ __forceinline__ const C* data(int side) const { return side ? v : k; }
-  __device__ __forceinline__ const float* scales(int) const { return nullptr; }
   bool aligned() const {
     return (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   }
 };
 
-// int8 data with one f32 scale per (token, KV head) row.
-struct Int8KV {
-  using Elem = int8_t;
-  static constexpr bool kScaled = true;
-  const int8_t* k;
-  const float* ks;
-  const int8_t* v;
-  const float* vs;
-
-  __device__ __forceinline__ const int8_t* data(int side) const { return side ? v : k; }
-  __device__ __forceinline__ const float* scales(int side) const { return side ? vs : ks; }
-  bool aligned() const {
-    return (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0 &&
-           (reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) % 4 == 0;
-  }
-};
-
-__device__ __forceinline__ void widen(const float* p, float, float (&x)[kVec]) {
+__device__ __forceinline__ void widen(const float* p, float (&x)[kVec]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-__device__ __forceinline__ void widen(const __nv_bfloat16* p, float, float (&x)[kVec]) {
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float (&x)[kVec]) {
   const uint4 w = *reinterpret_cast<const uint4*>(p);
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // element 2i in the low half (bf16 -> f32 is exact)
     x[2 * i] = __uint_as_float(u[i] << 16);
     x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void widen(const int8_t* p, float s, float (&x)[kVec]) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // sign-extend byte i, then dequantise in one multiply
-    const int shift = 24 - 8 * i;
-    x[i] = __fmul_rn(static_cast<float>(static_cast<int32_t>(w.x << shift) >> 24), s);
-    x[4 + i] = __fmul_rn(static_cast<float>(static_cast<int32_t>(w.y << shift) >> 24), s);
   }
 }
 
@@ -290,12 +269,219 @@ template <int D, int G, typename KV>
 struct Smem {
   static constexpr int kRowBytes = D * static_cast<int>(sizeof(typename KV::Elem));
   static constexpr int kSideBytes = Fold<D>::kStageTok * kRowBytes;
-  static constexpr int kStageBytes =
-      2 * kSideBytes + (KV::kScaled ? 2 * Fold<D>::kStageTok * 4 : 0);
+  static constexpr int kStageBytes = 2 * kSideBytes;
   static constexpr int kRingBytes = kStages * kStageBytes;
   static constexpr int kMergeBytes = (Fold<D>::kGroups * G * (D + 2) + 2 * G) * 4;
   static constexpr int kBytes = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
 };
+
+// ---------------------------------------------------------------------------
+// The end of a work item, which every fold shares.
+// ---------------------------------------------------------------------------
+
+// Merges `count` partials of one (row, KV head), the scratch slots 0,
+// kStride, 2 x kStride, ... from `accs` (acc [G][D] a slot) and `mls` ((m, l)
+// [G] a slot), in that order, and hands each output's merged state to
+// emit(g, d, m, l, acc). Its global reads go out together: each thread
+// prefetches its outputs' partial acc of the first kPre slots, and the
+// slots' (m, l) stage in shared memory, kMergeSplits at a time, in one pass
+// of all threads. Then each head's max (G threads), the weights (one expf per
+// (slot, head)), the denominators (G threads) and the outputs. The caller
+// has synchronised the CTA after its last use of `smem`.
+template <int D, int G, int kStride, typename Emit>
+__device__ __forceinline__ void merge_partials(const float* accs, const float* mls, int count,
+                                               unsigned char* smem, const Emit& emit) {
+  constexpr int kMergeSplits = 512 / G;
+  constexpr int kOuts = (G * D + kThreads - 1) / kThreads;
+  constexpr int kPre = 8;
+  const int tid = threadIdx.x;
+  constexpr int64_t acc_step = static_cast<int64_t>(kStride) * G * D;
+  float pre[kOuts][kPre];
+#pragma unroll
+  for (int k = 0; k < kOuts; ++k) {
+#pragma unroll
+    for (int sp = 0; sp < kPre; ++sp) {
+      const int idx = tid + k * kThreads;
+      pre[k][sp] = idx < G * D && sp < count ? __ldcg(accs + sp * acc_step + idx) : 0.f;
+    }
+  }
+  float* head = reinterpret_cast<float*>(smem);  // [G] maxima, then [G] denominators
+  float* sm_mw = head + 2 * G;                   // [kMergeSplits][G] m, then the weights
+  float* sm_l = sm_mw + kMergeSplits * G;        // [kMergeSplits][G] l
+  auto stage_ml = [&](int sp0, int cn) {
+    for (int t = tid; t < cn * G; t += kThreads) {
+      const int slot = kStride == 1 ? sp0 * G + t : (sp0 + t / G) * kStride * G + t % G;
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(mls) + slot);
+      sm_mw[t] = v.x;
+      sm_l[t] = v.y;
+    }
+  };
+  float run = its::kNegInf;  // tid < G: head tid's max so far
+  for (int sp0 = 0; sp0 < count; sp0 += kMergeSplits) {
+    const int cn = min(kMergeSplits, count - sp0);
+    __syncthreads();  // the last chunk is read
+    stage_ml(sp0, cn);
+    __syncthreads();
+    if (tid < G)
+      for (int sp = 0; sp < cn; ++sp) run = fmaxf(run, sm_mw[sp * G + tid]);
+  }
+  if (tid < G) {
+    head[tid] = run;
+    head[G + tid] = 0.f;
+  }
+  float aa[kOuts];
+#pragma unroll
+  for (int k = 0; k < kOuts; ++k) aa[k] = 0.f;
+  for (int sp0 = 0; sp0 < count; sp0 += kMergeSplits) {
+    const int cn = min(kMergeSplits, count - sp0);
+    if (count > kMergeSplits) {  // one chunk is still staged from the maxima's pass
+      __syncthreads();
+      stage_ml(sp0, cn);
+    }
+    __syncthreads();  // the maxima and the chunk are in
+    for (int t = tid; t < cn * G; t += kThreads) sm_mw[t] = expf(sm_mw[t] - head[t % G]);
+    __syncthreads();
+    if (tid < G) {
+      float ll = head[G + tid];
+      for (int sp = 0; sp < cn; ++sp) ll = fmaf(sm_l[sp * G + tid], sm_mw[sp * G + tid], ll);
+      head[G + tid] = ll;
+    }
+#pragma unroll
+    for (int k = 0; k < kOuts; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < G * D) {
+        const int g = idx / D;
+        int sp = 0;
+        if (sp0 == 0) {
+#pragma unroll
+          for (int j = 0; j < kPre; ++j)
+            if (j < cn) aa[k] = fmaf(pre[k][j], sm_mw[j * G + g], aa[k]);
+          sp = min(kPre, cn);
+        }
+        for (; sp < cn; ++sp)
+          aa[k] = fmaf(__ldcg(accs + (sp0 + sp) * acc_step + idx), sm_mw[sp * G + g], aa[k]);
+      }
+    }
+  }
+  __syncthreads();  // the denominators are in
+#pragma unroll
+  for (int k = 0; k < kOuts; ++k) {
+    const int idx = tid + k * kThreads;
+    if (idx < G * D) {
+      const int g = idx / D;
+      emit(g, idx % D, head[g], head[G + g], aa[k]);
+    }
+  }
+}
+
+// The end of work item (row, kvh, split) of a row of `nsplit` splits, in a
+// launch whose grid has `splits` a (row, KV head). The CTA's kGroups token
+// groups have left their states in shared memory (sm_ml [kGroups][G][m, l],
+// then sm_acc [kGroups][G][D]). Merges them in group order (each head's max
+// and the groups' weights once, by G threads, then every output); then a row
+// of one split applies the epilogue, and a row of several writes the split's
+// partial to its scratch slot and takes a ticket. The last CTA to arrive
+// merges: all the row's splits up to kMergeGroup of them, else its group of
+// kMergeGroup splits, into the group's first slot, and then, if it is also
+// the last group to arrive, the groups. The (row, KV head)'s ticket counters
+// are tickets[item * splits + i]: i = 0 for a row of one group; a group's
+// own index, and ngroups for the groups' merge, in a tree (ngroups + 1 <=
+// splits). Each counter is reset by the CTA that merges on it.
+constexpr int kMergeGroup = 16;
+
+template <int D, int G, int kGroups, typename Epi>
+__device__ __forceinline__ void finish_split(unsigned char* smem, const Epi& epi,
+                                             float* __restrict__ scratch,
+                                             int* __restrict__ tickets, int row, int kvh,
+                                             int split, int nsplit, int H, int KVH, int splits) {
+  __shared__ int sm_ticket;
+  const int tid = threadIdx.x;
+  float* sm_ml = reinterpret_cast<float*>(smem);  // m becomes the weight
+  float* sm_acc = sm_ml + kGroups * G * 2;
+  float* sm_head = sm_acc + kGroups * G * D;      // [G][m, l], merged
+  if (tid < G) {
+    float mm = its::kNegInf;
+#pragma unroll
+    for (int w = 0; w < kGroups; ++w) mm = fmaxf(mm, sm_ml[(w * G + tid) * 2]);
+    float ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGroups; ++w) {
+      const float c = expf(sm_ml[(w * G + tid) * 2] - mm);
+      sm_ml[(w * G + tid) * 2] = c;
+      ll = fmaf(sm_ml[(w * G + tid) * 2 + 1], c, ll);
+    }
+    sm_head[tid * 2] = mm;
+    sm_head[tid * 2 + 1] = ll;
+  }
+  __syncthreads();
+
+  const int64_t item = static_cast<int64_t>(row) * KVH + kvh;
+  const int64_t acc_floats = static_cast<int64_t>(gridDim.y) * KVH * splits * G * D;
+  float* accs = scratch + item * splits * G * D;          // the item's slots: acc [G][D]
+  float* mls = scratch + acc_floats + item * splits * G * 2;  // and (m, l) [G]
+  for (int idx = tid; idx < G * D; idx += kThreads) {
+    const int g = idx / D;
+    const int d = idx % D;
+    const float mm = sm_head[g * 2];
+    const float ll = sm_head[g * 2 + 1];
+    float aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGroups; ++w)
+      aa = fmaf(sm_acc[(w * G + g) * D + d], sm_ml[(w * G + g) * 2], aa);
+    if (nsplit == 1) {
+      epi(static_cast<int64_t>(row) * H + kvh * G + g, d, D, mm, ll, aa);
+    } else {
+      accs[split * G * D + idx] = aa;
+      if (d == 0) {
+        mls[(split * G + g) * 2] = mm;
+        mls[(split * G + g) * 2 + 1] = ll;
+      }
+    }
+  }
+  if (nsplit == 1) return;
+#ifdef ITS_DECODE_NOMERGE
+  return;  // a timing build (cuda/decode_probe.py): the fold alone, outputs left unset
+#endif
+
+  auto to_epilogue = [&](int g, int d, float mm, float ll, float aa) {
+    epi(static_cast<int64_t>(row) * H + kvh * G + g, d, D, mm, ll, aa);
+  };
+  int* tix = tickets + item * splits;
+  __syncthreads();  // the CTA's partial is written; thread 0 releases it
+  if (nsplit <= kMergeGroup) {  // the last split merges them all, in split order
+    if (tid == 0) sm_ticket = ticket(tix);
+    __syncthreads();
+    if (sm_ticket != nsplit - 1) return;
+    merge_partials<D, G, 1>(accs, mls, nsplit, smem, to_epilogue);
+    if (tid == 0) tix[0] = 0;  // ready for the next launch on this stream
+    return;
+  }
+  // The tree: the last split of a group merges the group into its first slot.
+  const int group = split / kMergeGroup;
+  const int ngroups = (nsplit + kMergeGroup - 1) / kMergeGroup;
+  const int first = group * kMergeGroup;
+  const int count = min(kMergeGroup, nsplit - first);
+  if (tid == 0) sm_ticket = ticket(tix + group);
+  __syncthreads();
+  if (sm_ticket != count - 1) return;
+  float* gacc = accs + first * G * D;
+  float* gml = mls + first * G * 2;
+  merge_partials<D, G, 1>(gacc, gml, count, smem, [&](int g, int d, float mm, float ll,
+                                                        float aa) {
+    gacc[g * D + d] = aa;  // this thread's own reads of the slot are done
+    if (d == 0) {
+      gml[g * 2] = mm;
+      gml[g * 2 + 1] = ll;
+    }
+  });
+  if (tid == 0) tix[group] = 0;
+  __syncthreads();  // the group's state is written; thread 0 releases it
+  if (tid == 0) sm_ticket = ticket(tix + ngroups);
+  __syncthreads();
+  if (sm_ticket != ngroups - 1) return;
+  merge_partials<D, G, kMergeGroup>(accs, mls, ngroups, smem, to_epilogue);
+  if (tid == 0) tix[ngroups] = 0;
+}
 
 // ---------------------------------------------------------------------------
 // One work item: split `split` of query row `row` (KV group `kvh`) over
@@ -316,7 +502,6 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   constexpr int kChunks = S::kRowBytes / 16;  // 16-byte chunks of a head row
   constexpr int kCopies = 2 * F::kStageTok * kChunks / kThreads;
   static_assert(2 * F::kStageTok * kChunks % kThreads == 0, "a stage splits evenly");
-  static_assert(2 * F::kStageTok <= kThreads, "one scale copy per thread");
 
   const int npages = (seq_len + bt - 1) / bt;
   const int spp = split_pages(npages);
@@ -326,7 +511,6 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int64_t sm_base[kMaxSplitPages];  // element offset of (page, token 0, kvh), or -1
   __shared__ bool sm_ok[kStages][F::kStageTok];  // a ring row holds a valid token
-  __shared__ int sm_ticket;
 
   const int tid = threadIdx.x;
   const int page0 = split * spp;
@@ -344,11 +528,10 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   // of ring row r_k, whose token st * kStageTok + r_k sits at offset po[k] of
   // the split's page pi[k]. Stages are issued in order, so the position
   // advances by kStageTok tokens a stage, without a division.
-  int pi[kCopies + 1], po[kCopies + 1];  // [kCopies]: this thread's scale copy
+  int pi[kCopies], po[kCopies];
 #pragma unroll
-  for (int k = 0; k <= kCopies; ++k) {
-    const int r = k < kCopies ? ((tid + k * kThreads) / kChunks) % F::kStageTok
-                              : tid % F::kStageTok;
+  for (int k = 0; k < kCopies; ++k) {
+    const int r = ((tid + k * kThreads) / kChunks) % F::kStageTok;
     pi[k] = r / bt;
     po[k] = r % bt;
   }
@@ -360,22 +543,17 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     unsigned char* slot = smem + (st % kStages) * S::kStageBytes;
     const int tok0 = st * F::kStageTok;
 #pragma unroll
-    for (int k = 0; k <= kCopies; ++k) {
+    for (int k = 0; k < kCopies; ++k) {
       const int c = tid + k * kThreads;
-      const int side = k < kCopies ? c / (F::kStageTok * kChunks) : tid / F::kStageTok;
-      const int r = k < kCopies ? (c / kChunks) % F::kStageTok : tid % F::kStageTok;
+      const int side = c / (F::kStageTok * kChunks);
+      const int r = (c / kChunks) % F::kStageTok;
       const int64_t base = tok0 + r < ntok ? sm_base[pi[k]] : -1;
       const int64_t at = base + static_cast<int64_t>(po[k]) * row_stride;
-      if (k < kCopies) {
-        const int col = c % kChunks;
-        const E* src = base >= 0 ? kv.data(side) + at + col * (16 / static_cast<int>(sizeof(E)))
-                                 : kv.data(side);
-        cp_async16(slot + side * S::kSideBytes + r * S::kRowBytes + col * 16, src, base >= 0);
-        if (side == 0 && col == 0) sm_ok[st % kStages][r] = base >= 0;
-      } else if (KV::kScaled && tid < 2 * F::kStageTok) {
-        const float* src = base >= 0 ? kv.scales(side) + at / D : kv.scales(side);
-        cp_async4(slot + 2 * S::kSideBytes + tid * 4, src, base >= 0);
-      }
+      const int col = c % kChunks;
+      const E* src = base >= 0 ? kv.data(side) + at + col * (16 / static_cast<int>(sizeof(E)))
+                               : kv.data(side);
+      cp_async16(slot + side * S::kSideBytes + r * S::kRowBytes + col * 16, src, base >= 0);
+      if (side == 0 && col == 0) sm_ok[st % kStages][r] = base >= 0;
       po[k] += F::kStageTok;
       while (po[k] >= bt) {
         po[k] -= bt;
@@ -430,7 +608,6 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     const unsigned char* slot = smem + (st % kStages) * S::kStageBytes;
     const E* ks = reinterpret_cast<const E*>(slot);
     const E* vs = reinterpret_cast<const E*>(slot + S::kSideBytes);
-    const float* scl = reinterpret_cast<const float*>(slot + 2 * S::kSideBytes);
     float x[F::kTokPerGroup][kVec];
     float sv[kNV];  // this lane's partial dot products, then its held sums
     bool ok[F::kTokPerGroup];
@@ -438,7 +615,7 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     for (int u = 0; u < F::kTokPerGroup; ++u) {
       const int r = grp + F::kGroups * u;
       ok[u] = sm_ok[st % kStages][r];
-      widen(ks + r * D + gl * kVec, KV::kScaled ? scl[r] : 0.f, x[u]);
+      widen(ks + r * D + gl * kVec, x[u]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
@@ -451,7 +628,7 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
 #pragma unroll
     for (int u = 0; u < F::kTokPerGroup; ++u) {
       const int r = grp + F::kGroups * u;
-      widen(vs + r * D + gl * kVec, KV::kScaled ? scl[F::kStageTok + r] : 0.f, x[u]);
+      widen(vs + r * D + gl * kVec, x[u]);
     }
     // The online softmax of the held heads: both tokens' scores, in token
     // order, from this lane and its partner.
@@ -497,11 +674,9 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   cp_async_wait<0>();
   __syncthreads();  // the ring is drained: its memory now holds the merge
 
-  // Merge the token groups' states, in group order: each head's max and the
-  // groups' weights once (G threads), then every output.
-  float* sm_ml = reinterpret_cast<float*>(smem);  // [kGroups][G][m, l]; m becomes the weight
+  // The token groups' states, for finish_split.
+  float* sm_ml = reinterpret_cast<float*>(smem);  // [kGroups][G][m, l]
   float* sm_acc = sm_ml + F::kGroups * G * 2;     // [kGroups][G][D]
-  float* sm_head = sm_acc + F::kGroups * G * D;   // [G][m, l], merged
   if (u_own == 0 && gl == holder(idx0)) {  // idx0 + j is head idx0 + j's (m, l)
 #pragma unroll
     for (int j = 0; j < kHeld; ++j) {
@@ -515,144 +690,11 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
   }
   __syncthreads();
-  if (tid < G) {
-    float mm = its::kNegInf;
-#pragma unroll
-    for (int w = 0; w < F::kGroups; ++w) mm = fmaxf(mm, sm_ml[(w * G + tid) * 2]);
-    float ll = 0.f;
-#pragma unroll
-    for (int w = 0; w < F::kGroups; ++w) {
-      const float c = expf(sm_ml[(w * G + tid) * 2] - mm);
-      sm_ml[(w * G + tid) * 2] = c;
-      ll = fmaf(sm_ml[(w * G + tid) * 2 + 1], c, ll);
-    }
-    sm_head[tid * 2] = mm;
-    sm_head[tid * 2 + 1] = ll;
-  }
-  __syncthreads();
-
-  const int64_t item = static_cast<int64_t>(row) * KVH + kvh;
-  const int64_t acc_floats = static_cast<int64_t>(gridDim.y) * KVH * splits * G * D;
-  float* part_acc = scratch + (item * splits + split) * G * D;
-  float* part_ml = scratch + acc_floats + (item * splits + split) * G * 2;
-  for (int idx = tid; idx < G * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
-    const float mm = sm_head[g * 2];
-    const float ll = sm_head[g * 2 + 1];
-    float aa = 0.f;
-#pragma unroll
-    for (int w = 0; w < F::kGroups; ++w)
-      aa = fmaf(sm_acc[(w * G + g) * D + d], sm_ml[(w * G + g) * 2], aa);
-    if (nsplit == 1) {
-      epi(static_cast<int64_t>(row) * H + kvh * G + g, d, D, mm, ll, aa);
-    } else {
-      part_acc[idx] = aa;
-      if (d == 0) {
-        part_ml[g * 2] = mm;
-        part_ml[g * 2 + 1] = ll;
-      }
-    }
-  }
-  if (nsplit == 1) return;
-
-  // The last of the row's splits to arrive merges them all, in split order.
-  // Its global reads go out together: each thread prefetches its outputs'
-  // partial acc of the first kPre splits, and the splits' (m, l) stage in
-  // shared memory, kMergeSplits at a time, in one pass of all threads. Then
-  // each head's max (G threads), the weights (one expf per (split, head)),
-  // the denominators (G threads) and the outputs.
-  __syncthreads();  // the CTA's partial is written; thread 0 releases it
-  if (tid == 0) sm_ticket = ticket(tickets + item);
-  __syncthreads();
-  if (sm_ticket != nsplit - 1) return;
-  constexpr int kMergeSplits = 512 / G;
-  constexpr int kOuts = (G * D + kThreads - 1) / kThreads;
-  constexpr int kPre = 8;
-  const float* accs = scratch + item * splits * G * D;
-  const float* mls = scratch + acc_floats + item * splits * G * 2;
-  float pre[kOuts][kPre];
-#pragma unroll
-  for (int k = 0; k < kOuts; ++k) {
-#pragma unroll
-    for (int sp = 0; sp < kPre; ++sp) {
-      const int idx = tid + k * kThreads;
-      pre[k][sp] = idx < G * D && sp < nsplit
-          ? __ldcg(accs + static_cast<int64_t>(sp) * G * D + idx) : 0.f;
-    }
-  }
-  float* head = reinterpret_cast<float*>(smem);  // [G] maxima, then [G] denominators
-  float* sm_mw = head + 2 * G;                   // [kMergeSplits][G] m, then the weights
-  float* sm_l = sm_mw + kMergeSplits * G;        // [kMergeSplits][G] l
-  auto stage_ml = [&](int sp0, int cn) {
-    for (int t = tid; t < cn * G; t += kThreads) {
-      const float2 v = __ldcg(reinterpret_cast<const float2*>(mls) + (sp0 * G + t));
-      sm_mw[t] = v.x;
-      sm_l[t] = v.y;
-    }
-  };
-  float run = its::kNegInf;  // tid < G: head tid's max so far
-  for (int sp0 = 0; sp0 < nsplit; sp0 += kMergeSplits) {
-    const int cn = min(kMergeSplits, nsplit - sp0);
-    __syncthreads();  // the last chunk is read
-    stage_ml(sp0, cn);
-    __syncthreads();
-    if (tid < G)
-      for (int sp = 0; sp < cn; ++sp) run = fmaxf(run, sm_mw[sp * G + tid]);
-  }
-  if (tid < G) {
-    head[tid] = run;
-    head[G + tid] = 0.f;
-  }
-  float aa[kOuts];
-#pragma unroll
-  for (int k = 0; k < kOuts; ++k) aa[k] = 0.f;
-  for (int sp0 = 0; sp0 < nsplit; sp0 += kMergeSplits) {
-    const int cn = min(kMergeSplits, nsplit - sp0);
-    if (nsplit > kMergeSplits) {  // one chunk is still staged from the maxima's pass
-      __syncthreads();
-      stage_ml(sp0, cn);
-    }
-    __syncthreads();  // the maxima and the chunk are in
-    for (int t = tid; t < cn * G; t += kThreads) sm_mw[t] = expf(sm_mw[t] - head[t % G]);
-    __syncthreads();
-    if (tid < G) {
-      float ll = head[G + tid];
-      for (int sp = 0; sp < cn; ++sp) ll = fmaf(sm_l[sp * G + tid], sm_mw[sp * G + tid], ll);
-      head[G + tid] = ll;
-    }
-#pragma unroll
-    for (int k = 0; k < kOuts; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < G * D) {
-        const int g = idx / D;
-        int sp = 0;
-        if (sp0 == 0) {
-#pragma unroll
-          for (int j = 0; j < kPre; ++j)
-            if (j < cn) aa[k] = fmaf(pre[k][j], sm_mw[j * G + g], aa[k]);
-          sp = min(kPre, cn);
-        }
-        for (; sp < cn; ++sp)
-          aa[k] = fmaf(__ldcg(accs + static_cast<int64_t>(sp0 + sp) * G * D + idx),
-                       sm_mw[sp * G + g], aa[k]);
-      }
-    }
-  }
-  __syncthreads();  // the denominators are in
-#pragma unroll
-  for (int k = 0; k < kOuts; ++k) {
-    const int idx = tid + k * kThreads;
-    if (idx < G * D) {
-      const int g = idx / D;
-      epi(static_cast<int64_t>(row) * H + kvh * G + g, idx % D, D, head[g], head[G + g],
-          aa[k]);
-    }
-  }
-  if (tid == 0) tickets[item] = 0;  // ready for the next launch on this stream
+  finish_split<D, G, F::kGroups>(smem, epi, scratch, tickets, row, kvh, split, nsplit, H, KVH,
+                                 splits);
 }
 
-// Rows of a batched block table (K3, K5, K8): grid (splits x KVH, B). Row b
+// Rows of a batched block table (K3, K5): grid (splits x KVH, B). Row b
 // attends over tables[b, :], its seq_len clamped to the table's max_blocks * bt.
 // Registers cap the CTAs an SM holds: 3 up to G = 4, 2 at G = 8 (128 floats
 // of q and acc a thread).
@@ -705,7 +747,8 @@ struct Shape {
 
 // The split scratch of a launch: per (row, KV head, split, query head) an f32
 // partial acc [D], then all the (m, l) pairs: rows * splits * H * (D + 2)
-// floats. `tickets`: rows * KVH int32 zeros, left zero by every launch.
+// floats. `tickets`: rows * KVH * splits int32 zeros, left zero by every
+// launch.
 template <typename T, int D, int G, bool kRagged, typename KV, typename Epi>
 int launch(const T* q, const KV& kv, const int32_t* index, const int32_t* starts,
            const int32_t* seq_lens, const Epi& epi, float* scratch, int* tickets,
@@ -714,28 +757,22 @@ int launch(const T* q, const KV& kv, const int32_t* index, const int32_t* starts
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   constexpr int smem = Smem<D, G, KV>::kBytes;
   const dim3 grid(s.splits * s.KVH, s.rows);
+  auto go = [&](auto kernel, auto... args) {
+    if constexpr (smem > 40 * 1024) {  // beside the static shared memory
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<grid, kThreads, smem, s.stream>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+  };
   if constexpr (kRagged) {
-    auto kernel = paged_decode_ragged<T, D, G, KV, Epi>;
-    if constexpr (smem > 40 * 1024) {  // beside the static shared memory
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel<<<grid, kThreads, smem, s.stream>>>(q, kv, index, starts, seq_lens, epi, scratch,
-                                               tickets, s.H, s.KVH, s.bt, s.num_blocks, s.P,
-                                               s.width, s.splits, scale);
+    return go(paged_decode_ragged<T, D, G, KV, Epi>, q, kv, index, starts, seq_lens, epi,
+              scratch, tickets, s.H, s.KVH, s.bt, s.num_blocks, s.P, s.width, s.splits, scale);
   } else {
-    auto kernel = paged_decode<T, D, G, KV, Epi>;
-    if constexpr (smem > 40 * 1024) {  // beside the static shared memory
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel<<<grid, kThreads, smem, s.stream>>>(q, kv, index, seq_lens, epi, scratch, tickets,
-                                               s.H, s.KVH, s.bt, s.num_blocks, s.width,
-                                               s.splits, scale);
+    return go(paged_decode<T, D, G, KV, Epi>, q, kv, index, seq_lens, epi, scratch, tickets,
+              s.H, s.KVH, s.bt, s.num_blocks, s.width, s.splits, scale);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // One instantiation of the kernels: query dtype T, head_dim D, group size G.

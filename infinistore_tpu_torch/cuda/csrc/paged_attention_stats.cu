@@ -26,8 +26,13 @@
 // splits = 1,024 CTAs, where it was 8), 16-byte cp.async loads through the
 // ring, and the in-order merge of the splits. The cross-shard combine (one
 // max and two sums, on torch.distributed) runs outside the kernel.
-// Left on the table: the last CTA of each KV head merges 128 partials alone;
-// a long single request would rather merge in a tree.
+// A row of more than 16 splits (the 32,768-token request) merges in
+// finish_split's two-level tree: the last CTA of each group of 16 splits
+// merges its group while other groups still fold, and the last group merges
+// the 8 groups, where one CTA a KV head used to read all 128 partials.
+// Left on the table: the fold itself (cuda/decode_probe.py k5 times it
+// without the merge); each CTA reads one KV head's 256 B of every 2 KiB token
+// row, and with its pages in L2 the fold took a quarter less (PERF.md).
 
 #include "decode_fold.cuh"
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Probe of the paged decode kernels K3 and K6 on one CUDA card. Run from
-the root of a checkout (the package does not import it):
+"""Probe of the paged decode kernels K3, K5, K6 and K8 on one CUDA card. Run
+from the root of a checkout (the package's entry points do not import it):
 
     python3 infinistore_tpu_torch/cuda/decode_probe.py host [--root DIR]
     python3 infinistore_tpu_torch/cuda/decode_probe.py splits
+    python3 infinistore_tpu_torch/cuda/decode_probe.py k8 [--root DIR]
+    python3 infinistore_tpu_torch/cuda/decode_probe.py k5 [--root DIR]
 
 ``host``: the wrappers' host time per call of K3 and K6 at the shapes their
-paths give them (``chip_smoke.host_us``: the card is kept busy by a spin,
-so only the host's work is timed), for the package of the checkout at
+paths give them (``timing.host_us``: the card is kept busy by a spin, so
+only the host's work is timed), for the package of the checkout at
 ``--root`` (default: this one). Two checkouts run in turn on one card
 compare the wrappers of two trees. For this checkout it also
 times the pieces of K3's wrapper one by one (``parts_us``).
@@ -17,17 +19,36 @@ twice into ``_build/probe``: as it is (``adaptive``: a row of n pages in
 about 8 splits of 4 to 16 pages) and with every split 16 pages
 (``fixed16``: ``kMinSplitPages = 16``). Each library is held against the
 plain version at every shape, then both are timed through the wrappers
-(``chip_smoke.Timer``) in the order adaptive, fixed16, fixed16, adaptive.
+(``timing.Timer``) in the order adaptive, fixed16, fixed16, adaptive.
+
+``k8``: K8 at the int8 round trip's wave (4 rows of 2,048 tokens, bf16 and
+f32 q). ``k5``: K5 at the sharded decode's 32,768-token request (bf16), and
+K3 on the same inputs. Each times, through the wrappers (``timing.Timer``,
+in order and back again), the package's library (``this``), the same
+sources built with ``-DITS_DECODE_NOMERGE`` into ``_build/probe/nomerge``
+(each split writes its partial and exits: the fold's time without the
+cross-split merge) and, with ``--root`` (another checkout, e.g. the parent
+unpacked by ``git archive``), that tree's sources as they are (``root``).
+``this`` and ``root`` are first held against the plain version (K8: 1e-5
+f32, 2e-2 bf16; K5: its one-shard combine bitwise K3). Beside the times: an
+empty launch (the launch floor under the same timer), the bound, the CTAs of
+the launch, the CTAs an SM holds of this tree's kernel
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from a small library of
+its own) and hence the waves. ``k5 --root`` also holds this tree's K3 and
+K6 bitwise against the root's at every shape of 16 splits or fewer below
+(the round trip, ``prefill_continue``, the skewed wave, the engine's wave)
+and times both there.
 
 Shapes (bf16, Llama-3-8B widths, 16-token blocks): K3 at the round trip's
 decode step (4 rows of 2,048 tokens), at ``prefill_continue`` (256 rows at
 contexts 769-1,024 over one 72-block table) and at the sharded decode's
-32,768-token request; K6 on ``chip_smoke.py``'s skewed wave and at the
-engine's wave (4 x 8-token chunks at 1,024 tokens). Prints one JSON line
-per measurement.
+32,768-token request; K6 on ``chip_smoke.py``'s skewed wave
+(``skewed_wave``) and at the engine's wave (4 x 8-token chunks at 1,024
+tokens). Prints one JSON line per measurement.
 """
 
 import argparse
+import contextlib
 import ctypes
 import importlib.util
 import json
@@ -38,20 +59,38 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHECKOUT = os.path.dirname(os.path.dirname(HERE))
+PROBE_DIR = os.path.join(HERE, os.pardir, "_build", "probe")
 BT, H, KVH, D = 16, 32, 8, 128
+SHARDED_CONTEXT = 32768  # tokens of the sharded decode's one request
+NOMERGE = "-DITS_DECODE_NOMERGE"
 
 
-def _chip_smoke():
-    """This checkout's ``chip_smoke.py``, loaded by path (a ``--root``
-    checkout may hold another)."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(CHECKOUT, "chip_smoke.py"))
+def _timing():
+    """This checkout's ``timing`` module, loaded by path (the package on
+    ``sys.path`` may be a ``--root`` checkout's, which may have none)."""
+    spec = importlib.util.spec_from_file_location("_probe_timing",
+                                                  os.path.join(HERE, "timing.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def _shapes(torch, np, pa, cs):
+def skewed_wave(width: int = 72):
+    """``chip_smoke.py``'s skewed ragged wave at the engine's widths
+    (``width``-page request tables): (per-row lens, per-row tables, table
+    width, cache blocks). Rows 3-6 are one request's 4-token verification
+    chunk (shared pages)."""
+    import numpy as np
+
+    lens = [1, 1152, 0, 300, 301, 302, 303, 700, 64, 17, 1000]
+    req_of = [0, 1, 2, 3, 3, 3, 3, 4, 5, 6, 7]
+    n_cache = 8 * width + 16
+    rng = np.random.default_rng(5)
+    req_tables = rng.permutation(n_cache)[: 8 * width].astype(np.int32).reshape(8, width)
+    return lens, [req_tables[i] for i in req_of], width, n_cache
+
+
+def _shapes(torch, np, pa):
     """name -> (call of the kernel's wrapper, call of its plain version)."""
     g = torch.Generator(device="cuda").manual_seed(7)
 
@@ -82,7 +121,7 @@ def _shapes(torch, np, pa, cs):
         "k3_prefill_continue": table_case(256, list(range(769, 1025)), 72, True),
         "k3_32k": table_case(1, [32768], 2048, False),
     }
-    lens, row_tables, width, n = cs._skewed_wave()
+    lens, row_tables, width, n = skewed_wave()
     cases["k6_skewed"] = ragged_case(lens, row_tables, width, n)
     req = np.random.default_rng(6).permutation(4 * 72 + 16)[: 4 * 72].astype(np.int32)
     req = req.reshape(4, 72)
@@ -93,22 +132,22 @@ def _shapes(torch, np, pa, cs):
 
 def host(args):
     sys.path.insert(0, os.path.abspath(args.root or CHECKOUT))
-    cs = _chip_smoke()
+    tm = _timing()
     import numpy as np
     import torch
 
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
-    for name, (run, _) in _shapes(torch, np, pa, cs).items():
+    for name, (run, _) in _shapes(torch, np, pa).items():
         print(json.dumps({"root": args.root or ".", "package": os.path.dirname(pa.__file__),
-                          "shape": name, "host_us": cs.host_us(torch, run, calls=200)}),
+                          "shape": name, "host_us": tm.host_us(torch, run, calls=200)}),
               flush=True)
     if not args.root:
-        print(json.dumps({"parts_us": _host_parts(torch, cs)}), flush=True)
+        print(json.dumps({"parts_us": _host_parts(torch, tm)}), flush=True)
     return 0
 
 
-def _host_parts(torch, cs):
+def _host_parts(torch, tm):
     """Host µs per call of the pieces of K3's wrapper at ``prefill_continue``'s
     shape (256 rows, 72-block tables), each timed alone as ``host``
     times a whole call; ``torch.empty`` of the scratch is what a launch
@@ -144,14 +183,14 @@ def _host_parts(torch, cs):
             out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), 1, rows, H, KVH, D, BT, n,
             width, splits, stream),
     }
-    return {name: cs.host_us(torch, fn, calls=200) for name, fn in parts.items()}
+    return {name: tm.host_us(torch, fn, calls=200) for name, fn in parts.items()}
 
 
 VARIANTS = {"adaptive": {}, "fixed16": {"kMinSplitPages = 4;": "kMinSplitPages = 16;"}}
 
 
 def _build_variant(nvcc, name, patches):
-    out = os.path.join(HERE, os.pardir, "_build", "probe", name)
+    out = os.path.join(PROBE_DIR, name)
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(os.path.join(HERE, "csrc"), out)
     fold = os.path.join(out, "decode_fold.cuh")
@@ -171,7 +210,7 @@ def _build_variant(nvcc, name, patches):
 
 def splits(args):
     sys.path.insert(0, CHECKOUT)
-    cs = _chip_smoke()
+    tm = _timing()
     import numpy as np
     import torch
 
@@ -196,14 +235,14 @@ def splits(args):
         _ext._lib = libs[name]
         _ext._SPLITS.clear()
 
-    cases = _shapes(torch, np, pa, cs)
+    cases = _shapes(torch, np, pa)
     for name in libs:
         use(name)
         for shape, (run, plain) in cases.items():
-            err = cs.max_err(run(), plain())
+            err = tm.max_err(run(), plain())
             if not err <= 2e-2:
                 raise AssertionError(f"variant {name} at {shape}: max abs err {err}")
-    timer = cs.Timer(torch)
+    timer = tm.Timer(torch)
     times = {name: {shape: [] for shape in cases} for name in libs}
     for name in ("adaptive", "fixed16", "fixed16", "adaptive"):
         use(name)
@@ -214,12 +253,278 @@ def splits(args):
     return 0
 
 
+
+# ---------------------------------------------------------------------------
+# k8 and k5: the redesigned kernels against a root tree, fold against merge.
+# ---------------------------------------------------------------------------
+
+# CTAs an SM holds of K5's and K8's bf16 D = 128, G = 4 kernels.
+OCCUPANCY_SRC = r"""
+#include "kv_quant.cu"
+template <typename K>
+static int occupancy(K kernel, int smem, int* blocks) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem));
+}
+extern "C" int probe_occupancy(int which, int* blocks) {
+  using T = __nv_bfloat16;
+  if (which == 5)
+    return occupancy(paged_decode<T, 128, 4, FloatKV<T>, RawStats>,
+                     Smem<128, 4, FloatKV<T>>::kBytes, blocks);
+  return occupancy(quant_decode<T, 128, 4>, Q8Fold<128, 4>::kBytes, blocks);
+}
+"""
+
+
+def build(name, sources, csrc=None, defines=()):
+    """Starts ``nvcc`` on ``sources`` (files of ``csrc``, default this
+    tree's) with ``defines`` into ``_build/probe/name/lib.so``, all started
+    together. Returns a pending build for ``load``."""
+    from infinistore_tpu_torch.cuda import _ext
+
+    out = os.path.abspath(os.path.join(PROBE_DIR, name))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    csrc = csrc or os.path.join(HERE, "csrc")
+    objs, procs = [], []
+    for src in sources:
+        obj = os.path.join(out, os.path.splitext(os.path.basename(src))[0] + ".o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_ext._nvcc(), *_ext.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", *defines,
+             "-I", csrc, "-c", os.path.join(csrc, src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return name, out, objs, procs
+
+
+def load(pending):
+    """The library of a ``build``: links its objects, binds every entry it
+    has with ``_ext.ARGTYPES``; raises with the compiler's output when a
+    source did not build."""
+    from infinistore_tpu_torch.cuda import _ext
+
+    name, out, objs, procs = pending
+    for proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name} did not build:\n{log.decode()[-4000:]}")
+    path = os.path.join(out, "lib.so")
+    link = subprocess.run([_ext._nvcc(), *_ext.ARCH, "-shared", *objs, "-o", path],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode:
+        raise RuntimeError(f"{name} did not link:\n{link.stdout.decode()[-4000:]}")
+    lib = ctypes.CDLL(path)
+    for entry, argtypes in _ext.ARGTYPES.items():
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+    return lib
+
+
+def stats_call(lib, q, k_cache, v_cache, tables, lens):
+    """A call of ``lib``'s K5 entry on these inputs as its wrapper makes it
+    (the scratch and tickets of the stream's workspace), without the
+    wrapper's checks or launch count: for timing a build the path does not
+    load, such as the fold without its merge."""
+    import torch
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bsz, h, d = q.shape
+    n, bt, kvh, _ = k_cache.shape
+    width = tables.shape[1]
+    stream = _ext.stream_of(q)
+    scratch, tickets, splits = pa._split_scratch(q, kvh, width, stream)
+    acc = torch.empty((bsz, h, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((bsz, h, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    dtype = _ext.dtype_code("stats_call", q.dtype)
+
+    def run():
+        _ext.check(lib.its_paged_decode_attention_stats(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), tables.data_ptr(),
+            lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), scratch.data_ptr(),
+            tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits, stream),
+            "stats_call")
+    return run
+
+
+def _libs(args, sources):
+    """name -> library: ``this`` (the package's), ``nomerge`` and, with
+    ``--root``, ``root`` (``sources`` and ``paged_attention.cu``, whose
+    split count the wrappers ask), built at once; and this tree's occupancy
+    query."""
+    from infinistore_tpu_torch.cuda import _ext
+
+    sources = tuple(dict.fromkeys(("paged_attention.cu",) + sources))
+    occ = os.path.abspath(os.path.join(PROBE_DIR, "occupancy.cu"))
+    os.makedirs(os.path.dirname(occ), exist_ok=True)
+    with open(occ, "w") as f:
+        f.write(OCCUPANCY_SRC)
+    pending = {"nomerge": build("nomerge", sources, defines=(NOMERGE,)),
+               "occupancy": build("occupancy", (occ,))}
+    if args.root:
+        pending["root"] = build("root", sources, csrc=os.path.join(
+            os.path.abspath(args.root), "infinistore_tpu_torch", "cuda", "csrc"))
+    libs = {"this": _ext.kernels()}
+    libs.update((name, load(p)) for name, p in pending.items())
+    return libs
+
+
+@contextlib.contextmanager
+def _using(lib):
+    """The wrappers call ``lib`` inside the block (the probe's own device
+    for timing other builds through the same wrappers)."""
+    from infinistore_tpu_torch.cuda import _ext
+
+    saved = _ext.kernels()
+    _ext._lib = lib
+    _ext._SPLITS.clear()
+    try:
+        yield
+    finally:
+        _ext._lib = saved
+        _ext._SPLITS.clear()
+
+
+def _time_libs(tm, torch, libs, cases, order):
+    """ms of each case through each library, in ``order`` and back again:
+    {lib: {case: [ms, ...]}}."""
+    timer = tm.Timer(torch)
+    times = {name: {case: [] for case in cases} for name in order}
+    for name in list(order) + list(reversed(order)):
+        with _using(libs[name]):
+            for case, run in cases.items():
+                times[name][case].append(timer.ms(run))
+    return times
+
+
+def _occupancy(libs, which):
+    blocks = ctypes.c_int(0)
+    code = libs["occupancy"].probe_occupancy(which, ctypes.byref(blocks))
+    if code:
+        raise RuntimeError(f"occupancy query failed with {code}")
+    return blocks.value
+
+
+def _report(torch, tm, kernel, libs, times, ctas, which, nbytes, flops):
+    floor = tm.Timer(torch).ms(lambda: torch.cuda._sleep(0))  # an empty launch
+    bms, by = tm.bound_ms(nbytes, flops, "bfloat16")
+    occ = _occupancy(libs, which)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, ms in times.items():
+        print(json.dumps({"kernel": kernel, "lib": name, "ms": ms, "ctas": ctas,
+                          "ctas_per_sm": occ if name != "root" else None,
+                          "waves": ctas / (occ * sms) if name != "root" else None,
+                          "launch_floor_ms": floor, "bound_ms": bms, "bound_by": by}),
+              flush=True)
+
+
+def k8(args):
+    sys.path.insert(0, CHECKOUT)
+    tm = _timing()
+    import torch
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+
+    libs = _libs(args, ("kv_quant.cu",))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rows, tokens = 4, 2048
+    width = tokens // BT
+    n = rows * width + 16
+    kd, ks = kq.quantize_kv(torch.randn((n, BT, KVH, D), generator=g, device="cuda"))
+    vd, vs = kq.quantize_kv(torch.randn((n, BT, KVH, D), generator=g, device="cuda"))
+    tables = torch.randperm(n, generator=g, device="cuda")[: rows * width].to(torch.int32)
+    tables = tables.reshape(rows, width)
+    lens = torch.full((rows,), tokens, dtype=torch.int32, device="cuda")
+    cases = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        q = torch.randn((rows, H, D), generator=g, device="cuda").to(dtype)
+        a8 = (q, kd, ks, vd, vs, tables, lens)
+        want = kq._quant_decode_plain(*a8)
+        for name in ("this", "root"):
+            if name in libs:
+                with _using(libs[name]):
+                    err = tm.max_err(kq.paged_decode_attention_quantized(*a8), want)
+                if not err <= tol:
+                    raise AssertionError(f"K8 {name} {dtype}: max abs err {err} (tol {tol})")
+        cases[str(dtype).removeprefix("torch.")] = (
+            lambda a=a8: kq.paged_decode_attention_quantized(*a))
+    order = (["root"] if args.root else []) + ["this", "nomerge"]
+    times = _time_libs(tm, torch, libs, cases, order)
+    nbytes = 2 * rows * tokens * KVH * (D + 4) + 2 * rows * H * D * 2 + tables.numel() * 4 + 16
+    _report(torch, tm, "K8", libs, times, _ext.decode_splits(width) * KVH * rows, 8, nbytes,
+            4.0 * H * D * rows * tokens)
+    return 0
+
+
+def k5(args):
+    sys.path.insert(0, CHECKOUT)
+    tm = _timing()
+    import numpy as np
+    import torch
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    libs = _libs(args, ("paged_attention_stats.cu",))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = SHARDED_CONTEXT
+    n = tokens // BT
+    q = torch.randn((1, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
+    table = torch.randperm(n, generator=g, device="cuda").to(torch.int32)[None]
+    lens = torch.tensor([tokens], dtype=torch.int32, device="cuda")
+    a5 = (q, kc, vc, table, lens)
+    ident = lambda t: t  # noqa: E731
+    for name in ("this", "root"):
+        if name in libs:
+            with _using(libs[name]):
+                combined = pa.combine_stats(*pa._decode_attention_stats(*a5), q.dtype, ident,
+                                            ident)
+                k3 = pa.paged_decode_attention_batched(*a5)
+                torch.cuda.synchronize()
+            if not torch.equal(combined, k3):
+                raise AssertionError(f"K5 {name} at {tokens} tokens: its one-shard combine "
+                                     "is not K3")
+    cases = {"k5_32k": lambda: pa._decode_attention_stats(*a5),
+             "k3_32k": lambda: pa.paged_decode_attention_batched(*a5)}
+    order = (["root"] if args.root else []) + ["this", "nomerge"]
+    times = _time_libs(tm, torch, libs, cases, order)
+    nbytes = 2 * tokens * KVH * D * 2 + q.numel() * 2 + (H * D + 2 * H) * 4 + n * 4 + 4
+    _report(torch, tm, "K5", libs, times, _ext.decode_splits(n) * KVH, 5, nbytes,
+            4.0 * H * D * tokens)
+    if not args.root:
+        return 0
+    # K3 and K6 at the paths' shapes of 16 splits or fewer: bitwise the root's.
+    short = {k: v for k, v in _shapes(torch, np, pa).items() if k != "k3_32k"}
+    for shape, (run, _) in short.items():
+        with _using(libs["root"]):
+            want = run()
+        with _using(libs["this"]):
+            got = run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{shape}: this tree's output is not bitwise the root's")
+    times = _time_libs(tm, torch, libs, {s: run for s, (run, _) in short.items()},
+                       ["root", "this"])
+    print(json.dumps({"bitwise_root": sorted(short), "ms": times}), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="mode", required=True)
     h = sub.add_parser("host", help="wrapper host time per call")
     h.add_argument("--root", default="", help="checkout whose package is timed")
     sub.add_parser("splits", help="the split policy, as is against fixed 16-page splits")
+    for mode, what in (("k8", "K8 at the int8 wave"), ("k5", "K5 at 32,768 tokens")):
+        m = sub.add_parser(mode, help=f"{what}: fold and merge, and a root tree's")
+        m.add_argument("--root", default="", help="checkout whose kernels are timed beside")
     args = ap.parse_args()
     # Run as a script, this directory heads sys.path: its modules are the
     # package's, imported through the package only.
@@ -229,7 +534,7 @@ def main():
     if not torch.cuda.is_available():
         print("decode_probe: needs a CUDA card", file=sys.stderr)
         return 1
-    return host(args) if args.mode == "host" else splits(args)
+    return {"host": host, "splits": splits, "k8": k8, "k5": k5}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,8 @@ stored block.
 - ``dequantize_kv(data, scales)`` -> the float values (any dtype).
 - ``paged_decode_attention_quantized``: batched paged decode over int8
   caches. On CUDA tensors this is kernel K8 (``csrc/kv_quant.cu``), which
-  reads blocks at int8 width and dequantises in registers; on CPU tensors
-  the plain version (dequantise, then the plain batched decode).
+  reads blocks at int8 width and applies the scales once per token; on CPU
+  tensors the plain version (dequantise, then the plain batched decode).
 - ``QuantizedKVConnector``: two ``KVConnector`` planes over the same chain
   keys, int8 data and f32 scales, with a commit order that makes a data hit
   imply the scales.
@@ -90,7 +90,7 @@ def _quant_decode_cuda(q, k_data, k_scales, v_data, v_scales, block_tables, seq_
     for arg, t in (("k_scales", k_scales), ("v_scales", v_scales)):
         if tuple(t.shape) != want or t.dtype != torch.float32:
             raise ValueError(f"{name}: {arg} must be {list(want)} float32")
-    _ext.require_aligned(name, k_data=k_data, v_data=v_data)
+    _ext.require_aligned(name, q=q, k_data=k_data, v_data=v_data)
     dtype = _ext.dtype_code(name, q.dtype)
     bsz, h, d = q.shape
     n, bt, kvh, _ = k_data.shape
@@ -116,10 +116,11 @@ def paged_decode_attention_quantized(q, k_data, k_scales, v_data, v_scales, bloc
     q: [B, H, D] f32 or bf16; k/v_data: [N, bt, KVH, D] int8 with f32 scales
     [N, bt, KVH] (from quantize_kv); block_tables [B, max_blocks] int32;
     seq_lens [B] int32 (a zero row returns zeros). Returns [B, H, D] in q's
-    dtype. Kernel K8 on CUDA tensors (bitwise K3 over the f32-dequantised
-    cache), the plain version on CPU tensors. The outputs equal attention
-    over the dequantised cache; the quantization error is the int8
-    scheme's."""
+    dtype. Kernel K8 on CUDA tensors (within 1e-5 of the plain version with
+    f32 q, 2e-2 with bf16 q, as the JAX package holds its kernel; two
+    launches bitwise equal, each row bitwise its solo launch), the plain
+    version on CPU tensors. The outputs equal attention over the
+    dequantised cache; the quantization error is the int8 scheme's."""
     if q.device.type == "cpu":
         return _quant_decode_plain(q, k_data, k_scales, v_data, v_scales, block_tables,
                                    seq_lens)

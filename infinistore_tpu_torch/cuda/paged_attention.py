@@ -143,12 +143,13 @@ def _split_scratch(q, kvh: int, width: int, stream: int):
     """(scratch, tickets, splits) of one decode launch over tables ``width``
     pages wide, from shapes alone: the library's split count of the width,
     and the stream's workspace, at least f32 partials for every (row, split,
-    query head), acc [D] and (m, l), and one ticket counter per (row, KV
-    head)."""
+    query head), acc [D] and (m, l), and a ticket counter per (row, KV head,
+    split): a row of many splits merges in a tree, one counter per group of
+    splits."""
     rows, h, d = q.shape
     splits = _ext.decode_splits(width)
     scratch, tickets = _ext.split_workspace(q.device, stream, rows * splits * h * (d + 2),
-                                            rows * kvh)
+                                            rows * kvh * splits)
     return scratch, tickets, splits
 
 

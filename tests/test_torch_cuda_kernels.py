@@ -8,13 +8,17 @@ attention over a longer context and batch > 1 (K4: its bf16 tensor-core
 kernel at every 128-row tile edge, GQA group 1 and 4, and on inputs where
 one leaked or dropped key would move the output by order 1; its f32 path
 on the CUDA cores, each counted by its own counter); the split-KV decode
-fold of K3, K5-K8 at and around every split edge (rows of 0 and 1 tokens,
-one split less, equal and more by a token, several splits), with tables
-padded by out-of-range ids and every bitwise contract (two launches, K6 ==
-K3 per row, solo == wave, K5/K7's one-shard combine == K3/K6, K8 == K3 over
-the dequantised cache); plus the layerwise writer/reader round trip through
-pinned staging on the card and one engine wave against sequential decode
-(within the engine's stated tolerance).
+fold of K3, K5-K7 at and around every split edge (rows of 0 and 1 tokens,
+one split less, equal and more by a token, several splits, rows merged in
+the tree of more than 16 splits), with tables padded by out-of-range ids and
+every bitwise contract (two launches, K6 == K3 per row, solo == wave, K5/K7's
+one-shard combine == K3/K6, tickets left zero); K8's own fold at and around
+its split edges, held to the JAX package's contract (within 1e-5 with f32
+q, 2e-2 with bf16 q, of its plain version and of K3 over the dequantised
+cache) with two launches bitwise equal and each row bitwise its solo
+launch; plus the layerwise writer/reader round trip through pinned staging
+on the card and one engine wave against sequential decode (within the
+engine's stated tolerance).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere (the decision is taken in
 a fixture, never at import). On the card:
@@ -23,6 +27,7 @@ a fixture, never at import). On the card:
 """
 
 import asyncio
+import os
 
 import numpy as np
 import pytest
@@ -532,13 +537,50 @@ def test_engine_wave_matches_sequential_on_the_card(dev):
         torch.testing.assert_close(wv, sv, rtol=1e-5, atol=1e-5)
 
 
+# K8 against K3 run on q.float() over the f32-dequantised cache: both fold in
+# f32 (1e-5 apart); with bf16 q each result is then rounded to bf16, so the
+# two may also sit that rounding (2^-7 of the value) apart.
+K8_K3_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def _assert_near_k3(k8, k3, dtype):
+    diff = (k8.float() - k3.float()).abs()
+    assert bool((diff <= 1e-5 + K8_K3_RTOL[dtype] * k3.float().abs()).all()), float(diff.max())
+
+
+def _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, tables, lens, got, plain_tables=None):
+    """K8's contract on one launch's output ``got``: within TOL of its plain
+    version (the JAX package's contract), within 1e-5 (and, with bf16 q, the
+    bf16 rounding) of K3 run on q.float() over the f32-dequantised cache; a
+    second launch bitwise equal; each row bitwise its solo launch."""
+    dtype = q.dtype
+    want = kq._quant_decode_plain(q, kd, ks, vd, vs,
+                                  tables if plain_tables is None else plain_tables,
+                                  lens.clamp(max=tables.shape[1] * kd.shape[1]))
+    k3 = pa.paged_decode_attention_batched(
+        q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables, lens).to(dtype)
+    again = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[dtype]
+    _assert_near_k3(got, k3, dtype)
+    assert torch.equal(got, again)
+    for r in range(q.shape[0]):
+        solo = kq.paged_decode_attention_quantized(
+            q[r:r + 1].contiguous(), kd, ks, vd, vs, tables[r:r + 1].contiguous(),
+            lens[r:r + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(solo[0], got[r]), r
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("h,kvh", [(4, 4), (8, 4), (16, 4), (32, 4)], ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantized_decode_matches_plain_and_k3_bitwise(dev, d, h, kvh, dtype):
+def test_quantized_decode_matches_plain_and_k3_over_the_dequantised_cache(dev, d, h, kvh,
+                                                                           dtype):
     """K8 over zero, one-token, block-boundary, partial, full and past-the-
-    table rows: within tolerance of its plain version, and bitwise K3 run on
-    q.float() over the f32-dequantised cache, cast to q's dtype."""
+    table rows: within tolerance of its plain version and of K3 run on
+    q.float() over the f32-dequantised cache, two launches bitwise equal,
+    each row bitwise its solo launch."""
     from infinistore_tpu_torch.cuda import _ext
     from infinistore_tpu_torch.cuda import kv_quant as kq
     from infinistore_tpu_torch.cuda import paged_attention as pa
@@ -555,13 +597,7 @@ def test_quantized_decode_matches_plain_and_k3_bitwise(dev, d, h, kvh, dtype):
     before = _ext.LAUNCHES["paged_decode_attention_quantized"]
     got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
     assert _ext.LAUNCHES["paged_decode_attention_quantized"] == before + 1
-    clamped = lens.clamp(max=max_blocks * bt)
-    want = kq._quant_decode_plain(q, kd, ks, vd, vs, tables, clamped)
-    k3 = pa.paged_decode_attention_batched(
-        q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables, lens).to(dtype)
-    torch.cuda.synchronize()
-    assert _err(got, want) <= TOL[dtype]
-    assert torch.equal(got, k3)
+    _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, tables, lens, got)
     assert torch.all(got[0] == 0)
 
 
@@ -789,9 +825,10 @@ def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
 @pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_quantized_decode_is_k3_over_the_dequantised_cache(dev, d, h, kvh, dtype):
-    """K8 at the split edges: within tolerance of its plain version, bitwise
-    K3 run on q.float() over the f32-dequantised cache, and two launches
-    bitwise equal."""
+    """K8 at K3's split edges, over tables padded with out-of-range ids:
+    within tolerance of its plain version and of K3 run on q.float() over
+    the f32-dequantised cache, two launches bitwise equal, each row bitwise
+    its solo launch."""
     from infinistore_tpu_torch.cuda import kv_quant as kq
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
@@ -800,13 +837,7 @@ def test_split_quantized_decode_is_k3_over_the_dequantised_cache(dev, d, h, kvh,
     kd, ks = kq.quantize_kv(k * 3)
     vd, vs = kq.quantize_kv(v)
     got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, bad, lens)
-    again = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, bad, lens)
-    want = kq._quant_decode_plain(q, kd, ks, vd, vs, good, lens)
-    k3 = pa.paged_decode_attention_batched(
-        q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), good, lens).to(dtype)
-    torch.cuda.synchronize()
-    assert _err(got, want) <= TOL[dtype]
-    assert torch.equal(got, k3) and torch.equal(got, again)
+    _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, bad, lens, got, plain_tables=good)
     assert torch.all(got[0] == 0)
 
 
@@ -845,7 +876,7 @@ def test_split_count_covers_every_row_of_the_width(dev):
         return max(1, -(-n // per))
 
     lib = _ext.kernels()
-    for width in list(range(1, 300)) + [2048, 4097]:
+    for width in list(range(1, 300)) + [511, 512, 513, 600, 2048, 4097]:
         want = max(row_splits(n) for n in range(width + 1))
         assert lib.its_decode_splits(width) == want, width
 
@@ -853,12 +884,13 @@ def test_split_count_covers_every_row_of_the_width(dev):
 @pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_merge_past_one_chunk_of_splits(dev, h, kvh, dtype):
-    """The last CTA stages a row's (m, l) pairs 512 / G splits at a time; a
-    row of more splits merges chunk by chunk. Rows of exactly one chunk of
-    16-page splits, three splits and a part past it, and two chunks and one
-    page: K3 against its plain version, two launches bitwise equal, K6 bitwise
-    K3 per row, K5's one-shard combine bitwise K3, K8 bitwise K3 over the
-    dequantised cache."""
+    """Long rows, merged in the tree: 512 / G splits of 16 pages (the most
+    one chunk of the merge stages), three splits and a part past it, and
+    twice that and one page: K3 against its plain version, two launches
+    bitwise equal, K6 bitwise K3 per row, K5's one-shard combine bitwise K3,
+    K8 within 1e-5 (and bf16's rounding) of K3 over the dequantised cache.
+    (The merge of the groups reaches its chunks only past 16 x 512 / G
+    splits: test_split_merge_tree_past_one_chunk_of_groups.)"""
     from infinistore_tpu_torch.cuda import kv_quant as kq
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
@@ -900,4 +932,170 @@ def test_split_merge_past_one_chunk_of_splits(dev, h, kvh, dtype):
     k3 = pa.paged_decode_attention_batched(
         q.float(), kq.dequantize_kv(kd, ks), kq.dequantize_kv(vd, vs), tables, lens_t).to(dtype)
     torch.cuda.synchronize()
-    assert torch.equal(k8, k3)
+    _assert_near_k3(k8, k3, dtype)
+
+
+# K8's split policy (the fold's, decode_fold.cuh): about 8 splits of 4 to 16 pages
+# (4-page splits up to 32 pages, 16-page ones from 128 up), and a row of
+# more than 16 splits merges in the tree. 0 and 1 token, one page; a 4-page
+# split, less, equal and more by a token; 8 splits of 4 pages and a token
+# more (7 of 5); 8 of 16 pages, less, equal and more by a token; 16 and 17
+# splits of 16 pages (the tree's edge); 32 splits and a part past them.
+Q8_EDGE_LENS = [0, 1, SPLIT_BT, 4 * SPLIT_BT - 1, 4 * SPLIT_BT, 4 * SPLIT_BT + 1, 32 * SPLIT_BT,
+                32 * SPLIT_BT + 1, 128 * SPLIT_BT - 1, 128 * SPLIT_BT, 128 * SPLIT_BT + 1,
+                256 * SPLIT_BT, 257 * SPLIT_BT, 512 * SPLIT_BT + 7]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_decode_at_its_own_split_edges(dev, d, h, kvh, dtype):
+    """K8 on rows either side of its split edges, a one-page and a
+    zero-length row, over tables padded past each row with out-of-range
+    pages: its contract (plain version, K3 over the dequantised cache, two
+    launches, solo rows), zeros for the empty row, and the pages past a row
+    read nothing (the tables padded with valid pages give the same bits)."""
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, lens = SPLIT_BT, Q8_EDGE_LENS
+    width = -(-max(lens) // bt) + 4
+    n = len(lens) * width
+    g = torch.Generator().manual_seed(110 + d + h)
+    good = torch.randperm(n, generator=g)[:n].reshape(len(lens), width)
+    bad = good.clone()
+    for r, length in enumerate(lens):
+        used = -(-length // bt)
+        bad[r, used:] = torch.tensor([-1, n, n + 1000, -7] * width)[: width - used]
+    good, bad = good.to(dev, torch.int32), bad.to(dev, torch.int32)
+    q = _randn(111, (len(lens), h, d), dtype, dev)
+    kd, ks = kq.quantize_kv(_randn(112, (n, bt, kvh, d), torch.float32, dev) * 2)
+    vd, vs = kq.quantize_kv(_randn(113, (n, bt, kvh, d), torch.float32, dev))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, bad, lens_t)
+    on_good = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, good, lens_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, on_good)
+    assert torch.all(got[0] == 0)
+    _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, bad, lens_t, got, plain_tables=good)
+
+
+def test_quantized_decode_at_the_int8_round_trips_wave(dev):
+    """K8 at the int8 round trip's wave (4 rows of 2,048 tokens, 8 splits of
+    16 pages each; Llama-3-8B widths) in both q dtypes, and its tickets left
+    zero."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, h, kvh, d, rows, width = SPLIT_BT, 32, 8, 128, 4, 128
+    n = rows * width + 16
+    g = torch.Generator().manual_seed(120)
+    tables = torch.randperm(n, generator=g)[: rows * width].reshape(rows, width)
+    tables = tables.to(dev, torch.int32)
+    lens = torch.full((rows,), width * bt, dtype=torch.int32, device=dev)
+    kd, ks = kq.quantize_kv(_randn(121, (n, bt, kvh, d), torch.float32, dev))
+    vd, vs = kq.quantize_kv(_randn(122, (n, bt, kvh, d), torch.float32, dev))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn(123, (rows, h, d), dtype, dev)
+        got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
+        _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, tables, lens, got)
+    _, tickets = _ext._WORKSPACE[(q.device, _ext.stream_of(q))]
+    assert not tickets.any()
+
+
+@pytest.mark.parametrize("h,kvh", [(1, 1), (2, 1), (4, 1), (8, 1)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_merge_tree_combines_to_k3_bitwise(dev, h, kvh, dtype):
+    """Rows of 16 splits (one merge), 17 (the tree: a group of 16 and one of
+    1), 128 and 2,048 splits of 16 pages (a 524,288-token row), beside a
+    short row and an empty one: K3 within tolerance of its plain version
+    (the longest row against the plain statistics), two launches bitwise
+    equal, K5's one-shard combine and K6 bitwise K3, and the tickets left
+    zero."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, d = SPLIT_BT, 128
+    pages = [16 * 16, 17 * 16 - 3, 128 * 16, 2048 * 16, 5, 0]
+    lens = [max(0, p * bt - 3 * (i % 2)) for i, p in enumerate(pages)]
+    width = max(pages)
+    n = width + 8
+    g = torch.Generator().manual_seed(130)
+    tables_np = [torch.randperm(n, generator=g)[:width].numpy().astype(np.int32)
+                 for _ in pages]
+    tables = torch.from_numpy(np.stack(tables_np)).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = _randn(131, (len(pages), h, d), dtype, dev)
+    kc = _randn(132, (n, bt, kvh, d), dtype, dev)
+    vc = _randn(133, (n, bt, kvh, d), dtype, dev)
+
+    got = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    again = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    short = [0, 1, 2, 4, 5]
+    want = pa.paged_decode_attention_plain_batched(q[short], kc, vc, tables[short],
+                                                   lens_t[short])
+    long_stats = pa.decode_attention_stats_plain(q[3:4], kc, vc, tables[3:4], lens_t[3:4])
+    torch.cuda.synchronize()
+    assert _err(got[short], want) <= TOL[dtype]
+    long_want = long_stats[0] / torch.clamp(long_stats[2], min=1e-30)
+    assert _err(got[3:4], long_want) <= TOL[dtype]
+    assert torch.equal(got, again) and torch.all(got[-1] == 0)
+
+    ident = lambda t: t  # noqa: E731
+    stats = pa._decode_attention_stats(q, kc, vc, tables, lens_t)
+    m = pa.build_ragged_wave(tables_np, lens, bt, pad_to_pow2=True)
+    k6 = pa.paged_decode_attention_ragged(q, kc, vc, m.pages, m.page_rows, m.page_starts,
+                                          m.seq_lens, table_width=width)
+    torch.cuda.synchronize()
+    assert torch.equal(pa.combine_stats(*stats, dtype, ident, ident), got)
+    assert torch.equal(k6, got)
+    _, tickets = _ext._WORKSPACE[(q.device, _ext.stream_of(q))]
+    assert not tickets.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_merge_tree_past_one_chunk_of_groups(dev, dtype):
+    """At G = 8 the last group merger stages the groups' (m, l) 64 at a
+    time: rows of exactly 64 groups of 16 splits (16,384 pages, 262,144
+    tokens), three groups and a part past them, and 128 groups and one page
+    merge the groups chunk by chunk. K3 against its plain statistics row by
+    row, two launches bitwise equal, K5's one-shard combine and K6 bitwise
+    K3, the tickets left zero."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt, h, kvh, d = SPLIT_BT, 16, 2, 128
+    chunk = 16 * 16 * (512 // (h // kvh))  # pages in one chunk of groups
+    pages = [chunk, chunk + 3 * 256 + 5, 2 * chunk + 1]
+    lens = [n * bt - 5 * (i % 2) for i, n in enumerate(pages)]
+    width = max(pages)
+    n = width + 8
+    g = torch.Generator().manual_seed(140)
+    tables_np = [torch.randperm(n, generator=g)[:width].numpy().astype(np.int32)
+                 for _ in pages]
+    tables = torch.from_numpy(np.stack(tables_np)).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = _randn(141, (len(pages), h, d), dtype, dev)
+    kc = _randn(142, (n, bt, kvh, d), dtype, dev)
+    vc = _randn(143, (n, bt, kvh, d), dtype, dev)
+
+    got = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    again = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    for r, used in enumerate(pages):
+        acc, _, l = pa.decode_attention_stats_plain(
+            q[r:r + 1], kc, vc, tables[r:r + 1, :used].contiguous(), lens_t[r:r + 1])
+        torch.cuda.synchronize()
+        assert _err(got[r:r + 1], acc / torch.clamp(l, min=1e-30)) <= TOL[dtype], r
+    assert torch.equal(got, again)
+
+    ident = lambda t: t  # noqa: E731
+    stats = pa._decode_attention_stats(q, kc, vc, tables, lens_t)
+    m = pa.build_ragged_wave(tables_np, lens, bt, pad_to_pow2=True)
+    k6 = pa.paged_decode_attention_ragged(q, kc, vc, m.pages, m.page_rows, m.page_starts,
+                                          m.seq_lens, table_width=width)
+    torch.cuda.synchronize()
+    assert torch.equal(pa.combine_stats(*stats, dtype, ident, ident), got)
+    assert torch.equal(k6, got)
+    _, tickets = _ext._WORKSPACE[(q.device, _ext.stream_of(q))]
+    assert not tickets.any()

@@ -6,12 +6,16 @@ Each wrapper must hand its entry the split scratch of the split-KV fold,
 sized from shapes alone (rows x splits x H x (D + 2) f32, splits as the
 library's ``its_decode_splits`` gives them for the table width, asked once
 per width: ``max_blocks`` for a table, ``table_width`` at most P for a
-ragged wave), and the ticket counters, both from the stream's workspace, in
-the order of ``_ext.ARGTYPES``; read no device value on the
-call; move its launch counter once per launch; raise on a non-zero code with
-no fallback to the plain version; and raise on a bad shape or dtype before
-any launch. The kernels themselves run only on the card
-(``tests/test_torch_cuda_kernels.py``)."""
+ragged wave), and the ticket counters (one per row, KV head and split), both
+from the stream's workspace, in the order of ``_ext.ARGTYPES``; read no
+device value on the call; move its launch counter once per launch; raise on
+a non-zero code with no fallback to the plain version; and raise on a bad
+shape or dtype before any launch. The fold's split policy, read from its
+source's constants, sizes K8's scratch as the kernel folds. The kernels
+themselves run only on the card (``tests/test_torch_cuda_kernels.py``)."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -214,7 +218,7 @@ def test_wrapper_passes_scratch_sized_from_shapes(fake_lib, kernel, dtype):
     assert fake_lib.split_widths == [width] and splits == _fake_splits(width)
     # A fresh workspace is allocated at the launch's own size.
     assert scratch.dtype == torch.float32 and scratch.numel() == rows * splits * H * (D + 2)
-    assert tickets.dtype == torch.int32 and tickets.numel() >= rows * KVH
+    assert tickets.dtype == torch.int32 and tickets.numel() >= rows * KVH * splits
     assert not tickets.any()
     ws = _ext._WORKSPACE[(q.device, _STREAM)]
     assert ws[0] is scratch and ws[1] is tickets
@@ -328,6 +332,14 @@ def test_a_failed_launch_raises_and_nothing_falls_back(fake_lib, kernel):
     assert [name for name, _ in fake_lib.calls] == [entry]
 
 
+def _misaligned(t):
+    """``t``'s values in a contiguous tensor that starts 2 bytes past a
+    16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def _bad_cases():
     """(kernel, what, make the call) for inputs the kernels do not take."""
     cases = []
@@ -377,6 +389,8 @@ def _bad_cases():
             q, kd, ks[:, :1].contiguous(), vd, vs, tables, lens)), ValueError, "k_scales"),
         ("K8", "scale dtype", lambda: (lambda: kq._quant_decode_cuda(
             q, kd, ks, vd, vs.double(), tables, lens)), ValueError, "v_scales"),
+        ("K8", "misaligned q", lambda: (lambda: kq._quant_decode_cuda(
+            _misaligned(q), kd, ks, vd, vs, tables, lens)), ValueError, "16-byte"),
     ]
     return cases
 
@@ -426,3 +440,52 @@ def test_scratch_follows_the_library_split_count(fake_lib, kernel):
     (scratch, _, splits), = fake_lib.scratch
     assert splits == 3 and args[-2] == 3
     assert scratch.numel() == q.shape[0] * 3 * H * (D + 2)
+
+
+def _fold_policy():
+    """The fold's split policy as its source states it: (target splits,
+    least and most pages a split) from ``csrc/decode_fold.cuh``."""
+    with open(os.path.join(os.path.dirname(_ext.__file__), "csrc", "decode_fold.cuh")) as f:
+        consts = {name: int(value)
+                  for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", f.read())}
+    return consts["kTargetSplits"], consts["kMinSplitPages"], consts["kMaxSplitPages"]
+
+
+def _row_splits(npages, target, least, most):
+    """Splits of a row of ``npages`` pages under the policy (``split_pages``)."""
+    per = min(max(-(-npages // target), least), most)
+    return max(1, -(-npages // per))
+
+
+def _grid_splits(width, target, least, most):
+    """The grid's split dimension for tables ``width`` pages wide, as
+    ``grid_splits`` computes it."""
+    if width <= target * least:
+        return -(-width // least)
+    if width <= target * most:
+        return target
+    return -(-width // most)
+
+
+@pytest.mark.parametrize("width", [1, 4, 5, 64, 65, 127, 128, 129, 511, 512, 513, 2048])
+def test_k8_scratch_is_sized_by_its_own_split_policy(fake_lib, width):
+    """K8's split policy is the fold's, ``decode_fold.cuh``'s (the constants
+    of its source): the grid's split dimension covers every row of at most
+    ``width`` pages, the int8 round trip's 2,048-token rows (128 pages) fold
+    in 8 splits of 16 pages, and a fake library that answers by that policy
+    gets K8 scratch for that many splits and tickets for each."""
+    policy = _fold_policy()
+    grid = _grid_splits(width, *policy)
+    assert grid == max(_row_splits(n, *policy) for n in range(width + 1))
+    assert _row_splits(128, *policy) == 8
+    fake_lib.splits = lambda w: _grid_splits(w, *policy)
+    call, q, _, got_width = _k8(rows=2, width=width, lens=[0, width * BT])
+    assert got_width == width
+    with _NoDeviceReads():
+        call()
+    (_, args), = fake_lib.calls
+    (scratch, tickets, splits), = fake_lib.scratch
+    assert splits == grid and args[-2] == grid and args[-3] == width
+    assert fake_lib.split_widths == [width]
+    assert scratch.numel() == 2 * grid * H * (D + 2)
+    assert tickets.numel() >= 2 * KVH * grid and not tickets.any()

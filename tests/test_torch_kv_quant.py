@@ -180,6 +180,44 @@ def test_plain_matches_jax_kernel_and_tracks_full_precision():
     assert float((got - full).abs().max()) < 5e-2
 
 
+# K8 folds a row of n pages in about 8 splits of 4 to 16 pages on the card
+# (csrc/kv_quant.cu): 4-page splits up to 32 pages, 16-page ones from 128
+# up, a tree merge past 16 splits. Rows either side of those edges, at 2
+# tokens a block: 1, 4, 5, 32, 33, 128, 129, 256 and 257 pages, a token short
+# of some.
+K8_EDGE_PAGES = (1, 4, 5, 32, 33, 128, 129, 256, 257)
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_kernel_across_k8_split_edges(qdtype):
+    """The port's plain K8 (what the card's K8 is held against) against the
+    JAX package's kernel in interpret mode, at rows that straddle K8's split
+    edges, within the JAX package's own tolerance (1e-5 with f32 q; with
+    bf16 q, one bf16 ulp of the output)."""
+    rng = np.random.default_rng(11)
+    bt, kvh, d, h = 2, 2, 16, 4
+    lens = [p * bt - (i % 2) for i, p in enumerate(K8_EDGE_PAGES)] + [0]
+    width = max(K8_EDGE_PAGES)
+    n = width + 3
+    k = (rng.standard_normal((n, bt, kvh, d)) * 2).astype(np.float32)
+    v = rng.standard_normal((n, bt, kvh, d)).astype(np.float32)
+    q = rng.standard_normal((len(lens), h, d)).astype(np.float32)
+    tbls = np.stack([rng.permutation(n)[:width] for _ in lens]).astype(np.int32)
+    sls = np.array(lens, np.int32)
+    jk, jv = jkq.quantize_kv(jnp.asarray(k)), jkq.quantize_kv(jnp.asarray(v))
+    jq = jnp.asarray(q).astype(qdtype)
+    want = jkq._quant_decode_pallas(jq, *jk, *jv, jnp.asarray(tbls), jnp.asarray(sls),
+                                    interpret=True)
+    tk, tv = tkq.quantize_kv(torch.from_numpy(k)), tkq.quantize_kv(torch.from_numpy(v))
+    tq = torch.from_numpy(q).to(getattr(torch, qdtype))
+    got = tkq.paged_decode_attention_quantized(tq, *tk, *tv, torch.from_numpy(tbls),
+                                               torch.from_numpy(sls))
+    assert got.dtype == tq.dtype and torch.all(got[-1] == 0)
+    tol = 1e-5 if qdtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
 def test_plain_zero_row_and_bf16_query():
     rng = np.random.default_rng(3)
     k, v = (torch.from_numpy(rng.standard_normal((6, 8, 2, 64)).astype(np.float32))
