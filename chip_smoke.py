@@ -40,7 +40,10 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    decode's 32,768-token request, also timed without its cross-split merge,
    ``fold_ms``: its source built with ``-DITS_DECODE_NOMERGE`` into
    ``_build/probe`` as ``cuda/decode_probe.py`` builds it, whose ``k5`` mode
-   also gives the CTAs, the CTAs an SM holds and the waves). K3 is also
+   also gives the CTAs, the CTAs an SM holds and the waves; K7 at the skewed
+   wave also through that build, ``fold_ms``, and at the wave's first
+   quarter-shard, ``quarter_shard_ms``, which ``decode_probe.py k7`` breaks
+   down into launch, prologue, stages and merge). K3 is also
    held (f32 1e-5, bf16 2e-2) and timed at the engine's ``prefill_continue``
    shape (256 rows at contexts 769-1,024 sharing one table), K6 at the
    engine's own wave (4 x 8-token verification chunks at 1,024 tokens, each
@@ -168,7 +171,9 @@ DESIGNS = {
     "paged_decode_attention_ragged": "K3's split-KV fold over a flat page list",
     "paged_decode_attention_stats": "K3's split-KV fold; rows of more than 16 splits merge "
                                     "in a two-level tree across the card",
-    "paged_decode_attention_ragged_stats": "K6's fold, raw statistics",
+    "paged_decode_attention_ragged_stats": "K6's fold, raw statistics; its splits merged by "
+                                           "the last CTA (a thread-block cluster merge "
+                                           "measured slower)",
     "paged_decode_attention_quantized": "int8-native split-KV fold: 16-byte lanes, exact "
                                         "byte-permute widening, scales once per token",
 }
@@ -388,7 +393,8 @@ def kernel_phase(torch, timer, nomerge):
     results["paged_decode_attention"]["prefill_continue"] = _prefill_continue_check(
         torch, timer, g, pa)
     (results["paged_decode_attention_ragged"],
-     results["paged_decode_attention_ragged_stats"]) = _ragged_kernel_check(torch, timer, g, pa)
+     results["paged_decode_attention_ragged_stats"]) = _ragged_kernel_check(torch, timer, g, pa,
+                                                                            nomerge)
     results["paged_decode_attention_ragged"]["engine_wave"] = _engine_wave_check(
         torch, timer, g, pa)
     # K8 and K5 at K3's wave (drawn last, so the earlier kernels keep their inputs).
@@ -743,7 +749,8 @@ def _stats_kernel_check(torch, timer, g, tables, waves, n_cache, nomerge):
     1e-5 of K3 (f32). Timed at the sharded decode's one request of
     ``SHARDED_CONTEXT`` tokens (one-shard combine bitwise K3 there too), and
     there also through ``nomerge`` (K5's entry built with its cross-split
-    merge compiled out, called directly): the fold's time, ``fold_ms``."""
+    merge compiled out, swapped in under the wrapper): the fold's time,
+    ``fold_ms``."""
     from infinistore_tpu_torch.cuda import decode_probe
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
@@ -801,7 +808,8 @@ def _stats_kernel_check(torch, timer, g, tables, waves, n_cache, nomerge):
     row = dict(max_abs_err=err, ms=timer.ms(lambda: pa._decode_attention_stats(*args)),
                plain_ms=timer.ms(lambda: pa.decode_attention_stats_plain(*args), iters=3),
                bound_ms=bms, bound_by=by, library_ms=None)
-    row["fold_ms"] = timer.ms(decode_probe.stats_call(nomerge, *args))
+    with decode_probe.using(nomerge):
+        row["fold_ms"] = timer.ms(lambda: pa._decode_attention_stats(*args))
     log(f"K5 bf16 at {tokens} tokens: {row['ms']:.5f} ms; the fold alone (its merge compiled "
         f"out) {row['fold_ms']:.5f} ms, so about {row['ms'] - row['fold_ms']:.5f} ms (the "
         "difference) is the merge; one-shard combine bitwise K3")
@@ -828,12 +836,19 @@ def _skewed_wave():
     return decode_probe.skewed_wave(ENGINE_REQ_BLOCKS)
 
 
-def _ragged_kernel_check(torch, timer, g, pa):
+def _ragged_kernel_check(torch, timer, g, pa, nomerge):
     """K6 on a skewed wave at the engine phase's widths: against its plain
     version, bitwise against K3 per row, bitwise against solo launches. K7
     on the same wave: against its plain statistics, its one-shard combine
     bitwise K6, the combine of 4 disjoint slices of each row's pages within
-    1e-5 of K6 (f32). Returns the two kernels' results."""
+    1e-5 of K6 (f32); in bf16 timed as it is, through ``nomerge`` (its
+    entry built without the cross-split merge, swapped in under the
+    wrapper: ``fold_ms``) and at the wave's first quarter-shard (each row's
+    first 18 table entries, what one of 4 ranks folds: ``quarter_shard_ms``,
+    held against its plain statistics, beside its own bound). Returns the two
+    kernels' results."""
+    from infinistore_tpu_torch.cuda import decode_probe
+
     cfg = LLAMA3_8B
     bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
     d = cfg["dim"] // h
@@ -905,6 +920,35 @@ def _ragged_kernel_check(torch, timer, g, pa):
                         plain_ms=timer.ms(lambda: pa.decode_attention_stats_ragged_plain(
                             q, kc, vc, pages, page_starts, seq, width)),
                         bound_ms=bms, bound_by=by, library_ms=None)
+            with decode_probe.using(nomerge):
+                out7["fold_ms"] = timer.ms(
+                    lambda: pa._decode_attention_stats_ragged(*stats_args))
+            sl = _slices(4, width)[0]
+            qlens = _slice_lens(lens, sl, bt)
+            qp, qr, qs, ql, qw = pa.build_ragged_wave_sharded(
+                [[t[sl] for t in row_tables]], [qlens], bt)
+            quarter = (q, kc, vc, *(torch.from_numpy(x[0]).cuda() for x in (qp, qr, qs, ql)),
+                       qw)
+            errq = _stats_err(torch, pa._decode_attention_stats_ragged(*quarter),
+                              pa.decode_attention_stats_ragged_plain(*quarter[:4],
+                                                                     *quarter[5:]))
+            if not errq <= tol:
+                raise AssertionError(f"K7 bf16 at the first quarter-shard: err {errq} "
+                                     f"(tol {tol})")
+            qread = {int(qp[0][qs[0][r] + j]) for r, n in enumerate(qlens)
+                     for j in range(-(-n // bt))}
+            qbms, _ = bound_ms(2 * len(qread) * bt * kvh * d * q.element_size() +
+                               q.numel() * q.element_size() + out_bytes +
+                               (qp[0].shape[0] + 3 * len(lens) + 1) * 4,
+                               4.0 * h * d * sum(qlens), peak_dtype(q))
+            out7.update(quarter_shard_ms=timer.ms(
+                lambda: pa._decode_attention_stats_ragged(*quarter)),
+                quarter_shard_max_abs_err=errq, quarter_shard_bound_ms=qbms)
+            log(f"K7 bf16 on the skewed wave: {out7['ms']:.5f} ms; the fold alone (its merge "
+                f"compiled out) {out7['fold_ms']:.5f} ms, so about "
+                f"{out7['ms'] - out7['fold_ms']:.5f} ms (the difference) is the split merge; "
+                f"{out7['quarter_shard_ms']:.5f} ms at its first quarter-shard ({qw}-page "
+                f"tables; normalised max abs err {errq:.3e}, tol {tol}; bound {qbms:.5f} ms)")
     return out, out7
 
 
@@ -1645,8 +1689,8 @@ def sharded_decode_phase(torch, device="cuda", backend="nccl", geometry=LLAMA3_8
 
 def _build_all(torch):
     """Compile the kernels (nvcc) while the native store library builds
-    (g++, at its first import), and K5's source with its cross-split merge
-    compiled out (``-DITS_DECODE_NOMERGE``, as ``cuda/decode_probe.py``
+    (g++, at its first import), and K5's and K7's source with the split
+    merge compiled out (``-DITS_DECODE_NOMERGE``, as ``cuda/decode_probe.py``
     builds it, for the fold's time); all must succeed. Returns the latter
     library."""
     from infinistore_tpu_torch.cuda import _ext, decode_probe
@@ -1660,7 +1704,7 @@ def _build_all(torch):
             errors.append(exc)
 
     t0 = time.perf_counter()
-    nomerge = decode_probe.build("nomerge", ("paged_attention_stats.cu",),
+    nomerge = decode_probe.build("nomerge", ("paged_attention.cu", "paged_attention_stats.cu"),
                                  defines=(decode_probe.NOMERGE,))
     worker = threading.Thread(target=build_kernels)
     worker.start()

@@ -593,6 +593,16 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     m_own[j] = its::kNegInf;
     l_own[j] = 0.f;
   }
+#ifdef ITS_DECODE_PROLOGUE
+  // A timing build (cuda/decode_probe.py k7): the prologue alone (the row's
+  // metadata, its page ids, q), its loads kept live, outputs left unset.
+  asm volatile("" ::"l"(sm_base[tid % kMaxSplitPages]));
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) asm volatile("" ::"f"(qr[g][e]));
+  return;
+#endif
 
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
@@ -745,6 +755,19 @@ struct Shape {
   cudaStream_t stream;
 };
 
+// Launches a decode kernel (K3, K5-K8) over (splits x KVH, rows) CTAs of
+// kThreads threads and `smem` bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+int launch_split_kernel(void (*kernel)(Params...), int smem, const Shape& s, Args... args) {
+  if (smem > 40 * 1024) {  // beside the static shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(s.splits * s.KVH, s.rows), kThreads, smem, s.stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The split scratch of a launch: per (row, KV head, split, query head) an f32
 // partial acc [D], then all the (m, l) pairs: rows * splits * H * (D + 2)
 // floats. `tickets`: rows * KVH * splits int32 zeros, left zero by every
@@ -756,22 +779,14 @@ int launch(const T* q, const KV& kv, const int32_t* index, const int32_t* starts
   if (!kv.aligned()) return static_cast<int>(cudaErrorMisalignedAddress);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   constexpr int smem = Smem<D, G, KV>::kBytes;
-  const dim3 grid(s.splits * s.KVH, s.rows);
-  auto go = [&](auto kernel, auto... args) {
-    if constexpr (smem > 40 * 1024) {  // beside the static shared memory
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel<<<grid, kThreads, smem, s.stream>>>(args...);
-    return static_cast<int>(cudaGetLastError());
-  };
   if constexpr (kRagged) {
-    return go(paged_decode_ragged<T, D, G, KV, Epi>, q, kv, index, starts, seq_lens, epi,
-              scratch, tickets, s.H, s.KVH, s.bt, s.num_blocks, s.P, s.width, s.splits, scale);
+    return launch_split_kernel(paged_decode_ragged<T, D, G, KV, Epi>, smem, s, q, kv, index,
+                               starts, seq_lens, epi, scratch, tickets, s.H, s.KVH, s.bt,
+                               s.num_blocks, s.P, s.width, s.splits, scale);
   } else {
-    return go(paged_decode<T, D, G, KV, Epi>, q, kv, index, seq_lens, epi, scratch, tickets,
-              s.H, s.KVH, s.bt, s.num_blocks, s.width, s.splits, scale);
+    return launch_split_kernel(paged_decode<T, D, G, KV, Epi>, smem, s, q, kv, index, seq_lens,
+                               epi, scratch, tickets, s.H, s.KVH, s.bt, s.num_blocks, s.width,
+                               s.splits, scale);
   }
 }
 

@@ -367,16 +367,9 @@ extern "C" int its_paged_decode_attention_quantized(
     constexpr int kD = decltype(c)::D;
     constexpr int kG = decltype(c)::G;
     const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
-    if constexpr (Q8Fold<kD, kG>::kBytes > 40 * 1024) {  // beside the static shared memory
-      const cudaError_t err = cudaFuncSetAttribute(
-          quant_decode<T, kD, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          Q8Fold<kD, kG>::kBytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    quant_decode<T, kD, kG><<<dim3(s.splits * s.KVH, s.rows), kThreads,
-                              Q8Fold<kD, kG>::kBytes, s.stream>>>(
-        static_cast<const T*>(q), kv, tables, seq_lens, Normalize<T>{static_cast<T*>(out)},
-        scratch, tickets, s.H, s.KVH, s.bt, s.num_blocks, s.width, s.splits, scale);
-    return static_cast<int>(cudaGetLastError());
+    return launch_split_kernel(quant_decode<T, kD, kG>, Q8Fold<kD, kG>::kBytes, s,
+                               static_cast<const T*>(q), kv, tables, seq_lens,
+                               Normalize<T>{static_cast<T*>(out)}, scratch, tickets, s.H, s.KVH,
+                               s.bt, s.num_blocks, s.width, s.splits, scale);
   });
 }

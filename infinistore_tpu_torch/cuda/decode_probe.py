@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Probe of the paged decode kernels K3, K5, K6 and K8 on one CUDA card. Run
+"""Probe of the paged decode kernels K3 and K5-K8 on one CUDA card. Run
 from the root of a checkout (the package's entry points do not import it):
 
     python3 infinistore_tpu_torch/cuda/decode_probe.py host [--root DIR]
     python3 infinistore_tpu_torch/cuda/decode_probe.py splits
     python3 infinistore_tpu_torch/cuda/decode_probe.py k8 [--root DIR]
     python3 infinistore_tpu_torch/cuda/decode_probe.py k5 [--root DIR]
+    python3 infinistore_tpu_torch/cuda/decode_probe.py k7 [--root DIR]
 
 ``host``: the wrappers' host time per call of K3 and K6 at the shapes their
 paths give them (``timing.host_us``: the card is kept busy by a spin, so
@@ -39,12 +40,25 @@ K6 bitwise against the root's at every shape of 16 splits or fewer below
 (the round trip, ``prefill_continue``, the skewed wave, the engine's wave)
 and times both there.
 
+``k7``: K7 at ``chip_smoke.py``'s skewed wave and at its first
+quarter-shard (what one of 4 ranks folds), bf16, held against its plain
+statistics and its one-shard combine bitwise K6, then timed through the
+wrappers as built (``this``), built with ``-DITS_DECODE_NOMERGE`` (no split
+merge) and with ``-DITS_DECODE_PROLOGUE`` (each CTA stops after its row's
+metadata, its page ids and q), and with ``--root`` the root's, beside an
+empty launch: the chain split into launch, prologue, stages and merge, with
+the CTAs launched and folding and the CTAs an SM holds. With ``--root``,
+every decode kernel at every path shape above and below is then held
+bitwise between this tree and the root and timed through both.
+
 Shapes (bf16, Llama-3-8B widths, 16-token blocks): K3 at the round trip's
 decode step (4 rows of 2,048 tokens), at ``prefill_continue`` (256 rows at
 contexts 769-1,024 over one 72-block table) and at the sharded decode's
 32,768-token request; K6 on ``chip_smoke.py``'s skewed wave
 (``skewed_wave``) and at the engine's wave (4 x 8-token chunks at 1,024
-tokens). Prints one JSON line per measurement.
+tokens); ``k7`` adds K5 at 32,768 tokens, K7 at the skewed wave and its
+quarter-shard and K8 at the int8 wave (``_path_cases``). Prints one JSON
+line per measurement.
 """
 
 import argparse
@@ -258,7 +272,7 @@ def splits(args):
 # k8 and k5: the redesigned kernels against a root tree, fold against merge.
 # ---------------------------------------------------------------------------
 
-# CTAs an SM holds of K5's and K8's bf16 D = 128, G = 4 kernels.
+# CTAs an SM holds of K5's, K7's and K8's bf16 D = 128, G = 4 kernels.
 OCCUPANCY_SRC = r"""
 #include "kv_quant.cu"
 template <typename K>
@@ -271,6 +285,9 @@ extern "C" int probe_occupancy(int which, int* blocks) {
   using T = __nv_bfloat16;
   if (which == 5)
     return occupancy(paged_decode<T, 128, 4, FloatKV<T>, RawStats>,
+                     Smem<128, 4, FloatKV<T>>::kBytes, blocks);
+  if (which == 7)
+    return occupancy(paged_decode_ragged<T, 128, 4, FloatKV<T>, RawStats>,
                      Smem<128, 4, FloatKV<T>>::kBytes, blocks);
   return occupancy(quant_decode<T, 128, 4>, Q8Fold<128, 4>::kBytes, blocks);
 }
@@ -322,40 +339,11 @@ def load(pending):
     return lib
 
 
-def stats_call(lib, q, k_cache, v_cache, tables, lens):
-    """A call of ``lib``'s K5 entry on these inputs as its wrapper makes it
-    (the scratch and tickets of the stream's workspace), without the
-    wrapper's checks or launch count: for timing a build the path does not
-    load, such as the fold without its merge."""
-    import torch
-
-    from infinistore_tpu_torch.cuda import _ext
-    from infinistore_tpu_torch.cuda import paged_attention as pa
-
-    bsz, h, d = q.shape
-    n, bt, kvh, _ = k_cache.shape
-    width = tables.shape[1]
-    stream = _ext.stream_of(q)
-    scratch, tickets, splits = pa._split_scratch(q, kvh, width, stream)
-    acc = torch.empty((bsz, h, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((bsz, h, 1), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    dtype = _ext.dtype_code("stats_call", q.dtype)
-
-    def run():
-        _ext.check(lib.its_paged_decode_attention_stats(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), tables.data_ptr(),
-            lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), scratch.data_ptr(),
-            tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits, stream),
-            "stats_call")
-    return run
-
-
-def _libs(args, sources):
-    """name -> library: ``this`` (the package's), ``nomerge`` and, with
-    ``--root``, ``root`` (``sources`` and ``paged_attention.cu``, whose
-    split count the wrappers ask), built at once; and this tree's occupancy
-    query."""
+def _libs(args, sources, extra=()):
+    """name -> library: ``this`` (the package's), ``nomerge``, each (name,
+    -D flags) of ``extra`` and, with ``--root``, ``root`` (``sources`` and
+    ``paged_attention.cu``, whose split count the wrappers ask), built at
+    once; and this tree's occupancy query."""
     from infinistore_tpu_torch.cuda import _ext
 
     sources = tuple(dict.fromkeys(("paged_attention.cu",) + sources))
@@ -368,13 +356,15 @@ def _libs(args, sources):
     if args.root:
         pending["root"] = build("root", sources, csrc=os.path.join(
             os.path.abspath(args.root), "infinistore_tpu_torch", "cuda", "csrc"))
+    for name, defines in extra:
+        pending[name] = build(name, sources, defines=defines)
     libs = {"this": _ext.kernels()}
     libs.update((name, load(p)) for name, p in pending.items())
     return libs
 
 
 @contextlib.contextmanager
-def _using(lib):
+def using(lib):
     """The wrappers call ``lib`` inside the block (the probe's own device
     for timing other builds through the same wrappers)."""
     from infinistore_tpu_torch.cuda import _ext
@@ -395,13 +385,14 @@ def _time_libs(tm, torch, libs, cases, order):
     timer = tm.Timer(torch)
     times = {name: {case: [] for case in cases} for name in order}
     for name in list(order) + list(reversed(order)):
-        with _using(libs[name]):
+        with using(libs[name]):
             for case, run in cases.items():
                 times[name][case].append(timer.ms(run))
     return times
 
 
 def _occupancy(libs, which):
+    """CTAs an SM holds of this tree's kernel ``which`` (5, 7 or 8)."""
     blocks = ctypes.c_int(0)
     code = libs["occupancy"].probe_occupancy(which, ctypes.byref(blocks))
     if code:
@@ -422,6 +413,22 @@ def _report(torch, tm, kernel, libs, times, ctas, which, nbytes, flops):
               flush=True)
 
 
+def _k8_inputs(torch, kq, g):
+    """K8 at the int8 round trip's wave (4 rows of 2,048 tokens): q in bf16
+    and f32 -> the wrapper's arguments, and the launch's table width."""
+    rows, tokens = 4, 2048
+    width = tokens // BT
+    n = rows * width + 16
+    kd, ks = kq.quantize_kv(torch.randn((n, BT, KVH, D), generator=g, device="cuda"))
+    vd, vs = kq.quantize_kv(torch.randn((n, BT, KVH, D), generator=g, device="cuda"))
+    tables = torch.randperm(n, generator=g, device="cuda")[: rows * width].to(torch.int32)
+    tables = tables.reshape(rows, width)
+    lens = torch.full((rows,), tokens, dtype=torch.int32, device="cuda")
+    return {str(dtype).removeprefix("torch."): (
+        torch.randn((rows, H, D), generator=g, device="cuda").to(dtype), kd, ks, vd, vs, tables,
+        lens) for dtype in (torch.bfloat16, torch.float32)}, width
+
+
 def k8(args):
     sys.path.insert(0, CHECKOUT)
     tm = _timing()
@@ -431,34 +438,38 @@ def k8(args):
     from infinistore_tpu_torch.cuda import kv_quant as kq
 
     libs = _libs(args, ("kv_quant.cu",))
-    g = torch.Generator(device="cuda").manual_seed(8)
-    rows, tokens = 4, 2048
-    width = tokens // BT
-    n = rows * width + 16
-    kd, ks = kq.quantize_kv(torch.randn((n, BT, KVH, D), generator=g, device="cuda"))
-    vd, vs = kq.quantize_kv(torch.randn((n, BT, KVH, D), generator=g, device="cuda"))
-    tables = torch.randperm(n, generator=g, device="cuda")[: rows * width].to(torch.int32)
-    tables = tables.reshape(rows, width)
-    lens = torch.full((rows,), tokens, dtype=torch.int32, device="cuda")
+    inputs, width = _k8_inputs(torch, kq, torch.Generator(device="cuda").manual_seed(8))
     cases = {}
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
-        q = torch.randn((rows, H, D), generator=g, device="cuda").to(dtype)
-        a8 = (q, kd, ks, vd, vs, tables, lens)
+    for name, a8 in inputs.items():
+        tol = 2e-2 if name == "bfloat16" else 1e-5
         want = kq._quant_decode_plain(*a8)
-        for name in ("this", "root"):
-            if name in libs:
-                with _using(libs[name]):
+        for lib in ("this", "root"):
+            if lib in libs:
+                with using(libs[lib]):
                     err = tm.max_err(kq.paged_decode_attention_quantized(*a8), want)
                 if not err <= tol:
-                    raise AssertionError(f"K8 {name} {dtype}: max abs err {err} (tol {tol})")
-        cases[str(dtype).removeprefix("torch.")] = (
-            lambda a=a8: kq.paged_decode_attention_quantized(*a))
+                    raise AssertionError(f"K8 {lib} {name}: max abs err {err} (tol {tol})")
+        cases[name] = lambda a=a8: kq.paged_decode_attention_quantized(*a)
     order = (["root"] if args.root else []) + ["this", "nomerge"]
     times = _time_libs(tm, torch, libs, cases, order)
+    q, _, _, _, _, tables, lens = inputs["bfloat16"]
+    rows, tokens = q.shape[0], int(lens[0])
     nbytes = 2 * rows * tokens * KVH * (D + 4) + 2 * rows * H * D * 2 + tables.numel() * 4 + 16
     _report(torch, tm, "K8", libs, times, _ext.decode_splits(width) * KVH * rows, 8, nbytes,
             4.0 * H * D * rows * tokens)
     return 0
+
+
+def _k5_inputs(torch, g):
+    """K5 (and K3) at the sharded decode's one request of SHARDED_CONTEXT
+    tokens, bf16: the wrappers' arguments."""
+    n = SHARDED_CONTEXT // BT
+    q = torch.randn((1, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
+    table = torch.randperm(n, generator=g, device="cuda").to(torch.int32)[None]
+    lens = torch.tensor([SHARDED_CONTEXT], dtype=torch.int32, device="cuda")
+    return q, kc, vc, table, lens
 
 
 def k5(args):
@@ -471,19 +482,12 @@ def k5(args):
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
     libs = _libs(args, ("paged_attention_stats.cu",))
-    g = torch.Generator(device="cuda").manual_seed(5)
-    tokens = SHARDED_CONTEXT
-    n = tokens // BT
-    q = torch.randn((1, H, D), generator=g, device="cuda").to(torch.bfloat16)
-    kc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
-    vc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
-    table = torch.randperm(n, generator=g, device="cuda").to(torch.int32)[None]
-    lens = torch.tensor([tokens], dtype=torch.int32, device="cuda")
-    a5 = (q, kc, vc, table, lens)
+    a5 = _k5_inputs(torch, torch.Generator(device="cuda").manual_seed(5))
+    q, tokens, n = a5[0], SHARDED_CONTEXT, SHARDED_CONTEXT // BT
     ident = lambda t: t  # noqa: E731
     for name in ("this", "root"):
         if name in libs:
-            with _using(libs[name]):
+            with using(libs[name]):
                 combined = pa.combine_stats(*pa._decode_attention_stats(*a5), q.dtype, ident,
                                             ident)
                 k3 = pa.paged_decode_attention_batched(*a5)
@@ -503,9 +507,9 @@ def k5(args):
     # K3 and K6 at the paths' shapes of 16 splits or fewer: bitwise the root's.
     short = {k: v for k, v in _shapes(torch, np, pa).items() if k != "k3_32k"}
     for shape, (run, _) in short.items():
-        with _using(libs["root"]):
+        with using(libs["root"]):
             want = run()
-        with _using(libs["this"]):
+        with using(libs["this"]):
             got = run()
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -516,13 +520,157 @@ def k5(args):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# k7: K7's chain (launch, prologue, stages, merge), and every decode kernel
+# at every path shape against a root tree.
+# ---------------------------------------------------------------------------
+
+PROLOGUE = "-DITS_DECODE_PROLOGUE"
+
+
+def _row_splits(npages):
+    """Splits of a row of ``npages`` pages (decode_fold.cuh: split_pages)."""
+    per = min(max(-(-npages // 8), 4), 16)
+    return max(1, -(-npages // per))
+
+
+def _k7_inputs(torch, pa, g, quarter):
+    """K7 at the skewed wave (bf16, 72-page tables, its flat list padded to a
+    power of two, as ``chip_smoke.py``'s kernel phase runs it), or at its
+    first quarter-shard (each row's first 18 table entries, what rank 0 of 4
+    holds, as ``build_ragged_wave_sharded`` lays it out). Returns (the
+    wrapper's arguments, bound (ms, by), CTAs that fold)."""
+    tm = _timing()
+    lens, row_tables, width, n = skewed_wave()
+    if quarter:
+        width //= 4
+        row_tables = [t[:width] for t in row_tables]
+        lens = [min(x, width * BT) for x in lens]
+        pages, rows, starts, seq, width = pa.build_ragged_wave_sharded([row_tables], [lens],
+                                                                       BT)
+        pages, rows, starts, seq = pages[0], rows[0], starts[0], seq[0]
+    else:
+        m = pa.build_ragged_wave(row_tables, lens, BT, pad_to_pow2=True)
+        pages, rows, starts, seq = m.pages, m.page_rows, m.page_starts, m.seq_lens
+    meta = [torch.from_numpy(x).cuda() for x in (pages, rows, starts, seq)]
+    q = torch.randn((len(lens), H, D), generator=g, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((n, BT, KVH, D), generator=g, device="cuda").to(torch.bfloat16)
+    used = [-(-x // BT) for x in lens]
+    distinct = {int(pages[starts[r] + j]) for r, u in enumerate(used) for j in range(u)}
+    # K and V of each distinct page, q, the f32 outputs, the page metadata.
+    nbytes = 2 * len(distinct) * BT * KVH * D * 2 + q.numel() * 2 + \
+        (q.numel() + 2 * len(lens) * H) * 4 + (pages.shape[0] + 3 * len(lens) + 1) * 4
+    bound = tm.bound_ms(nbytes, 4.0 * H * D * sum(lens), "bfloat16")
+    return (q, kc, vc, *meta, int(width)), bound, sum(_row_splits(u) for u in used) * KVH
+
+
+def _path_cases(torch, np, pa, kq):
+    """Every decode kernel at every path shape this probe knows, as calls of
+    the wrappers: K3 and K6 (``_shapes``), K5 at 32,768 tokens, K7 at the
+    skewed wave and its quarter-shard, K8 at the int8 wave in both q
+    dtypes."""
+    cases = {name: run for name, (run, _) in _shapes(torch, np, pa).items()}
+    g = torch.Generator(device="cuda").manual_seed(77)
+    a5 = _k5_inputs(torch, g)
+    cases["k5_32k"] = lambda: pa._decode_attention_stats(*a5)
+    for name, quarter in (("k7_skewed", False), ("k7_quarter", True)):
+        a7 = _k7_inputs(torch, pa, g, quarter)[0]
+        cases[name] = lambda a=a7: pa._decode_attention_stats_ragged(*a)
+    for name, a8 in _k8_inputs(torch, kq, g)[0].items():
+        cases[f"k8_{name}"] = lambda a=a8: kq.paged_decode_attention_quantized(*a)
+    return cases
+
+
+def _bitwise(torch, libs, cases, name, against):
+    """The cases whose output through library ``name`` is not bitwise the
+    one through ``against``."""
+    differ = []
+    for shape, run in cases.items():
+        with using(libs[against]):
+            want = run()
+        with using(libs[name]):
+            got = run()
+        torch.cuda.synchronize()
+        want, got = (x if isinstance(x, tuple) else (x,) for x in (want, got))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            differ.append(shape)
+    return differ
+
+
+def k7(args):
+    sys.path.insert(0, CHECKOUT)
+    tm = _timing()
+    import numpy as np
+    import torch
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    libs = _libs(args, ("paged_attention_stats.cu", "kv_quant.cu"),
+                 extra=(("prologue", (PROLOGUE,)),))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shapes = {name: _k7_inputs(torch, pa, g, quarter)
+              for name, quarter in (("k7_skewed", False), ("k7_quarter", True))}
+    ident = lambda t: t  # noqa: E731
+    for name in ("this", "root"):
+        if name not in libs:
+            continue
+        with using(libs[name]):
+            for shape, (a7, _, _) in shapes.items():
+                q, kc, vc, pages, rows, starts, seq, width = a7
+                stats = pa._decode_attention_stats_ragged(*a7)
+                plain = pa.decode_attention_stats_ragged_plain(q, kc, vc, pages, starts, seq,
+                                                               width)
+                k6 = pa.paged_decode_attention_ragged(q, kc, vc, pages, rows, starts, seq,
+                                                      table_width=width)
+                torch.cuda.synchronize()
+                err = tm.max_err(stats[0] / torch.clamp(stats[2], min=1e-30),
+                                 plain[0] / torch.clamp(plain[2], min=1e-30))
+                if not err <= 2e-2 or not torch.equal(
+                        pa.combine_stats(*stats, q.dtype, ident, ident), k6):
+                    raise AssertionError(f"K7 {name} at {shape}: err {err} (tol 2e-2), or its "
+                                         "one-shard combine is not K6")
+    cases = {shape: (lambda a=a7: pa._decode_attention_stats_ragged(*a))
+             for shape, (a7, _, _) in shapes.items()}
+    order = (["root"] if args.root else []) + ["this", "nomerge", "prologue"]
+    times = _time_libs(tm, torch, libs, cases, order)
+    floor = tm.Timer(torch).ms(lambda: torch.cuda._sleep(0))  # an empty launch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = _occupancy(libs, 7)
+    for shape, (a7, (bms, by), folding) in shapes.items():
+        splits = _ext.decode_splits(a7[-1])
+        med = {name: sorted(ms[shape])[len(ms[shape]) // 2] for name, ms in times.items()}
+        print(json.dumps({
+            "kernel": "K7", "shape": shape, "ms": {n: ms[shape] for n, ms in times.items()},
+            "launch_floor_ms": floor, "bound_ms": bms, "bound_by": by, "splits": splits,
+            "ctas": splits * KVH * a7[0].shape[0], "ctas_folding": folding,
+            "ctas_per_sm": per_sm, "waves": splits * KVH * a7[0].shape[0] / (per_sm * sms),
+            "chain_ms": {"launch": floor, "prologue": med["prologue"] - floor,
+                         "stages": med["nomerge"] - med["prologue"],
+                         "merge": med["this"] - med["nomerge"]}}), flush=True)
+    if not args.root:
+        return 0
+    # Every decode kernel at every path shape: this tree bitwise the root's,
+    # and both timed.
+    paths = _path_cases(torch, np, pa, kq)
+    differ = _bitwise(torch, libs, paths, "this", "root")
+    if differ:
+        raise AssertionError(f"this tree is not bitwise the root at {differ}")
+    times = _time_libs(tm, torch, libs, paths, ["root", "this"])
+    print(json.dumps({"bitwise_root": sorted(paths), "ms": times}), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="mode", required=True)
     h = sub.add_parser("host", help="wrapper host time per call")
     h.add_argument("--root", default="", help="checkout whose package is timed")
     sub.add_parser("splits", help="the split policy, as is against fixed 16-page splits")
-    for mode, what in (("k8", "K8 at the int8 wave"), ("k5", "K5 at 32,768 tokens")):
+    for mode, what in (("k8", "K8 at the int8 wave"), ("k5", "K5 at 32,768 tokens"),
+                       ("k7", "K7 at the skewed wave and its quarter-shard")):
         m = sub.add_parser(mode, help=f"{what}: fold and merge, and a root tree's")
         m.add_argument("--root", default="", help="checkout whose kernels are timed beside")
     args = ap.parse_args()
@@ -534,7 +682,7 @@ def main():
     if not torch.cuda.is_available():
         print("decode_probe: needs a CUDA card", file=sys.stderr)
         return 1
-    return {"host": host, "splits": splits, "k8": k8, "k5": k5}[args.mode](args)
+    return {"host": host, "splits": splits, "k8": k8, "k5": k5, "k7": k7}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ one leaked or dropped key would move the output by order 1; its f32 path
 on the CUDA cores, each counted by its own counter); the split-KV decode
 fold of K3, K5-K7 at and around every split edge (rows of 0 and 1 tokens,
 one split less, equal and more by a token, several splits, rows merged in
-the tree of more than 16 splits), with tables padded by out-of-range ids and
+the tree of more than 16 splits) and, with K8, at every launch split count
+from 1 to 16 and two past it, with tables padded by out-of-range ids and
 every bitwise contract (two launches, K6 == K3 per row, solo == wave, K5/K7's
 one-shard combine == K3/K6, tickets left zero); K8's own fold at and around
 its split edges, held to the JAX package's contract (within 1e-5 with f32
@@ -723,7 +724,8 @@ def _split_case(dtype, d, h, kvh, dev, seed):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
+                         ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_decode_k3_k6_at_split_edges(dev, d, h, kvh, dtype):
     """K3 and K6 against their plain versions around every split edge;
@@ -788,7 +790,8 @@ def test_split_rows_equal_their_solo_launch(dev, dtype):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
+                         ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
     """K5 and K7 at the split edges: within tolerance of their plain
@@ -822,7 +825,8 @@ def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
+                         ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_quantized_decode_is_k3_over_the_dequantised_cache(dev, d, h, kvh, dtype):
     """K8 at K3's split edges, over tables padded with out-of-range ids:
@@ -881,7 +885,8 @@ def test_split_count_covers_every_row_of_the_width(dev):
         assert lib.its_decode_splits(width) == want, width
 
 
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
+                         ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_merge_past_one_chunk_of_splits(dev, h, kvh, dtype):
     """Long rows, merged in the tree: 512 / G splits of 16 pages (the most
@@ -947,7 +952,8 @@ Q8_EDGE_LENS = [0, 1, SPLIT_BT, 4 * SPLIT_BT - 1, 4 * SPLIT_BT, 4 * SPLIT_BT + 1
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
+                         ids=["g1", "g2", "g4", "g8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_decode_at_its_own_split_edges(dev, d, h, kvh, dtype):
     """K8 on rows either side of its split edges, a one-page and a
@@ -1097,5 +1103,87 @@ def test_split_merge_tree_past_one_chunk_of_groups(dev, dtype):
     torch.cuda.synchronize()
     assert torch.equal(pa.combine_stats(*stats, dtype, ident, ident), got)
     assert torch.equal(k6, got)
+    _, tickets = _ext._WORKSPACE[(q.device, _ext.stream_of(q))]
+    assert not tickets.any()
+
+
+# A launch over tables W pages wide runs grid_splits(W) splits a row: the
+# grid's split dimension, and the count the split merge takes (all at once up
+# to 16; in the tree past it). Launch widths of 1, 2, 5, 7, 8, 9, 13 and 16
+# splits, and of 17 and 33 (the tree); rows of 0 and 1 token, one page, half
+# the width less a few tokens (fewer splits than the launch: CTAs that fold
+# nothing), the width less a page and a token, and the whole width.
+LAUNCH_SPLIT_WIDTHS = [4, 8, 20, 28, 32, 144, 208, 256, 272, 520]
+
+
+@pytest.mark.parametrize("width", LAUNCH_SPLIT_WIDTHS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
+                         ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_family_at_every_launch_split_count(dev, width, d, h, kvh, dtype):
+    """K3, K5, K6, K7 and K8 at every launch split count: two launches
+    bitwise equal, each row bitwise its solo launch (K3, K7, K8), K6 bitwise
+    K3 per row, K5's and K7's one-shard combines bitwise K3 and K6 and K7's
+    rows K5's, against their plain versions within tolerance, the empty row
+    zeros, and the tickets left zero."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    bt = SPLIT_BT
+    lens = [0, 1, bt, max(1, width // 2 * bt - 3), (width - 1) * bt + 1, width * bt]
+    rows, n = len(lens), len(lens) * width + 8
+    g = torch.Generator().manual_seed(150 + width)
+    tables_np = [torch.randperm(n, generator=g)[:width].numpy().astype(np.int32)
+                 for _ in lens]
+    tables = torch.from_numpy(np.stack(tables_np)).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = _randn(151, (rows, h, d), dtype, dev)
+    k = _randn(152, (n, bt, kvh, d), torch.float32, dev)
+    v = _randn(153, (n, bt, kvh, d), torch.float32, dev)
+    kc, vc = k.to(dtype), v.to(dtype)
+    ident = lambda t: t  # noqa: E731
+
+    k3 = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    k3_again = pa.paged_decode_attention_batched(q, kc, vc, tables, lens_t)
+    want = pa.paged_decode_attention_plain_batched(q, kc, vc, tables, lens_t)
+    stats = pa._decode_attention_stats(q, kc, vc, tables, lens_t)
+    torch.cuda.synchronize()
+    assert _err(k3, want) <= TOL[dtype]
+    assert torch.equal(k3, k3_again) and torch.all(k3[0] == 0)
+    assert torch.equal(pa.combine_stats(*stats, dtype, ident, ident), k3)
+
+    m = pa.build_ragged_wave(tables_np, lens, bt, pad_to_pow2=True)
+    meta = [torch.from_numpy(x).to(dev) for x in (m.pages, m.page_rows, m.page_starts,
+                                                    m.seq_lens)]
+    k6 = pa.paged_decode_attention_ragged(q, kc, vc, *meta, table_width=width)
+    rstats = pa._decode_attention_stats_ragged(q, kc, vc, *meta, table_width=width)
+    rstats_again = pa._decode_attention_stats_ragged(q, kc, vc, *meta, table_width=width)
+    torch.cuda.synchronize()
+    assert torch.equal(k6, k3)
+    assert torch.equal(pa.combine_stats(*rstats, dtype, ident, ident), k6)
+    for a, b, c in zip(rstats, rstats_again, stats):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+    for r in range(rows):
+        solo_k3 = pa.paged_decode_attention_batched(q[r:r + 1].contiguous(), kc, vc,
+                                                    tables[r:r + 1].contiguous(),
+                                                    lens_t[r:r + 1].contiguous())
+        solo = pa.build_ragged_wave([tables_np[r]], [lens[r]], bt)
+        solo_k7 = pa._decode_attention_stats_ragged(
+            q[r:r + 1].contiguous(), kc, vc, *(torch.from_numpy(x).to(dev) for x in (
+                solo.pages, solo.page_rows, solo.page_starts, solo.seq_lens)),
+            table_width=width)
+        torch.cuda.synchronize()
+        assert torch.equal(solo_k3[0], k3[r]), r
+        for a, b in zip(solo_k7, rstats):
+            assert torch.equal(a[0], b[r]), r
+
+    kd, ks = kq.quantize_kv(k)
+    vd, vs = kq.quantize_kv(v)
+    k8 = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens_t)
+    _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, tables, lens_t, k8)
+    assert torch.all(k8[0] == 0)
     _, tickets = _ext._WORKSPACE[(q.device, _ext.stream_of(q))]
     assert not tickets.any()

@@ -429,17 +429,21 @@ def test_tickets_are_per_stream_reused_and_grown(monkeypatch):
     assert sb2 is sb and tb2 is tb
 
 
+@pytest.mark.parametrize("count", [3, 16, 17, 40])
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_scratch_follows_the_library_split_count(fake_lib, kernel):
+def test_scratch_follows_the_library_split_count(fake_lib, kernel, count):
     """The split count is the library's alone: a library that splits every
-    table 3 ways gets scratch for 3 splits and the count 3."""
-    fake_lib.splits = lambda width: 3
+    table ``count`` ways (3; 16, the most one merge takes; 17 and 40, rows
+    merged in the tree) gets scratch for that many splits, a ticket for
+    each, and the count."""
+    fake_lib.splits = lambda width: count
     call, q, _, _ = KERNELS[kernel][0]()
     call()
     (_, args), = fake_lib.calls
-    (scratch, _, splits), = fake_lib.scratch
-    assert splits == 3 and args[-2] == 3
-    assert scratch.numel() == q.shape[0] * 3 * H * (D + 2)
+    (scratch, tickets, splits), = fake_lib.scratch
+    assert splits == count and args[-2] == count
+    assert scratch.numel() == q.shape[0] * count * H * (D + 2)
+    assert tickets.numel() >= q.shape[0] * KVH * count and not tickets.any()
 
 
 def _fold_policy():
