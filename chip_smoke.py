@@ -115,6 +115,35 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    rank: the multi-rank combine is held on the CPU (4 gloo ranks,
    ``tests/test_torch_sharded_decode.py``) and, over 4 slices stacked in
    one process, by the kernel phase.
+9. The overlapped prefill -> decode handoff (``disagg``) at Llama-3-8B
+   width (bf16, the main path's weights, block size 16; a fresh 2 GiB store
+   in 32 KiB units, one K or V block of a layer): one ``DisaggHarness``,
+   its prefill and decode connectors on two connections with disjoint block
+   layouts, one 2,048-token prompt (128 blocks, 256 MiB of KV a handoff), 4
+   greedy tokens a leg. Three rounds (``DISAGG_ROUNDS``; the first pays
+   every first use) of five legs, in order, the prompt's keys dropped
+   between legs that ship: the local recompute (the byte oracle), the
+   overlapped handoff (watermark 1), the blocking fetch-all, the cold
+   store-and-forward leg, and the fallback leg (a prompt nobody ships,
+   ``prefill=False``, ``retry_missing_s`` 0.05); then one more overlapped
+   leg under ``torch.profiler`` (the device's busy time and idle share).
+   In every round, every leg's first logits and tokens must be
+   bitwise the local leg's (the fallback leg's, a local leg on its own
+   prompt); the local leg's must be bitwise the round trip's ``prefill`` +
+   ``decode_step_batched`` on the same prompt and layout. The overlapped
+   leg must not fall back, every layer's install must precede its compute
+   and layer 0's compute must precede layer 31's install; the blocking leg
+   installs every layer before any compute; the fallback leg recomputes
+   once (``disagg_fallback_recomputes``, a ``disagg_fallback`` journal
+   event) and ``disagg_wrong_bytes`` stays 0. K1 (the ships' gathers), K2
+   (prefill's scatters and the per-layer installs), K3 (the decode layers)
+   and K4 (prefill) must launch on the path, every K4 launch on the tensor
+   cores and every K1/K2 launch on the bulk ring. K3 is also held against
+   its plain version at the path's own inputs (one row, q [1, 32, 128]
+   bf16, the decode side's 129-block table row, seq_len 2,049-2,052, over
+   the first and the last layer's caches of an overlapped leg), within
+   2e-2, two launches bitwise equal. Each leg's TTFT, the overlap counters
+   and the bytes shipped are logged, round by round.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -202,12 +231,19 @@ PATH_KERNELS = {
     "engine": ENGINE_KERNELS,
     "int8_engine": ENGINE_KERNELS,
     "sharded_decode": ("paged_decode_attention_stats", "paged_decode_attention_ragged_stats"),
+    "disagg": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
-BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine")
+BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg")
 # Paths whose every K1/K2 launch moves 16-byte aligned blocks, so must take
 # the TMA bulk ring.
-BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine")
+BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine", "disagg")
+# The disagg path: greedy tokens a leg, the fallback leg's retry deadline, and
+# rounds of its five legs (the first pays every first use: pinned staging,
+# the prefetch arena's page locking, the store pool's first touch).
+DISAGG_GEN_TOKENS = 4
+DISAGG_FALLBACK_RETRY_S = 0.05
+DISAGG_ROUNDS = 3
 
 
 def log(msg: str) -> None:
@@ -1166,7 +1202,6 @@ def _profile(torch, fn):
     """One call of ``fn`` under torch.profiler: wall time, the device's busy
     time (the kernels' self time) and idle share, and the kernels that took
     the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1175,6 +1210,27 @@ def _profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms)
+
+
+async def _profile_async(torch, make_coro):
+    """``_profile`` around one awaited coroutine; returns (its result, the
+    summary). Device time of kernels on several streams adds up, so with
+    overlapping streams the idle share is a lower bound of the true one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = await make_coro()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, _profile_summary(prof, wall_ms)
+
+
+def _profile_summary(prof, wall_ms):
+    from torch.autograd import DeviceType
+
     # Device-side events only (kernels, copies): the host ops that launched
     # them carry the same time again.
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
@@ -1687,6 +1743,251 @@ def sharded_decode_phase(torch, device="cuda", backend="nccl", geometry=LLAMA3_8
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the overlapped prefill -> decode handoff
+# ---------------------------------------------------------------------------
+
+
+def _disagg_round_trip(torch, llama, h, prompt, gen_tokens):
+    """The round trip's functions on the decode side's layout: ``prefill``
+    into the decode prefix blocks, then ``decode_step_batched`` from the
+    harness's first token. Returns (first logits as host f32, tokens)."""
+    _, decode_ids, row = h.tables()
+    caches = h.fresh_caches()
+    _, caches = llama.prefill(h.params, prompt, caches, decode_ids, h.config)
+    table = torch.as_tensor(row, dtype=torch.int32, device=h.device)[None]
+    tok, first, tokens = h.first_token, None, []
+    for i in range(gen_tokens):
+        logits, caches = llama.decode_step_batched(
+            h.params, torch.tensor([tok], device=h.device),
+            torch.tensor([len(prompt) + i], dtype=torch.int32, device=h.device),
+            caches, table, h.config, len(row))
+        if i == 0:
+            first = logits[0].float().cpu().numpy()
+        tok = int(logits[0].argmax())
+        tokens.append(tok)
+    return first, tokens
+
+
+class _StampedEvents(list):
+    """A leg's ``trace_events`` list that also keeps when each event was
+    appended, in ms after ``t0`` (the leg's call)."""
+
+    def __init__(self):
+        super().__init__()
+        self.t0 = time.perf_counter()
+        self.ms = []
+
+    def append(self, event):
+        super().append(event)
+        self.ms.append((time.perf_counter() - self.t0) * 1e3)
+
+    def timeline(self):
+        """{"install": [ms of layer 0, 1, ...], "compute": [...]}"""
+        out = {"install": {}, "compute": {}}
+        for (kind, layer), ms in zip(self, self.ms):
+            out[kind][layer] = ms
+        return {kind: [t[k] for k in sorted(t)] for kind, t in out.items()}
+
+
+def _check_disagg(np, legs, oracles, over_ev, block_ev, counts, journal, n_layers, vocab):
+    """The path's checks (module docstring, phase 9); raises on the first
+    that fails."""
+    oracle = legs["local"]["result"]
+    first = oracle.first_logits
+    if first.shape != (vocab,) or not np.isfinite(first).all():
+        raise AssertionError(f"disagg: local first logits bad, shape {first.shape}")
+    for name, leg in legs.items():
+        res, want = leg["result"], oracles[name]
+        if res.fallback != (name == "fallback"):
+            raise AssertionError(f"disagg {name} leg: fallback={res.fallback}")
+        if not np.array_equal(res.first_logits, want.first_logits) or res.tokens != want.tokens:
+            raise AssertionError(f"disagg {name} leg: first logits or tokens differ from the "
+                                 "local recompute's")
+    rt_first, rt_tokens = oracles["round_trip"]
+    if not np.array_equal(rt_first, first) or rt_tokens != oracle.tokens:
+        raise AssertionError("disagg: the local leg differs from the round trip's prefill + "
+                             "decode_step_batched")
+    for layer in range(n_layers):
+        if over_ev.index(("install", layer)) > over_ev.index(("compute", layer)):
+            raise AssertionError(f"disagg overlapped leg: layer {layer} computed before its "
+                                 "install")
+    if over_ev.index(("compute", 0)) > over_ev.index(("install", n_layers - 1)):
+        raise AssertionError("disagg overlapped leg: layer 0 computed after the last install")
+    last_install = max(i for i, (kind, _) in enumerate(block_ev) if kind == "install")
+    first_compute = min(i for i, (kind, _) in enumerate(block_ev) if kind == "compute")
+    if last_install > first_compute:
+        raise AssertionError("disagg blocking leg: a compute preceded an install")
+    if counts["disagg_fallback_recomputes"] != 1 or not journal:
+        raise AssertionError(f"disagg: {counts['disagg_fallback_recomputes']} fallback "
+                             f"recomputes, {len(journal)} disagg_fallback events (want 1, >= 1)")
+    if counts["disagg_wrong_bytes"] != 0:
+        raise AssertionError(f"disagg: {counts['disagg_wrong_bytes']} wrong bytes")
+
+
+def _disagg_k3_check(torch, h, caches, prompt_tokens, gen_tokens, device):
+    """K3 held against its plain version at the inputs the disagg path gives
+    it: one row, q [1, H, D] in the model's dtype, the decode side's padded
+    table row (the prefix's blocks and the generation's, the last one
+    partial), and the lengths of the leg's decode steps (the prompt plus
+    1..gen_tokens), over the first and the last layer's caches as an
+    overlapped leg left them. Within 1e-5 (f32) or 2e-2 (bf16), as in the
+    kernel phase; two launches bitwise equal. Not counted in the path's
+    launches (read before). On the CPU the wrapper is the plain version,
+    so there this only rehearses the check. Returns what it held."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    cfg = h.config
+    _, _, row = h.tables()
+    table = torch.as_tensor(row, dtype=torch.int32, device=device).reshape(1, -1)
+    g = torch.Generator(device=device).manual_seed(9)
+    q = torch.randn((1, cfg.n_heads, cfg.head_dim), generator=g, device=device).to(cfg.dtype)
+    tol = 2e-2 if cfg.dtype == torch.bfloat16 else 1e-5
+    lens = [prompt_tokens + 1 + step for step in range(gen_tokens)]
+    err = 0.0
+    for layer in (0, cfg.n_layers - 1):
+        kc, vc = caches[layer]
+        for n in lens:
+            seq = torch.tensor([n], dtype=torch.int32, device=device)
+            got = pa.paged_decode_attention_batched(q, kc, vc, table, seq)
+            again = pa.paged_decode_attention_batched(q, kc, vc, table, seq)
+            want = pa.paged_decode_attention_plain_batched(q, kc, vc, table, seq)
+            _sync(torch, device)
+            if not torch.equal(got, again):
+                raise AssertionError(f"disagg: K3 at seq_len {n}: two launches differ")
+            err = max(err, max_err(got, want))
+    if not err <= tol:
+        raise AssertionError(f"disagg: K3 at the path's inputs: max abs err {err} > {tol}")
+    log(f"disagg: K3 at the path's inputs (q {list(q.shape)} {cfg.dtype}, a {table.shape[1]}-block "
+        f"table, seq_len {lens[0]}-{lens[-1]}): max abs err {err:.3e} (tol {tol})")
+    return {"max_abs_err": err, "tol": tol, "table_blocks": table.shape[1], "seq_lens": lens}
+
+
+def _run_disagg(torch, server_port, params, cfg, device, prompt_tokens=PROMPT_TOKENS,
+                gen_tokens=DISAGG_GEN_TOKENS):
+    """``DISAGG_ROUNDS`` rounds of the handoff's five legs on one
+    ``DisaggHarness``, then (on the card) one overlapped leg under the
+    profiler, and the checks of every round (module docstring, phase 9).
+    Returns (summary, launches); the launches are those of the legs, read
+    before the oracles' runs."""
+    import numpy as np
+
+    from infinistore_tpu_torch import config as config_mod
+    from infinistore_tpu_torch import disagg, telemetry
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    nb = prompt_tokens // cfg.block_tokens
+    gen_blocks = -(-(prompt_tokens + gen_tokens) // cfg.block_tokens) - nb
+    conns = []
+
+    def make_conn():
+        conns.append(_client(lib_mod, config_mod, server_port))
+        return conns[-1]
+
+    h = None
+    try:
+        h = disagg.DisaggHarness(make_conn, cfg, num_blocks=2 * nb + gen_blocks, req_blocks=nb,
+                                 gen_blocks=gen_blocks, model_id="llama-3-8b-disagg",
+                                 params=params, device=device)
+        prompt, fb_prompt = h.prompt(seed=1), h.prompt(seed=2)
+
+        async def one_round():
+            """The five legs; returns (legs, trace events, counters, journal)."""
+            disagg.reset_counters()
+            telemetry.reset()
+            legs = {"local": await h.run_local(prompt, gen_tokens=gen_tokens)}
+            over_ev = _StampedEvents()
+            legs["overlapped"] = await h.run_overlapped(
+                prompt, watermark=1, gen_tokens=gen_tokens, trace_events=over_ev)
+            h.drop(prompt)
+            block_ev = _StampedEvents()
+            legs["blocking"] = await h.run_blocking(prompt, gen_tokens=gen_tokens,
+                                                    trace_events=block_ev)
+            h.drop(prompt)
+            legs["cold"] = await h.run_cold(prompt, gen_tokens=gen_tokens)
+            h.drop(prompt)
+            legs["fallback"] = await h.run_overlapped(
+                fb_prompt, watermark=1, gen_tokens=gen_tokens, prefill=False,
+                retry_missing_s=DISAGG_FALLBACK_RETRY_S)
+            journal = [e for e in telemetry.get_journal().snapshot()
+                       if e["kind"] == "disagg_fallback"]
+            return legs, over_ev, block_ev, disagg.counters().status(), journal
+
+        async def drive():
+            rounds = [await one_round() for _ in range(DISAGG_ROUNDS)]
+            profiled = profile = None
+            if torch.device(device).type == "cuda":
+                # One more overlapped leg, under the profiler (not timed as a leg).
+                profiled, profile = await _profile_async(torch, lambda: h.run_overlapped(
+                    prompt, watermark=1, gen_tokens=gen_tokens))
+                h.drop(prompt)
+            _sync(torch, device)
+            launches = dict(_ext.LAUNCHES)
+            fb_oracle = (await h.run_local(fb_prompt, gen_tokens=gen_tokens))["result"]
+            return rounds, profiled, profile, launches, fb_oracle
+
+        _ext.reset_launches()
+        rounds, profiled, profile, launches, fb_oracle = asyncio.run(drive())
+        round_trip = _disagg_round_trip(torch, llama, h, prompt, gen_tokens)
+        summary = {"prompt_tokens": prompt_tokens, "gen_tokens": gen_tokens, "rounds": []}
+        summary["k3_at_path_inputs"] = _disagg_k3_check(
+            torch, h, rounds[0][0]["overlapped"]["result"].caches, prompt_tokens, gen_tokens,
+            device)
+        for legs, over_ev, block_ev, counts, journal in rounds:
+            oracles = {name: legs["local"]["result"] for name in legs}
+            oracles["fallback"] = fb_oracle
+            oracles["round_trip"] = round_trip
+            _check_disagg(np, legs, oracles, over_ev, block_ev, counts, journal,
+                          cfg.n_layers, cfg.vocab)
+            summary["rounds"].append({
+                "handoff_bytes": legs["overlapped"]["written"] * cfg.kv_spec(1).block_nbytes,
+                "legs": {
+                    name: {
+                        "ttft_ms": leg["ttft_s"] * 1e3,
+                        "overlap_layers": leg["result"].overlap_layers,
+                        "inflight_at_first_token": leg["result"].inflight_at_first_token,
+                        "watermark_stalls": leg["result"].watermark_stalls,
+                        "fallback": leg["result"].fallback,
+                    }
+                    for name, leg in legs.items()
+                },
+                "counters": counts,
+                # When each layer installed and its first step's compute
+                # began, ms after the leg was called.
+                "timeline_ms": {"overlapped": over_ev.timeline(),
+                                "blocking": block_ev.timeline()},
+            })
+        if profiled is not None:
+            if not np.array_equal(profiled["result"].first_logits,
+                                  rounds[0][0]["local"]["result"].first_logits):
+                raise AssertionError("disagg: the profiled overlapped leg differs from the local")
+            summary["profile_overlapped_leg"] = profile
+        return summary, launches
+    finally:
+        if h is not None:
+            h.close()
+        for conn in conns:
+            conn.close()
+
+
+def disagg_phase(torch, server_port, params, smi):
+    """Phase 9: Llama-3-8B width, bf16, on the card. Returns (launches,
+    summary)."""
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **LLAMA3_8B)
+    summary, launches = _run_disagg(torch, server_port, params, cfg, "cuda")
+    summary = {"card": smi, **summary}
+    log(f"disagg: in each of {DISAGG_ROUNDS} rounds every leg bitwise the local recompute "
+        f"(first logits and {DISAGG_GEN_TOKENS} tokens), the local leg bitwise the round "
+        "trip's; watermark held; one fallback recompute; 0 wrong bytes")
+    log(f"disagg: {json.dumps(summary)}")
+    log(f"disagg launches: {json.dumps(launches)}")
+    return launches, summary
+
+
 def _build_all(torch):
     """Compile the kernels (nvcc) while the native store library builds
     (g++, at its first import), and K5's and K7's source with the split
@@ -1783,14 +2084,23 @@ def main() -> int:
     try:
         paths["int8_engine"] = int8_engine_phase(torch, server.port, params, smi,
                                                  engine_summary)
-        del params
         torch.cuda.empty_cache()
         small_engine_phase(torch, server.port)
     finally:
         server.stop()
-
     paths["sharded_decode"] = sharded_decode_phase(torch)
     log(f"sharded decode launches: {json.dumps(paths['sharded_decode'])}")
+
+    # The handoff reuses the main path's weights, on a store of its own.
+    torch.cuda.empty_cache()
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        paths["disagg"], _ = disagg_phase(torch, server.port, params, smi)
+    finally:
+        server.stop()
+    del params
+    torch.cuda.empty_cache()
 
     for path, names in PATH_KERNELS.items():
         idle = [name for name in names if paths[path][name] == 0]

@@ -1,8 +1,9 @@
 """Engine-facing KV-cache connector (port of ``infinistore_tpu/connector.py``:
 ``token_chain_hashes``, ``_ChainHashCache``, ``FetchCoalescer`` and
 ``KVConnector`` with lookup / save / load / start_fetch / start_fetch_async /
-stage_layer_save / manifest / get_stats / drop; ``handoff`` belongs to the
-disaggregation path and is not ported yet).
+stage_layer_save / handoff / manifest / get_stats / drop; ``handoff`` moves
+blocks through the store only: its interconnect transport waits for a port
+of ``IciBlockTransfer``).
 
 A connector hashes token prefixes into chain keys, asks the store how much
 of a prompt is already cached (``get_match_last_index``), and streams
@@ -486,6 +487,9 @@ class KVConnector:
         prefetch_pool: Optional[HostStagingPool] = None,
         priority: int = wire.PRIORITY_FOREGROUND,
         known_hit: Optional[int] = None,
+        retry_missing_s: float = 0.0,
+        retry_interval_s: float = 0.002,
+        fetch_gate=None,
     ) -> LayerwisePrefetch:
         """Begin the GATE-FREE half of a load: probe the store (one control
         round trip, skipped when ``known_hit`` is given) and start streaming
@@ -499,6 +503,18 @@ class KVConnector:
         Concurrent admissions' fetches coalesce into shared batched store
         reads (:class:`FetchCoalescer`) unless a ``prefetch_pool`` of the
         caller's is given. ``priority``: QoS class of the fetch's reads.
+
+        ``retry_missing_s``: the handoff's read-racing-write mode
+        (``disagg.py``): a decode engine fetching a prefix the prefill engine
+        is still shipping sees KeyNotFound for layers not published yet, and
+        with a nonzero deadline the prefetch re-probes them every
+        ``retry_interval_s`` instead of failing, so per-layer installs
+        (``install_layer``) ride out the race. Zero (the default) keeps
+        strict cache semantics. ``fetch_gate`` (``async fetch_gate(layer)``)
+        is the announce-driven variant: layer ``l``'s read waits for the
+        producer's announcement. Both modes bypass the coalescer (each
+        layer's reads go direct), so one stalled layer never holds up merged
+        group-mates.
 
         Raises :class:`~.cuda.staging.StagingPoolExhausted` (carrying the
         probe's ``hit_blocks``) when the arena cannot hold another pipeline;
@@ -526,13 +542,15 @@ class KVConnector:
         # coalescer path too (the closure reads it per call).
         pri_cell = {"value": priority}
         submit = None
-        if prefetch_pool is None:
+        if prefetch_pool is None and retry_missing_s <= 0 and fetch_gate is None:
             coalescer = self._ensure_coalescer(pool)
             submit = lambda blocks: coalescer.submit(blocks, priority=pri_cell["value"])  # noqa: E731
         try:
             handle = LayerwisePrefetch(
                 self.conn, pool, self.spec, self._key_fn(span), n, self.spec.num_layers,
                 submit=submit, priority=priority, priority_cell=pri_cell,
+                retry_missing_s=retry_missing_s, retry_interval_s=retry_interval_s,
+                fetch_gate=fetch_gate,
             )
         except StagingPoolExhausted as e:
             # The probe already ran: hand its answer to the fallback so a
@@ -550,15 +568,23 @@ class KVConnector:
         prefetch_pool: Optional[HostStagingPool] = None,
         priority: int = wire.PRIORITY_FOREGROUND,
         known_hit: Optional[int] = None,
+        retry_missing_s: float = 0.0,
+        retry_interval_s: float = 0.002,
+        fetch_gate=None,
     ) -> LayerwisePrefetch:
         """:meth:`start_fetch` for event-loop callers: the probe runs in the
         default executor, then the handle is built on the loop (its fetch
-        futures need the running loop)."""
+        futures need the running loop). ``known_hit`` skips the probe: the
+        overlapped handoff passes the block count the producer announced,
+        because a probe during an in-flight handoff sees only the layers
+        published so far."""
         if known_hit is None:
             known_hit = await asyncio.to_thread(self._lookup_chains, self._chains(token_ids))
         return self.start_fetch(
             token_ids, first_block=first_block, limit_blocks=limit_blocks,
             prefetch_pool=prefetch_pool, priority=priority, known_hit=known_hit,
+            retry_missing_s=retry_missing_s, retry_interval_s=retry_interval_s,
+            fetch_gate=fetch_gate,
         )
 
     def _ensure_prefetch_pool(self) -> HostStagingPool:
@@ -646,6 +672,52 @@ class KVConnector:
             return 2 * n
 
         return ship
+
+    async def handoff(
+        self,
+        token_ids,
+        caches,
+        src_block_ids: np.ndarray,
+        dst_block_ids: np.ndarray,
+        src: Optional[int] = None,
+        dst: Optional[int] = None,
+    ):
+        """Move a request's KV blocks from a producer to a consumer through
+        the store: save the blocks under the request's chain keys at
+        FOREGROUND priority (the consumer loads the same blocks next), then
+        load them into ``dst_block_ids``. The cross-process flow runs the
+        save on the producer and the load on the consumer; calling handoff
+        in one process does both. ``caches`` are per-layer
+        ``[num_blocks, *block]`` tensors, updated in place.
+
+        Only the request's complete token blocks move (an incomplete tail
+        block has no chain key). ``src``/``dst``, the interconnect shard
+        indices of the JAX package's same-mesh transport, are accepted and
+        not used: that transport waits for a port of ``IciBlockTransfer``,
+        and until then every handoff takes the store, as the JAX package's
+        does when no interconnect is bound. Returns (caches, blocks
+        moved)."""
+        chains = self._chains(token_ids)
+        n = min(len(src_block_ids), len(dst_block_ids), len(chains))
+        if n == 0:
+            return list(caches), 0
+        # The store path gathers along axis 0 = blocks, so a cache with an
+        # extra leading (device) axis would ship wrong bytes under valid
+        # keys: reject it.
+        block_shape = tuple(self.spec.block_shape)
+        for k_cache, v_cache in caches:
+            for c in (k_cache, v_cache):
+                if c.dim() != 1 + len(block_shape) or tuple(c.shape[1:]) != block_shape:
+                    raise ValueError(
+                        "handoff through the store needs per-layer caches of shape "
+                        f"[num_blocks, {', '.join(map(str, block_shape))}]; "
+                        f"got {tuple(c.shape)}"
+                    )
+        await self.save(
+            token_ids, caches, np.asarray(src_block_ids)[:n],
+            priority=wire.PRIORITY_FOREGROUND,
+        )
+        return await self.load(token_ids, caches, np.asarray(dst_block_ids)[:n])
 
     def get_stats(self) -> dict:
         """The store connection's per-op stats snapshot."""

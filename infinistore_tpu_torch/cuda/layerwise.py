@@ -1,8 +1,8 @@
 """Layer-wise streaming of paged KV blocks between device memory and the
 store (port of ``infinistore_tpu/tpu/layerwise.py``: the writer, the reader
-and the two-phase ``LayerwisePrefetch``; the prefetch's handoff modes,
-``retry_missing_s``/``fetch_gate`` and the per-layer ``install_layer``/
-``layer_ready``, serve only the disaggregation path and are not ported yet).
+and the two-phase ``LayerwisePrefetch``, with the handoff modes the
+disaggregation path uses: ``retry_missing_s``/``fetch_gate`` and the
+per-layer ``install_layer``/``layer_ready``).
 
 The store's latency trick: stream the KV cache layer by layer so network
 transfer overlaps per-layer work. Device-to-host copies (on a side stream)
@@ -352,8 +352,8 @@ class LayerwisePrefetch:
     [K blocks | V blocks] span, reserved from the pool as ONE lease. Layer
     L fetches into region ``L % regions``; with fewer regions than layers a
     region is refilled only after :meth:`install` consumed its occupant.
-    Consumed means: on CUDA, the occupant's host-to-device copy has landed
-    (a CUDA event, waited for off the event loop); on CPU, the upload is a
+    Consumed means: on CUDA, the occupant's host-to-device copy and scatter
+    have completed (a CUDA event, waited for off the event loop); on CPU, the upload is a
     ``torch.from_numpy`` view that the scatter (``index_copy_``) copies from
     before it returns, so the region is free once the scatter is issued.
 
@@ -376,11 +376,26 @@ class LayerwisePrefetch:
         submit=None,
         priority: int = wire.PRIORITY_FOREGROUND,
         priority_cell: Optional[dict] = None,
+        retry_missing_s: float = 0.0,
+        retry_interval_s: float = 0.002,
+        fetch_gate=None,
     ):
         """``submit(blocks)``: optional override for the store read (the
         connector's fetch coalescer); default is a direct
         ``read_cache_async`` at ``priority``. ``priority_cell``: the shared
         QoS cell a ``submit`` override reads, so :meth:`promote` reaches it.
+
+        ``retry_missing_s`` > 0 is the handoff mode: a layer's KeyNotFound
+        means "not shipped yet" while the decode side's fetch races the
+        prefill side's layer ships, so the read is re-probed every
+        ``retry_interval_s`` (each re-probe counts in :attr:`retry_stalls`)
+        until the deadline, after which the error keeps its miss semantics.
+        ``fetch_gate``: optional ``async fetch_gate(layer)`` awaited before
+        layer ``layer``'s store read issues, the announce-driven mode (the
+        producer signals each layer's publication, so the reader spends no
+        round trips on keys that cannot exist yet); it composes with
+        ``retry_missing_s``.
+
         Raises :class:`~.staging.StagingPoolExhausted` when the pool cannot
         hold even a double-buffered pipeline."""
         self.conn = conn
@@ -394,6 +409,17 @@ class LayerwisePrefetch:
         self._pri_cell = priority_cell if priority_cell is not None else {"value": priority}
         self.blocks_fetched = 0  # K+V blocks landed in staging
         self.blocks_installed = 0  # K+V blocks scattered to the device
+        self.retry_missing_s = retry_missing_s
+        self.retry_interval_s = retry_interval_s
+        self._fetch_gate = fetch_gate
+        self.retry_stalls = 0  # KeyNotFound re-probes (handoff read-racing-write)
+        self.wait_stalls = 0  # install_layer() calls that waited for staging
+        # install_layer's per-layer CUDA events (after the layer's scatter),
+        # the stream its uploads and scatters run on (CUDA only) and the
+        # block ids on the device, made at its first call.
+        self._ready: dict = {}
+        self._install_stream = None
+        self._layer_ids: Optional[torch.Tensor] = None
         self.fetch_started_s = time.perf_counter()
         self.fetch_finished_s: Optional[float] = None
         self._cancelled = False
@@ -455,6 +481,10 @@ class LayerwisePrefetch:
         return self._lease.offset + (layer % self.regions) * self._region_stride
 
     async def _fetch_layer(self, layer: int):
+        if self._fetch_gate is not None:
+            # Announce-driven handoff: wait for the producer's publication
+            # of this layer before spending a store round trip on it.
+            await self._fetch_gate(layer)
         if layer >= self.regions:
             # Double buffering: refill a region only once install consumed
             # (or discard wrote off) its previous occupant.
@@ -467,7 +497,7 @@ class LayerwisePrefetch:
             (self._key_fn(layer, "v", i), base + (n + i) * bn) for i in range(n)
         ]
         try:
-            await self._submit(blocks)
+            await self._submit_with_retry(blocks)
         except asyncio.CancelledError:
             self._cancel_rest()
             raise
@@ -485,6 +515,26 @@ class LayerwisePrefetch:
             self._staged[layer].set_result(layer % self.regions)
         if layer == self.num_layers - 1:
             self.fetch_finished_s = time.perf_counter()
+
+    async def _submit_with_retry(self, blocks):
+        """The store read, with the handoff mode's bounded KeyNotFound
+        re-probe loop (``retry_missing_s``): a key the prefill side has not
+        shipped yet is a stall, not a miss, until the deadline; after it the
+        error keeps its normal semantics and the caller's fallback takes
+        over."""
+        if self.retry_missing_s <= 0:
+            await self._submit(blocks)
+            return
+        deadline = time.perf_counter() + self.retry_missing_s
+        while True:
+            try:
+                await self._submit(blocks)
+                return
+            except InfiniStoreKeyNotFound:
+                if self._cancelled or time.perf_counter() >= deadline:
+                    raise
+                self.retry_stalls += 1
+                await asyncio.sleep(self.retry_interval_s)
 
     def _on_task_done(self, task):
         if not task.cancelled() and task.exception() is not None:
@@ -568,7 +618,7 @@ class LayerwisePrefetch:
 
     def _mark_consumed(self, layers, done, loop):
         """Mark regions consumed once the device holds their bytes: at once
-        on CPU (the scatter already copied them), after the upload's CUDA
+        on CPU (the scatter already copied them), after the scatter's CUDA
         event on CUDA, waited for in an executor so the event loop never
         blocks on it."""
 
@@ -592,20 +642,32 @@ class LayerwisePrefetch:
 
         loop.run_in_executor(None, wait_and_mark)
 
-    def _upload_and_scatter(self, caches, ids_dev, kv_host):
+    def _upload_and_scatter(self, caches, ids_dev, kv_host, stream=None):
         """Upload one span of staged layers and scatter it into the caches,
         every layer's K and V at once (K2 on CUDA: the packed span is
         ``[layer 0 K | layer 0 V | layer 1 K | ...]``, the layout of
-        ``scatter_blocks_many``). Returns (the per-layer caches, the upload's
-        event or None on CPU)."""
+        ``scatter_blocks_many``); ``ids_dev`` are the block ids on the
+        caches' device. Returns (the per-layer caches, a CUDA event recorded
+        after the scatter, or None on CPU): once it completed, the staged
+        bytes were read and the caches hold them.
+
+        Runs in an executor thread, whose current stream is that thread's
+        own default, not necessarily the caller's. ``stream`` (CUDA): run
+        the upload and the scatter on that stream instead; the caller has
+        ordered it after the caches' earlier writes."""
         device = caches[0][0].device
-        if device.type == "cuda":
-            kv_dev = kv_host.to(device, non_blocking=True)
+        flat = [t for kv in caches for t in kv]
+        if device.type != "cuda":
+            flat = scatter_blocks_many(flat, ids_dev, kv_host)
+            return [tuple(flat[2 * i : 2 * i + 2]) for i in range(len(caches))], None
+        stream = stream if stream is not None else torch.cuda.current_stream(device)
+        with torch.cuda.stream(stream):
+            flat = scatter_blocks_many(flat, ids_dev, kv_host.to(device, non_blocking=True))
+            for t in flat:
+                # The caches belong to the compute stream's allocations.
+                t.record_stream(stream)
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-        else:
-            kv_dev, done = kv_host, None
-        flat = scatter_blocks_many([t for kv in caches for t in kv], ids_dev, kv_dev)
+            done.record(stream)
         return [tuple(flat[2 * i : 2 * i + 2]) for i in range(len(caches))], done
 
     async def install(self, caches, block_ids: np.ndarray, on_layer=None):
@@ -694,3 +756,130 @@ class LayerwisePrefetch:
                 on_layer(layer, out[layer])
             self._mark_consumed([layer], done, loop)
         return out, n
+
+    # -- per-layer handles (the watermark-gated decode admission) ------------
+
+    def layer_ready(self, layer: int) -> bool:
+        """True once ``layer``'s bytes sit staged and healthy: the watermark
+        plane's non-blocking probe (the layers still in flight when the first
+        decode step launches are counted off it)."""
+        if self.n_blocks == 0:
+            return True
+        fut = self._staged[layer]
+        return fut.done() and not fut.cancelled() and fut.exception() is None
+
+    async def install_layer(self, caches, block_ids: np.ndarray, layer: int, on_layer=None):
+        """Install ONE layer's staged prefix, the watermark rule's unit of
+        admission: layer l's attention may run once ``install_layer(..., l)``
+        returned ok, while deeper layers are still on the network. Returns
+        ``(caches, ok)``; only ``caches[layer]`` changes (in place).
+
+        Call with strictly increasing ``layer``: region ``l % regions`` is
+        refilled only after layer ``l`` was consumed, so an earlier layer
+        installed after a later one may wait for ever. ``ok`` False means
+        the layer is unavailable (missing past the retry deadline, a store
+        failure, or discarded): the prefetch is written off and the caller
+        recomputes; a partial prefix is never reported as complete.
+
+        ``block_ids`` must be the same at every call: the first call puts
+        them on the device once for the whole prefetch.
+
+        Streams (CUDA). The caller's current stream is its compute stream.
+        The layer's upload (host-to-device copy) and K2 scatter run in an
+        executor thread on the prefetch's own install stream. At the first
+        call that stream waits, once, for an event recorded on the compute
+        stream (the caches' creation and every write queued before it), and
+        the block ids are copied to the device on it, through pinned
+        memory. Later installs queue behind it and never wait for the
+        compute stream again, so they overlap the decode's compute. The
+        caller must therefore not write ``caches[l]`` on the compute stream
+        between its first call and layer ``l``'s install (the decode writes
+        a layer's cache only after that layer's install). An event recorded
+        after the scatter is this layer's readiness, which
+        :meth:`wait_installed` makes the compute stream wait for on the
+        device, with no host synchronisation. The region is marked
+        consumed once that event has completed (waited for off the event
+        loop), as :meth:`install` does."""
+        if self._discarded:
+            raise PrefetchDiscarded("install_layer() after discard()")
+        out = list(caches)
+        if self.n_blocks == 0:
+            return out, True
+        n = self.n_blocks
+        if len(block_ids) != n:
+            raise ValueError(
+                f"install_layer needs exactly the {n} fetched blocks' placement, "
+                f"got {len(block_ids)} block ids"
+            )
+        if len(caches) != self.num_layers:
+            raise ValueError(
+                f"cache list has {len(caches)} layers, prefetch fetched {self.num_layers}"
+            )
+        if layer in self._installing:
+            raise ValueError(f"layer {layer} already installed")
+        if any(later > layer for later in self._installing):
+            raise ValueError(
+                f"install_layer({layer}) after layer {max(self._installing)}: layers "
+                "install in strictly increasing order"
+            )
+        fut = self._staged[layer]
+        if not fut.done():
+            # The compute side outran the transfer: a watermark stall.
+            self.wait_stalls += 1
+        try:
+            await asyncio.shield(fut)
+        except asyncio.CancelledError:
+            if not fut.cancelled():
+                raise  # the installing task was cancelled, not the fetch
+            self._write_off_uninstalled()
+            return out, False
+        except Exception:
+            # Missing past the retry deadline, shed load or a transport
+            # failure: one verdict for the watermark path, fall back.
+            self._cancel_rest()
+            self._write_off_uninstalled()
+            return out, False
+        if self._lease is None or self._lease._released:
+            return out, False
+        if self._layer_ids is None:
+            self._layer_ids = self._install_ids(block_ids, caches[0][0].device)
+        loop = asyncio.get_running_loop()
+        kv_host = self._host_kv(self._region_offset(layer), 1)
+        (out[layer],), done = await loop.run_in_executor(
+            None, self._upload_and_scatter, [out[layer]], self._layer_ids, kv_host,
+            self._install_stream)
+        self._ready[layer] = done
+        self._installing.add(layer)
+        self.blocks_installed += 2 * n
+        if on_layer is not None:
+            on_layer(layer, out[layer])
+        self._mark_consumed([layer], done, loop)
+        return out, True
+
+    def _install_ids(self, block_ids, device: torch.device) -> torch.Tensor:
+        """The block ids on ``device`` for every :meth:`install_layer`; on
+        CUDA also the install stream, ordered once after the compute
+        stream's work so far (the method's docstring)."""
+        if device.type != "cuda":
+            return _block_ids_on(block_ids, device)
+        after = torch.cuda.Event()
+        after.record(torch.cuda.current_stream(device))
+        self._install_stream = torch.cuda.Stream(device)
+        self._install_stream.wait_event(after)
+        with torch.cuda.stream(self._install_stream):
+            # Through pinned memory, so the copy queues on the stream and
+            # the event loop does not wait for the stream to reach it.
+            return (torch.as_tensor(np.asarray(block_ids), dtype=torch.int32)
+                    .pin_memory().to(device, non_blocking=True))
+
+    def wait_installed(self, layers=None) -> None:
+        """Make the current stream of the installed layers' device wait on
+        the device for the install of ``layers`` (default: every layer
+        installed so far). No host synchronisation; nothing to do on CPU,
+        where the scatter completed before :meth:`install_layer` returned."""
+        layers = sorted(self._ready) if layers is None else layers
+        for layer in layers:
+            ready = self._ready.get(layer)
+            if ready is None:
+                continue
+            torch.cuda.current_stream(self._install_stream.device).wait_event(ready)

@@ -5,9 +5,14 @@ from .llama import (
     LlamaConfig,
     decode_step,
     decode_step_batched,
+    decode_wave_layer,
+    embed_prompt,
+    embed_wave,
     init_params,
+    lm_logits,
     params_from_numpy,
     prefill,
+    prefill_layer,
     verify_step_batched,
 )
 
@@ -19,4 +24,9 @@ __all__ = [
     "decode_step",
     "decode_step_batched",
     "verify_step_batched",
+    "embed_prompt",
+    "prefill_layer",
+    "lm_logits",
+    "embed_wave",
+    "decode_wave_layer",
 ]

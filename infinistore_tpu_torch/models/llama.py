@@ -246,7 +246,12 @@ def prefill(
     config: LlamaConfig,
 ) -> Tuple[torch.Tensor, Caches]:
     """Full prompt pass; writes K/V into the paged cache blocks listed in
-    block_table. Returns (last-token logits [vocab], caches)."""
+    block_table. Returns (last-token logits [vocab], caches).
+
+    The chain of the layer entry points: ``embed_prompt``, ``prefill_layer``
+    for each layer, ``lm_logits`` over the last row only (the only row whose
+    logits are returned), so a streamed prefill (``disagg.stream_prefill``)
+    writes the same bytes and its logits are this function's bit for bit."""
     _set_numerics()
     tokens = _on(params, tokens, torch.long)
     block_table = _on(params, block_table, torch.int32)
@@ -257,21 +262,13 @@ def prefill(
             f"prefill needs S % block_tokens == 0 and one table entry per block "
             f"(S={s}, block_tokens={bt}, table {tuple(block_table.shape)})"
         )
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
-    x = params["embed"][tokens][None]  # [1, S, dim]
-
+    x = embed_prompt(params, tokens)  # [1, S, dim]
     new_caches: Caches = []
     for layer, (k_cache, v_cache) in enumerate(caches):
-        k, v = _kv_proj(params, layer, x, positions, config)
-        x = _block(params, layer, x, k, v, positions, None, config)
-        # Scatter this prompt's K and V into their cache blocks (one launch).
-        block = (s // bt, bt, config.n_kv_heads, config.head_dim)
-        new_caches.append(tuple(scatter_blocks_many(
-            (k_cache, v_cache), block_table, (k[0].reshape(block), v[0].reshape(block)))))
-    # Only the last row's logits are returned, so only it meets the LM head.
-    x = _rms_norm(x[:, -1:], params["final_norm"])
-    logits = x @ params["lm_head"]
-    return logits[0, -1], new_caches
+        x, k_cache, v_cache = prefill_layer(params, x, k_cache, v_cache, block_table,
+                                            config, layer)
+        new_caches.append((k_cache, v_cache))
+    return lm_logits(params, x[:, -1:])[0, -1], new_caches
 
 
 def decode_step(
@@ -319,46 +316,28 @@ def verify_step_batched(
     Each row inserts its K/V at (table[pos // bt], pos % bt), then one
     batched fused attention launch covers all B*K rows, each masked to its
     own position + 1. Requests own disjoint blocks; duplicate rows within a
-    request write identical bytes. Returns ([B, K, vocab] logits, caches)."""
+    request write identical bytes. The chain of ``embed_wave``,
+    ``decode_wave_layer`` for each layer and ``lm_logits``, the functions the
+    disaggregated decode (``disagg``) runs layer by layer. Returns ([B, K,
+    vocab] logits, caches)."""
     _set_numerics()
     tokens = _on(params, tokens, torch.long)
     positions = _on(params, positions, torch.int32)
     block_tables = _on(params, block_tables, torch.int32)
-    bsz, kk = tokens.shape
-    if tuple(block_tables.shape) != (bsz, max_blocks):
+    if tuple(positions.shape) != tuple(tokens.shape):
         raise ValueError(
-            f"block_tables must be [{bsz}, {max_blocks}] (one padded row per "
-            f"request), got {tuple(block_tables.shape)}"
+            f"positions must match tokens' {list(tokens.shape)}, got {tuple(positions.shape)}"
         )
-    if tuple(positions.shape) != (bsz, kk):
-        raise ValueError(
-            f"positions must match tokens' [{bsz}, {kk}], got {tuple(positions.shape)}"
-        )
-    bt = config.block_tokens
-    x = params["embed"][tokens]  # [B, K, dim]
-
-    flat_pos = positions.reshape(-1)  # [B*K]
-    block_idx = torch.gather(block_tables, 1, (positions // bt).long()).reshape(-1).long()
-    slots = (flat_pos % bt).long()
-    row_tables = block_tables.repeat_interleave(kk, dim=0)  # [B*K, max_blocks]
-    seq_lens = flat_pos + 1
-
+    x = embed_wave(params, tokens)  # [B, K, dim]
+    index = wave_index(positions, block_tables, config, max_blocks)
     new_caches: Caches = []
     for layer, (k_cache, v_cache) in enumerate(caches):
-        k, v = _kv_proj(params, layer, x, positions, config)  # [B, K, KVH, D]
-        k_cache[block_idx, slots] = k.reshape(bsz * kk, *k.shape[2:]).to(k_cache.dtype)
-        v_cache[block_idx, slots] = v.reshape(bsz * kk, *v.shape[2:]).to(v_cache.dtype)
-        pre = f"l{layer}."
-        q = _q_proj(params, layer, x, positions, config)  # [B, K, H, D]
-        attn = paged_decode_attention_batched(
-            q.reshape(bsz * kk, *q.shape[2:]), k_cache, v_cache, row_tables, seq_lens,
-        ).reshape(bsz, kk, -1)  # [B, K, H*D]
-        x = x + attn @ params[pre + "wo"].reshape(-1, config.dim)
-        x = _ffn(params, layer, x, config)
+        x, k_cache, v_cache = decode_wave_layer(
+            params, x, positions, k_cache, v_cache, block_tables, config, layer, max_blocks,
+            index=index,
+        )
         new_caches.append((k_cache, v_cache))
-    x = _rms_norm(x, params["final_norm"])
-    logits = x @ params["lm_head"]
-    return logits, new_caches
+    return lm_logits(params, x), new_caches
 
 
 def decode_step_batched(
@@ -482,3 +461,119 @@ def prefill_continue(
         params, tokens[None], positions[None], caches, block_table[None], config, max_blocks,
     )
     return logits[0], new_caches
+
+
+# ---------------------------------------------------------------------------
+# Layerwise inference entry points (the disaggregated prefill -> decode
+# handoff, ``disagg.py``). ``prefill`` and ``verify_step_batched`` are chains
+# of these functions, so a prefill engine can ship layer l's KV while layer
+# l + 1 computes and a decode engine can gate each layer's attention on that
+# layer's install alone, with one copy of each layer's math: the streamed
+# prefill, the fallback recompute and ``prefill`` write the same bytes, and
+# the watermarked, blocking and whole-step decodes give the same logits.
+# ---------------------------------------------------------------------------
+
+
+def embed_prompt(params: Params, tokens) -> torch.Tensor:
+    """[S] prompt tokens -> [1, S, dim] activations (the layerwise prefill
+    chain's entry)."""
+    return params["embed"][_on(params, tokens, torch.long)][None]
+
+
+def prefill_layer(
+    params: Params,
+    x: torch.Tensor,  # [1, S, dim] activations entering this layer
+    k_cache: torch.Tensor,  # this layer's paged K tensor, updated in place
+    v_cache: torch.Tensor,  # this layer's paged V tensor, updated in place
+    block_table,  # [S // block_tokens] int cache block ids
+    config: LlamaConfig,
+    layer: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer of the whole-prompt prefill: project this layer's K/V, run
+    the block (K4 on CUDA) and scatter the K/V into the layer's cache blocks
+    (K2, one launch for K and V). Returns ``(x_next, k_cache, v_cache)``:
+    ``x_next`` feeds ``layer + 1`` while the caller ships the freshly
+    scattered K/V."""
+    _set_numerics()
+    block_table = _on(params, block_table, torch.int32)
+    s = x.shape[1]
+    bt = config.block_tokens
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
+    k, v = _kv_proj(params, layer, x, positions, config)
+    x = _block(params, layer, x, k, v, positions, None, config)
+    block = (s // bt, bt, config.n_kv_heads, config.head_dim)
+    k_cache, v_cache = scatter_blocks_many(
+        (k_cache, v_cache), block_table, (k[0].reshape(block), v[0].reshape(block)))
+    return x, k_cache, v_cache
+
+
+def lm_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + LM head over [B, S, dim] activations (the layerwise
+    chains' exit; [B, S, vocab] logits)."""
+    return _rms_norm(x, params["final_norm"]) @ params["lm_head"]
+
+
+def embed_wave(params: Params, tokens) -> torch.Tensor:
+    """[B, K] wave tokens -> [B, K, dim] activations (the layerwise decode
+    chain's entry)."""
+    return params["embed"][_on(params, tokens, torch.long)]
+
+
+def wave_index(positions, block_tables, config: LlamaConfig, max_blocks: int):
+    """Where a wave's rows write and what they attend, shared by every layer
+    of a step: ``(block_idx [B*K], slots [B*K], row_tables [B*K, max_blocks],
+    seq_lens [B*K])``. Validates the shapes."""
+    bsz, kk = positions.shape
+    if tuple(block_tables.shape) != (bsz, max_blocks):
+        raise ValueError(
+            f"block_tables must be [{bsz}, {max_blocks}] (one padded row per "
+            f"request), got {tuple(block_tables.shape)}"
+        )
+    bt = config.block_tokens
+    flat_pos = positions.reshape(-1)  # [B*K]
+    block_idx = torch.gather(block_tables, 1, (positions // bt).long()).reshape(-1).long()
+    slots = (flat_pos % bt).long()
+    row_tables = block_tables.repeat_interleave(kk, dim=0)  # [B*K, max_blocks]
+    return block_idx, slots, row_tables, flat_pos + 1
+
+
+def decode_wave_layer(
+    params: Params,
+    x: torch.Tensor,  # [B, K, dim] activations entering this layer
+    positions,  # [B, K] int absolute positions
+    k_cache: torch.Tensor,  # this layer's paged K tensor, updated in place
+    v_cache: torch.Tensor,  # this layer's paged V tensor, updated in place
+    block_tables,  # [B, max_blocks] int (rows padded)
+    config: LlamaConfig,
+    layer: int,
+    max_blocks: int,
+    *,
+    index=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer of ``verify_step_batched``'s wave body: insert the wave's
+    K/V at (table[pos // bt], pos % bt) (indexed assignment), paged attention
+    over this layer's cache (K3 on CUDA), residual + FFN. Returns ``(x_next,
+    k_cache, v_cache)``. ``index``: the step's ``wave_index``, which a chain
+    computes once for all its layers (computed here when None).
+
+    The watermark-gated decode (``disagg.overlapped_decode``) calls this
+    only after this layer's prefix KV is installed, and the blocking path
+    chains the same function, so the two agree bit for bit."""
+    _set_numerics()
+    if index is None:
+        positions = _on(params, positions, torch.int32)
+        block_tables = _on(params, block_tables, torch.int32)
+        index = wave_index(positions, block_tables, config, max_blocks)
+    block_idx, slots, row_tables, seq_lens = index
+    bsz, kk = x.shape[:2]
+    k, v = _kv_proj(params, layer, x, positions, config)  # [B, K, KVH, D]
+    k_cache[block_idx, slots] = k.reshape(bsz * kk, *k.shape[2:]).to(k_cache.dtype)
+    v_cache[block_idx, slots] = v.reshape(bsz * kk, *v.shape[2:]).to(v_cache.dtype)
+    pre = f"l{layer}."
+    q = _q_proj(params, layer, x, positions, config)  # [B, K, H, D]
+    attn = paged_decode_attention_batched(
+        q.reshape(bsz * kk, *q.shape[2:]), k_cache, v_cache, row_tables, seq_lens,
+    ).reshape(bsz, kk, -1)  # [B, K, H*D]
+    x = x + attn @ params[pre + "wo"].reshape(-1, config.dim)
+    x = _ffn(params, layer, x, config)
+    return x, k_cache, v_cache

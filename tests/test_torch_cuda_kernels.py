@@ -18,8 +18,10 @@ its split edges, held to the JAX package's contract (within 1e-5 with f32
 q, 2e-2 with bf16 q, of its plain version and of K3 over the dequantised
 cache) with two launches bitwise equal and each row bitwise its solo
 launch; plus the layerwise writer/reader round trip through pinned staging
-on the card and one engine wave against sequential decode (within the
-engine's stated tolerance).
+on the card, one engine wave against sequential decode (within the
+engine's stated tolerance), and the overlapped prefill -> decode handoff
+(``disagg``) at a small f32 width: bitwise the local recompute on the card,
+within 2e-4 of the same legs on the CPU.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere (the decision is taken in
 a fixture, never at import). On the card:
@@ -1187,3 +1189,57 @@ def test_decode_family_at_every_launch_split_count(dev, width, d, h, kvh, dtype)
     assert torch.all(k8[0] == 0)
     _, tickets = _ext._WORKSPACE[(q.device, _ext.stream_of(q))]
     assert not tickets.any()
+
+
+def test_disagg_overlapped_leg_on_the_card_is_bitwise_its_local_leg(dev):
+    """The handoff on the card (K4 and K2 in the streamed prefill, K1 in the
+    ships, K2 in the per-layer installs on the install stream, K3 in the
+    decode layers): the overlapped and blocking legs are bitwise the local
+    recompute on the card, and every leg is within 2e-4 of the same leg on
+    the CPU (the plain versions), tokens identical."""
+    from infinistore_tpu_torch import config as tconfig
+    from infinistore_tpu_torch import disagg
+    from infinistore_tpu_torch import lib as tlib
+
+    cfg = disagg.demo_config(n_layers=4, dim=256, ffn_dim=256)  # head_dim 64
+    srv = tlib.start_local_server(prealloc_bytes=64 << 20, block_bytes=64 << 10)
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            conns = []
+
+            def make_conn():
+                c = tlib.InfinityConnection(tconfig.ClientConfig(
+                    host_addr="127.0.0.1", service_port=srv.port, log_level="error"))
+                c.connect()
+                conns.append(c)
+                return c
+
+            h = disagg.DisaggHarness(make_conn, cfg, num_blocks=16, req_blocks=2,
+                                     model_id=f"disagg-card-test-{device}", device=device)
+            try:
+                prompt = h.prompt(seed=1)
+
+                async def legs():
+                    got = {"local": (await h.run_local(prompt, gen_tokens=4))["result"]}
+                    got["overlapped"] = (await h.run_overlapped(
+                        prompt, watermark=1, gen_tokens=4))["result"]
+                    h.drop(prompt)
+                    got["blocking"] = (await h.run_blocking(prompt, gen_tokens=4))["result"]
+                    return got
+
+                out[device] = asyncio.run(legs())
+            finally:
+                h.close()
+                for c in conns:
+                    c.close()
+    finally:
+        srv.stop()
+    card, cpu = out["cuda"], out["cpu"]
+    for name in ("overlapped", "blocking"):
+        assert not card[name].fallback
+        assert np.array_equal(card[name].first_logits, card["local"].first_logits)
+        assert card[name].tokens == card["local"].tokens
+    for name, res in card.items():
+        np.testing.assert_allclose(res.first_logits, cpu[name].first_logits, rtol=0, atol=2e-4)
+        assert res.tokens == cpu[name].tokens

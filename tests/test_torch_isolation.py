@@ -91,6 +91,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     from infinistore_tpu_torch.cuda.kv_quant import QuantizedKVConnector
     from infinistore_tpu_torch.cuda.paged import PagedKVCacheSpec
     from infinistore_tpu_torch.cuda.staging import HostStagingPool
+    from infinistore_tpu_torch.disagg import DisaggHarness, demo_config
     from infinistore_tpu_torch.engine import ContinuousBatchingHarness, EngineKVAdapter
     from infinistore_tpu_torch.models import llama
 
@@ -113,10 +114,28 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     adapter = EngineKVAdapter(KVConnector(None, spec, "m", 4, device="cpu"))
     with pytest.raises(RuntimeError, match=no_card):
         ContinuousBatchingHarness(adapter, {}, cfg, 4, 2)
+    with pytest.raises(RuntimeError, match=no_card):
+        DisaggHarness(lambda: None, demo_config(n_layers=1))
     # Asked for the CPU explicitly, they run there.
     assert spec.make_caches(device="cpu")[0][0].device.type == "cpu"
     harness = ContinuousBatchingHarness(adapter, {}, cfg, 4, 2, device="cpu")
     assert harness.caches[0][0].device.type == "cpu"
+    disagg_harness = DisaggHarness(lambda: None, demo_config(n_layers=1), device="cpu")
+    assert disagg_harness.params["embed"].device.type == "cpu"
+    assert disagg_harness.fresh_caches()[0][0].device.type == "cpu"
+    # The prefill role's process, with no card visible and no --device, raises
+    # before it connects to anything (the port it is given has no store).
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "infinistore_tpu_torch.disagg", "--port", "1"],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert no_card in out.stderr
+    # The store server needs no card: its module starts without one
+    # (tests/test_torch_disagg_overlap.py drives it on its ports).
+    out = subprocess.run([sys.executable, "-m", "infinistore_tpu_torch.server", "--help"],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--manage-port" in out.stdout
 
 
 def test_register_mr_refuses_tensors_off_the_cpu():
