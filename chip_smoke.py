@@ -144,6 +144,31 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    the first and the last layer's caches of an overlapped leg), within
    2e-2, two launches bitwise equal. Each leg's TTFT, the overlap counters
    and the bytes shipped are logged, round by round.
+10. The multi-server KV pool (``cluster``) at Llama-3-8B width (bf16, the
+   main path's weights): four in-process servers (2 GiB each, 32 KiB
+   units), a ``ClusterKVConnector`` over three of them (R=2, strict,
+   a durable journal, breakers that open on one transport error) and 4 x
+   2,048-token prompts chosen so that every member owns a root and prompt
+   0's owner owns a second once the fourth server is in the placement.
+   Legs: engine A prefills the prompts (K4, K2); three are saved through
+   ``save`` (mirrored to owner and runner-up, K1 on each; ``mirror_writes``
+   must be 3) and the last through ``stage_layer_save`` layer by layer to
+   its owner alone (layer 0 last); engine B looks up and loads all four
+   (routed, K2); the fourth server joins (``add_member``, ``wait=True``),
+   after which every prompt, the layer-streamed one included, must have two
+   complete holders in the catalog, and engine B loads them again; prompt
+   0's owner stops and engine C loads all four (failover: its breaker must
+   open and ``replica_serves`` cover its roots); ``mark_dead`` re-replicates
+   its roots (two live holders a root again) and engine C loads them again;
+   every prompt is dropped, after which no member holds a key and the
+   catalog is empty. Each load leg: ``lookup`` hits all 128 blocks, the
+   loaded blocks equal engine A's, and 16 greedy decode steps at B=4 (K3)
+   are bitwise engine A's own decode. K1-K4 must launch on the path, every
+   K4 on the tensor cores and every K1/K2 on the bulk ring. The save and
+   load GB/s of each leg (logical bytes, one copy), the join's and the
+   death's reshard (roots, bytes, seconds), ``replica_serves``,
+   ``mirror_writes``, breaker trips and each member's ``used_bytes`` are
+   logged.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -232,18 +257,26 @@ PATH_KERNELS = {
     "int8_engine": ENGINE_KERNELS,
     "sharded_decode": ("paged_decode_attention_stats", "paged_decode_attention_ragged_stats"),
     "disagg": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
+    "cluster": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
-BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg")
+BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster")
 # Paths whose every K1/K2 launch moves 16-byte aligned blocks, so must take
 # the TMA bulk ring.
-BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine", "disagg")
+BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine", "disagg",
+                   "cluster")
 # The disagg path: greedy tokens a leg, the fallback leg's retry deadline, and
 # rounds of its five legs (the first pays every first use: pinned staging,
 # the prefetch arena's page locking, the store pool's first touch).
 DISAGG_GEN_TOKENS = 4
 DISAGG_FALLBACK_RETRY_S = 0.05
 DISAGG_ROUNDS = 3
+# The cluster path: serving members at start (a fourth server joins), each a
+# 2 GiB store in 32 KiB units (one K or V block of a layer), R=2.
+CLUSTER_MEMBERS = 3
+CLUSTER_STORE_BYTES = 2 << 30
+CLUSTER_BLOCK_BYTES = 32 << 10
+CLUSTER_RESHARD_TIMEOUT_S = 600.0
 
 
 def log(msg: str) -> None:
@@ -1988,6 +2021,305 @@ def disagg_phase(torch, server_port, params, smi):
     return launches, summary
 
 
+def _cluster_prompts(np, cluster, joiner_id, vocab, prompt_tokens, bt):
+    """``PROMPTS`` prompts (from seed 3) such that every serving member owns
+    a root, and prompt 0's owner owns a second once the joiner is in the
+    placement too (so the member that dies takes two roots with it)."""
+    from infinistore_tpu_torch.cluster import rendezvous_ranked
+    from infinistore_tpu_torch.connector import token_chain_hashes
+
+    rng = np.random.default_rng(3)
+    members = list(cluster.member_ids)
+    grown = members + [joiner_id]
+    for _ in range(10000):
+        prompts = [rng.integers(0, vocab, prompt_tokens).tolist() for _ in range(PROMPTS)]
+        roots = [token_chain_hashes(p[:bt], bt)[0] for p in prompts]
+        owners = [rendezvous_ranked(members, r)[0] for r in roots]
+        owners4 = [rendezvous_ranked(grown, r)[0] for r in roots]
+        if set(owners) == set(range(len(members))) and owners4.count(owners4[0]) > 1:
+            return prompts
+    raise AssertionError("cluster: no prompt set covers every member")
+
+
+def _cluster_holders(cluster, prompts, nb, bt):
+    """Each prompt's complete holders in the catalog (member ids at level
+    ``nb``), for the readable members of the current view."""
+    from infinistore_tpu_torch.connector import token_chain_hashes
+
+    readable = set(cluster.membership.view().readable_ids())
+    out = []
+    for p in prompts:
+        rec = cluster.catalog_get(token_chain_hashes(p[:bt], bt)[0])
+        holders = {} if rec is None else rec.holders
+        out.append(sorted(m for m, lv in holders.items() if lv >= nb and m in readable))
+    return out
+
+
+def _run_cluster(torch, params, cfg, device, prompt_tokens=PROMPT_TOKENS,
+                 store_bytes=CLUSTER_STORE_BYTES, block_bytes=CLUSTER_BLOCK_BYTES):
+    """The multi-server KV pool's path (module docstring, phase 10): four
+    in-process servers, a ``ClusterKVConnector`` (R=2, strict, durable
+    journal, breakers that open on one transport error) over three of them,
+    and the legs save, routed load, join (and a load), owner death (a
+    failover load, ``mark_dead``, a load after the re-replication) and
+    drop. Every load leg: ``lookup`` hits every block, the loaded blocks
+    are engine A's bytes, and ``DECODE_STEPS`` greedy steps at B=``PROMPTS``
+    are bitwise engine A's own decode. Raises on the first failed check.
+    Returns (summary, launches); the launches are those of the whole path."""
+    import tempfile
+
+    import numpy as np
+
+    from infinistore_tpu_torch import config as config_mod
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch import telemetry
+    from infinistore_tpu_torch.cluster import CircuitBreaker, ClusterKVConnector
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    bt = cfg.block_tokens
+    nb = prompt_tokens // bt
+    max_blocks = -(-(prompt_tokens + DECODE_STEPS) // bt)
+    num_blocks = PROMPTS * max_blocks + 8
+    spec = cfg.kv_spec(num_blocks)
+    kv_bytes = nb * spec.block_nbytes * 2 * cfg.n_layers  # one prompt's K and V
+    rng = np.random.default_rng(4)
+    tables_a = torch.arange(PROMPTS * max_blocks, dtype=torch.int32,
+                            device=device).reshape(PROMPTS, max_blocks)
+    tables_b, tables_c = (
+        torch.from_numpy(rng.permutation(num_blocks)[: PROMPTS * max_blocks].astype(np.int32))
+        .to(device).reshape(PROMPTS, max_blocks)
+        for _ in range(2)
+    )
+    servers, conns, cluster = [], [], None
+    journal_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_")
+    summary = {"prompt_tokens": prompt_tokens, "prompts": PROMPTS,
+               "kv_bytes_per_prompt": kv_bytes, "store_bytes": store_bytes,
+               "block_bytes": block_bytes, "loads": {}}
+
+    def stats():
+        out = {}
+        for i, conn in enumerate(conns):
+            mid = f"127.0.0.1:{servers[i].port}"
+            if cluster is not None and cluster.membership.view().state_of(mid) == "dead":
+                continue
+            st = conn.get_stats()
+            out[mid] = {"used_bytes": st["used_bytes"], "keys": st["kvmap_len"]}
+        return out
+
+    def reshard_counts():
+        pr = cluster.resharder.progress()
+        return {k: pr[k] for k in ("reshard_moved_roots", "reshard_moved_keys",
+                                   "reshard_moved_bytes", "reshard_pruned_keys",
+                                   "reshard_debt_roots", "reshard_lost_roots")}
+
+    try:
+        for _ in range(CLUSTER_MEMBERS + 1):
+            servers.append(lib_mod.start_local_server(
+                prealloc_bytes=store_bytes, block_bytes=block_bytes, pin_memory=False))
+            # As the cluster's own dial: reconnecting, a 1 s connect timeout.
+            conns.append(lib_mod.InfinityConnection(config_mod.ClientConfig(
+                host_addr="127.0.0.1", service_port=servers[-1].port, log_level="error",
+                auto_reconnect=True, connect_timeout_ms=1000, op_timeout_ms=5000)))
+            conns[-1].connect()
+        cluster = ClusterKVConnector(
+            conns[:CLUSTER_MEMBERS], spec, "llama-3-8b-cluster", nb, replicas=2, degrade=False,
+            journal_path=os.path.join(journal_dir.name, "catalog.journal"),
+            breaker_factory=lambda i: CircuitBreaker(fail_threshold=1, seed=i), device=device)
+        joiner_id = f"127.0.0.1:{servers[-1].port}"
+        prompts = _cluster_prompts(np, cluster, joiner_id, cfg.vocab, prompt_tokens, bt)
+        summary["owners"] = [cluster.owner_index(p) for p in prompts]
+        caches_a, caches_b, caches_c = (spec.make_caches(device) for _ in range(3))
+
+        def ids(table, p):
+            return table[p, :nb].cpu().numpy()
+
+        _ext.reset_launches()
+        telemetry.reset()  # the breaker_open events counted below are this path's
+        # Leg 1, save: engine A prefills (K4, K2); prompts 0..PROMPTS-2 are
+        # mirrored by cluster.save (K1 on each replica), the last one
+        # streams layer by layer to its owner (layer 0, the presence
+        # sentinel, last).
+        first = []
+        for p in range(PROMPTS):
+            logits, caches_a = llama.prefill(params, prompts[p], caches_a, tables_a[p, :nb],
+                                             cfg)
+            first.append(logits.argmax())
+        first_tokens = torch.stack(first)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        for p in range(PROMPTS - 1):
+            written = asyncio.run(cluster.save(prompts[p], caches_a, ids(tables_a, p)))
+            if written != 2 * nb * cfg.n_layers:
+                raise AssertionError(f"cluster: save of prompt {p} wrote {written} blocks")
+        mirrored_s = time.perf_counter() - t0
+        mirror_writes = cluster.health()["qos"]["mirror_writes"]
+        if mirror_writes != PROMPTS - 1:
+            raise AssertionError(f"cluster: {mirror_writes} mirror writes, expected "
+                                 f"{PROMPTS - 1}")
+        last = PROMPTS - 1
+
+        async def stream_last():
+            order = list(range(1, cfg.n_layers)) + [0]
+            for layer in order:
+                ship = cluster.stage_layer_save(prompts[last], layer, caches_a[layer],
+                                                ids(tables_a, last))
+                if await ship() != 2 * nb:
+                    raise AssertionError(f"cluster: layer {layer} of prompt {last} shipped "
+                                         "short")
+
+        t0 = time.perf_counter()
+        asyncio.run(stream_last())
+        streamed_s = time.perf_counter() - t0
+        holders = _cluster_holders(cluster, prompts, nb, bt)
+        if any(len(h) != 2 for h in holders[:last]) or len(holders[last]) != 1:
+            raise AssertionError(f"cluster: catalog holders after the saves {holders}")
+        summary["save"] = {
+            "mirrored_s": mirrored_s, "layer_streamed_s": streamed_s,
+            "cluster_save_GBps": {"mirrored": (PROMPTS - 1) * kv_bytes / mirrored_s / 1e9,
+                                  "layer_streamed": kv_bytes / streamed_s / 1e9},
+            "mirror_writes": mirror_writes, "holders": holders, "members": stats(),
+        }
+        oracle = _decode_wave(torch, llama, params, cfg, caches_a, tables_a, first_tokens,
+                              max_blocks, prompt_tokens)
+
+        def load_leg(name, caches, table):
+            """Every prompt through lookup and load into zeroed caches, the
+            bytes held against engine A's, and the decode against A's."""
+            for k, v in caches:
+                k.zero_()
+                v.zero_()
+            t0 = time.perf_counter()
+            hits = [cluster.lookup(p) for p in prompts]
+            lookup_s = time.perf_counter() - t0
+            if hits != [nb] * PROMPTS:
+                raise AssertionError(f"cluster {name}: lookup found {hits} blocks, expected "
+                                     f"{nb}")
+            t0 = time.perf_counter()
+            for p in range(PROMPTS):
+                caches, n = asyncio.run(cluster.load(prompts[p], caches, ids(table, p)))
+                if n != nb:
+                    raise AssertionError(f"cluster {name}: load of prompt {p} brought {n} "
+                                         "blocks")
+            _sync(torch, device)
+            load_s = time.perf_counter() - t0
+            for layer in range(cfg.n_layers):
+                for kind in (0, 1):
+                    for p in range(PROMPTS):
+                        if not torch.equal(caches[layer][kind][table[p, :nb].long()],
+                                           caches_a[layer][kind][tables_a[p, :nb].long()]):
+                            raise AssertionError(f"cluster {name}: layer {layer} kind {kind} "
+                                                 f"prompt {p}: loaded bytes differ")
+            got = _decode_wave(torch, llama, params, cfg, caches, table, first_tokens,
+                               max_blocks, prompt_tokens)
+            for step, (la, lb) in enumerate(zip(oracle, got)):
+                if not bool(torch.isfinite(lb.float()).all()) or not torch.equal(la, lb):
+                    raise AssertionError(f"cluster {name}: decode step {step} differs from "
+                                         "engine A's")
+            # The lookups go first, so the first op against a dead member
+            # is in lookup_s.
+            summary["loads"][name] = {"lookup_s": lookup_s, "load_s": load_s,
+                                      "cluster_load_GBps": PROMPTS * kv_bytes / load_s / 1e9}
+            log(f"cluster {name}: {PROMPTS} prompts loaded byte-equal in {load_s:.3f} s, "
+                f"{DECODE_STEPS} decode steps bitwise engine A's")
+            return caches
+
+        # Leg 2, routed load (engine B).
+        caches_b = load_leg("routed", caches_b, tables_b)
+
+        # Leg 3, join: the resharder moves the rendezvous delta, and the
+        # reconcile pass mirrors the layer-streamed prompt.
+        t0 = time.perf_counter()
+        cluster.add_member(conns[-1], wait=True, timeout=CLUSTER_RESHARD_TIMEOUT_S)
+        join_s = time.perf_counter() - t0
+        counts = reshard_counts()
+        if not cluster.membership.settled or counts["reshard_debt_roots"] != 0:
+            raise AssertionError(f"cluster: the join did not settle: {counts}")
+        holders = _cluster_holders(cluster, prompts, nb, bt)
+        if any(len(h) < 2 for h in holders):
+            raise AssertionError(f"cluster: holders {holders} after the join (prompt {last} "
+                                 "must have a second)")
+        summary["join"] = {"s": join_s, **counts, "holders": holders,
+                           "GBps": counts["reshard_moved_bytes"] / join_s / 1e9,
+                           "members": stats()}
+        caches_b = load_leg("after_join", caches_b, tables_b)
+
+        # Leg 4, owner death: prompt 0's owner stops; engine C fails over.
+        victim = cluster.owner_index(prompts[0])
+        victim_id = cluster.member_ids[victim]
+        victim_roots = [p for p in range(PROMPTS) if cluster.owner_index(prompts[p]) == victim]
+        served = {i: h["replica_serves"] for i, h in enumerate(cluster.health()["members"])}
+        servers[victim].stop()
+        caches_c = load_leg("failover", caches_c, tables_c)
+        health = cluster.health()["members"]
+        serves = sum(h["replica_serves"] - served.get(i, 0) for i, h in enumerate(health))
+        if health[victim]["breaker_state"] == "closed":
+            raise AssertionError(f"cluster: the dead member's breaker is {health[victim]}")
+        if serves < len(victim_roots):
+            raise AssertionError(f"cluster: {serves} replica serves for {len(victim_roots)} "
+                                 "roots of the dead member")
+        before = reshard_counts()
+        t0 = time.perf_counter()
+        cluster.mark_dead(victim_id, wait=True, timeout=CLUSTER_RESHARD_TIMEOUT_S)
+        dead_s = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in reshard_counts().items()}
+        holders = _cluster_holders(cluster, prompts, nb, bt)
+        if reshard_counts()["reshard_debt_roots"] != 0 or any(len(h) < 2 for h in holders):
+            raise AssertionError(f"cluster: after mark_dead, holders {holders}, {counts}")
+        summary["death"] = {"member": victim_id, "roots": len(victim_roots),
+                            "replica_serves": serves,
+                            "breaker": health[victim]["breaker_state"],
+                            "transport_errors": health[victim]["errors"], "s": dead_s,
+                            "GBps": counts["reshard_moved_bytes"] / dead_s / 1e9, **counts,
+                            "holders": holders, "members": stats()}
+        caches_c = load_leg("after_rereplication", caches_c, tables_c)
+        _sync(torch, device)
+        launches = dict(_ext.LAUNCHES)
+
+        # Leg 5, drop: no key and no catalog record is left.
+        for p in prompts:
+            if cluster.drop(p) == 0:
+                raise AssertionError("cluster: a drop deleted nothing")
+        left = {mid: st["keys"] for mid, st in stats().items()}
+        live = [i for i, mid in enumerate(cluster.member_ids) if mid != victim_id]
+        hits = [cluster.members[i].lookup(p) for i in live for p in prompts]
+        catalog = cluster.membership_status()["reshard_catalog_roots"]
+        if any(left.values()) or any(hits) or catalog:
+            raise AssertionError(f"cluster: after the drops keys {left}, lookups {hits}, "
+                                 f"catalog roots {catalog}")
+        health = cluster.health()
+        summary["replica_serves"] = sum(h["replica_serves"] for h in health["members"])
+        summary["mirror_writes"] = health["qos"]["mirror_writes"]
+        summary["breaker_trips"] = sum(1 for e in telemetry.get_journal().snapshot()
+                                       if e["kind"] == "breaker_open")
+        return summary, launches
+    finally:
+        if cluster is not None:
+            cluster.close()
+        for conn in conns:
+            conn.close()
+        for srv in servers:
+            srv.stop()
+        journal_dir.cleanup()
+
+
+def cluster_phase(torch, params, smi):
+    """Phase 10: Llama-3-8B width, bf16, on the card. Returns (launches,
+    summary)."""
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **LLAMA3_8B)
+    t0 = time.perf_counter()
+    summary, launches = _run_cluster(torch, params, cfg, "cuda")
+    summary = {"card": smi, "wall_s": time.perf_counter() - t0, **summary}
+    log("cluster: every load leg (routed, after the join, failover, after the re-replication) "
+        "byte-equal and decoding bitwise engine A's; the layer-streamed prompt mirrored by the "
+        "join; two live holders a root after mark_dead; no key left after the drops")
+    log(f"cluster: {json.dumps(summary)}")
+    log(f"cluster launches: {json.dumps(launches)}")
+    return launches, summary
+
+
 def _build_all(torch):
     """Compile the kernels (nvcc) while the native store library builds
     (g++, at its first import), and K5's and K7's source with the split
@@ -2099,6 +2431,9 @@ def main() -> int:
         paths["disagg"], _ = disagg_phase(torch, server.port, params, smi)
     finally:
         server.stop()
+    # The multi-server pool reuses them too, over servers of its own.
+    torch.cuda.empty_cache()
+    paths["cluster"], _ = cluster_phase(torch, params, smi)
     del params
     torch.cuda.empty_cache()
 

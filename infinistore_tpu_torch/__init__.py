@@ -1,13 +1,13 @@
 """infinistore_tpu_torch: the KV-cache store's client side on PyTorch and CUDA.
 
 The PyTorch port of ``infinistore_tpu``. The store itself (native core,
-client, server) is framework-neutral and kept here as copies; what touches
-device memory (the paged cache, its staging to host, the layerwise writer and
-reader, the connector and the model) is rewritten on torch tensors, and the
-TPU kernels (paged block copies, batched, ragged, sharded and int8 paged
-decode, flash prefill) are hand-written CUDA kernels for Hopper
-(``cuda/csrc``). The package imports nothing of
-``infinistore_tpu`` and never imports jax.
+client, server, membership, fault injection) is framework-neutral and kept
+here as copies; what touches device memory (the paged cache, its staging to
+host, the layerwise writer and reader, the connector, the cluster over it and
+the model) is rewritten on torch tensors, and the TPU kernels (paged block
+copies, batched, ragged, sharded and int8 paged decode, flash prefill) are
+hand-written CUDA kernels for Hopper (``cuda/csrc``). The package imports
+nothing of ``infinistore_tpu`` and never imports jax.
 
 Importing the package loads nothing: every name resolves lazily, so neither
 the native library (compiled at first use of ``lib``) nor torch is pulled in
@@ -24,9 +24,12 @@ _LAZY = {
     "lib": (
         "InfiniStoreColdTier", "InfiniStoreException", "InfiniStoreKeyNotFound",
         "InfiniStoreNoMatch", "InfiniStoreResourcePressure", "InfinityConnection",
-        "LocalServer", "Logger", "start_local_server",
+        "LocalServer", "Logger", "StripedConnection", "start_local_server",
     ),
     "connector": ("FetchCoalescer", "KVConnector", "token_chain_hashes"),
+    "cluster": ("CircuitBreaker", "ClusterKVConnector", "rendezvous_owner", "rendezvous_ranked"),
+    "membership": ("MemberState", "Membership", "MembershipView", "Resharder"),
+    "faults": ("FaultRule", "FaultyConnection", "kill_transport"),
     "engine": (
         "BlockPool", "ContinuousBatchingHarness", "DeviceGate", "EngineKVAdapter",
         "NGramDrafter", "RequestStats", "WaveCounters", "WaveDecoder",

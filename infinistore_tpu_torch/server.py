@@ -1,15 +1,14 @@
 """Server CLI + HTTP management plane.
 
 Copy of ``infinistore_tpu/server.py`` for the PyTorch port, which imports
-nothing of ``infinistore_tpu``; keep the two in step. Three places differ
+nothing of ``infinistore_tpu``; keep the two in step. Two places differ
 from the original beyond the package name: ``_disagg_status`` and
 ``_engine_wave_status`` observe ``infinistore_tpu_torch.disagg`` and
 ``infinistore_tpu_torch.engine`` in ``sys.modules`` (the port's counters,
-not the JAX package's), and ``from .membership import MemberState`` in
-``ManageServer._sweep_owned_conns`` stays lazy: the port has no
-``membership`` module yet, and that line is reached only with a cluster
-attached (``ManageServer(config, cluster=...)``), which the port cannot
-build yet.
+not the JAX package's). With a port ``ClusterKVConnector`` attached
+(``ManageServer(config, cluster=...)``) it serves ``/membership`` GET/POST,
+``/gossip``, ``/bootstrap`` and ``/tiers`` through the port's own
+``membership`` copy, imported lazily as in the original.
 
 TPU-native rebuild of the reference's infinistore/server.py (argparse
 :42-148, periodic evict task :157-186, OOM-score protection :151-154, FastAPI

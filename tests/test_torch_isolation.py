@@ -5,9 +5,11 @@
 - ``import infinistore_tpu_torch`` is light: it pulls in neither jax, triton
   nor the JAX package, and compiles nothing (the native library and the
   kernels are built at first use).
+- The cluster, membership and fault-injection modules import neither jax
+  nor the kernels, and resolve lazily from the package.
 - Without a card, an entry point called without ``device=`` raises instead
-  of running on the CPU, and the client library refuses to register a
-  tensor that does not live on the CPU.
+  of running on the CPU (the cluster's default member factory too), and the
+  client library refuses to register a tensor that does not live on the CPU.
 """
 
 import ast
@@ -52,6 +54,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     ]
     assert offenders == []
     assert sum(1 for _ in _port_sources()) > 10  # the scan saw the package
+    scanned = {os.path.relpath(path, PORT) for path in _port_sources()}
+    assert {"cluster.py", "membership.py", "faults.py"} <= scanned
 
 
 def test_package_import_is_light_and_builds_nothing():
@@ -76,6 +80,14 @@ def test_package_import_is_light_and_builds_nothing():
                      if m.split(".")[0] in ("jax", "jaxlib", "triton", "infinistore_tpu"))
         assert not bad, bad
         assert "infinistore_tpu_torch._native" not in sys.modules
+        # The cluster's names resolve lazily: nothing of it, of membership
+        # or of fault injection is imported with the package.
+        for name in ("ClusterKVConnector", "CircuitBreaker", "rendezvous_owner",
+                     "rendezvous_ranked", "MemberState", "Membership", "MembershipView",
+                     "Resharder", "FaultRule", "FaultyConnection", "kill_transport"):
+            assert name in infinistore_tpu_torch.__all__, name
+        for mod in ("cluster", "membership", "faults", "lib", "connector"):
+            assert f"infinistore_tpu_torch.{mod}" not in sys.modules, mod
         print("light")
         """
     )
@@ -86,7 +98,38 @@ def test_package_import_is_light_and_builds_nothing():
     assert out.stdout.strip() == "light"
 
 
+def test_cluster_modules_import_neither_jax_nor_kernels():
+    """The cluster, membership and fault-injection modules load the store
+    library (built from ``native/`` if it is not yet) and nothing else: no
+    jax, no triton, nothing of the JAX package, no kernel library; and the
+    package's lazy names are those modules' objects."""
+    script = textwrap.dedent(
+        """
+        import sys
+        import infinistore_tpu_torch as itt
+        from infinistore_tpu_torch import cluster, faults, membership
+        from infinistore_tpu_torch.cuda import _ext
+        assert _ext._lib is None, "kernel library loaded at import"
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "triton", "infinistore_tpu"))
+        assert not bad, bad
+        assert itt.ClusterKVConnector is cluster.ClusterKVConnector
+        assert itt.CircuitBreaker is cluster.CircuitBreaker
+        assert itt.Resharder is membership.Resharder
+        assert itt.MemberState is membership.MemberState
+        assert itt.FaultyConnection is faults.FaultyConnection
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from infinistore_tpu_torch.cluster import ClusterKVConnector
     from infinistore_tpu_torch.connector import KVConnector
     from infinistore_tpu_torch.cuda.kv_quant import QuantizedKVConnector
     from infinistore_tpu_torch.cuda.paged import PagedKVCacheSpec
@@ -116,6 +159,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         ContinuousBatchingHarness(adapter, {}, cfg, 4, 2)
     with pytest.raises(RuntimeError, match=no_card):
         DisaggHarness(lambda: None, demo_config(n_layers=1))
+    fake = types.SimpleNamespace(config=types.SimpleNamespace(host_addr="h", service_port=1))
+    with pytest.raises(RuntimeError, match=no_card):
+        ClusterKVConnector([fake], spec, "m", 4)
     # Asked for the CPU explicitly, they run there.
     assert spec.make_caches(device="cpu")[0][0].device.type == "cpu"
     harness = ContinuousBatchingHarness(adapter, {}, cfg, 4, 2, device="cpu")
