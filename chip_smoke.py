@@ -169,10 +169,64 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    death's reshard (roots, bytes, seconds), ``replica_serves``,
    ``mirror_writes``, breaker trips and each member's ``used_bytes`` are
    logged.
+11. The vLLM v1 connector (``InfiniStoreKVConnectorV1``) at Llama-3-8B
+   width (bf16, the main path's weights, block 16; a fresh 2 GiB store in
+   32 KiB units) under a vLLM-shaped scheduler and runner written here:
+   duck-typed ``Request`` / ``NewRequestData`` / ``CachedRequestData`` /
+   ``SchedulerOutput`` objects, and each engine's scheduler half and worker
+   half as separate instances over separate connectors and connections.
+   Every runner step is ``bind_connector_metadata``, ``start_load_kv``, per
+   layer ``wait_for_layer_load`` -> the layer's forward -> ``save_kv_layer``,
+   then ``wait_for_save`` and ``clear_connector_metadata``. Engine A: 4
+   2,048-token prompts, all misses, in two chunked-prefill steps of 1,024
+   scheduled tokens (the second through ``scheduled_cached_reqs``, with no
+   prompt tokens and the next 64 blocks); the first chunk's layers run
+   ``prefill_layer`` (K4, K2), the second's ``decode_wave_layer`` (K3 over
+   the first chunk's blocks); each step saves its blocks layer by layer
+   (K1). After it every prompt's lookup must hit all 128 blocks. Engine B
+   (fresh caches, other block ids): the 4 prompts plus a 16-token suffix;
+   the scheduler must promise 2,048 tokens each; ``start_load_kv`` runs
+   the concurrent ``start_fetch_async`` phase and the sequential installs
+   (K2) on the connector's load stream, and each layer's suffix
+   (``decode_wave_layer``, K3) runs behind its ``wait_for_layer_load`` and
+   saves the suffix block (K1). Before ``wait_for_save`` a third
+   connector's lookup of prompt + suffix must read 128 blocks, after it 129
+   (the layer-0 sentinel commits last). Then 16 greedy decode steps at B=4
+   (K3). Oracle: engine A runs the same suffix through the same layer
+   functions and the same 16 steps on its own caches, with no store;
+   engine B's loaded blocks must be byte-equal to A's, and its suffix and
+   decode logits bitwise A's. Each step's wall, the host time of its loads
+   (``load_GBps``) and saves (``save_GBps``, from the first
+   ``save_kv_layer`` to ``wait_for_save``'s return), the load against the
+   sum of the runner's layer waits, and the time from B's first probe to
+   its first decode logits are logged. K1-K4 must launch, every K4 on the
+   tensor cores and every K1/K2 on the bulk ring. The kernel phase also
+   times K3 at this path's suffix launch (4 requests x 16 rows, 130-block
+   tables, contexts 2,049-2,064) and at the disagg path's decode step (one
+   row, a 129-block table).
+12. The serving surface's command-line entry points, short: the port's
+   benchmark CLI (``benchmark.main``) in this process against an
+   in-process server, ``--wave 8`` (the store legs, read coalescing, and
+   the decode-wave leg: K6 against K3, f32) and ``--trace skewed`` (a
+   loadgen trace through the continuous-batching engine on a small f32
+   model, every request verified: K4 f32, K1, K2, K3, K6), both
+   ``verified``; ``python -m infinistore_tpu_torch.benchmark --type tcp``
+   once as a subprocess; and a fleet client (``python -m
+   infinistore_tpu_torch.fleet_client``, 4 roots, a journal) seeded over
+   two in-process store servers, stopped with SIGTERM once its catalog
+   holds every root, then its ``--verify`` run in this process (journal
+   replay, four loads through K2, the comparison through K1) must read 4
+   roots, 0 wrong, 0 missed. K1, K2, K3 and K6 must launch in this
+   process. The kernel phase holds K6 and K3 on the decode-wave leg's own
+   inputs (``benchmark.decode_wave_inputs``: f32, 8 query heads over 2 KV
+   heads, head_dim 64, block 16, 8 rows over 16-page tables, K6 over its
+   pow2-padded page list) against their plain versions (1e-5), two
+   launches bitwise equal, and times each with its wrapper host time.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
-result line, on any failure or when no CUDA device is present.
+Prints the card's name and power limit, a line with the script's total
+wall, a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
+"device": {...}}``. Exits non-zero, with no result line, on any failure or
+when no CUDA device is present.
 """
 
 import asyncio
@@ -182,6 +236,7 @@ import subprocess
 import sys
 import threading
 import time
+from dataclasses import dataclass, field
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -258,13 +313,16 @@ PATH_KERNELS = {
     "sharded_decode": ("paged_decode_attention_stats", "paged_decode_attention_ragged_stats"),
     "disagg": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
     "cluster": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
+    "vllm_v1": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
+    "serving_cli": ("gather_blocks", "scatter_blocks", "paged_decode_attention",
+                    "paged_decode_attention_ragged"),
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
-BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster")
+BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster", "vllm_v1")
 # Paths whose every K1/K2 launch moves 16-byte aligned blocks, so must take
 # the TMA bulk ring.
 BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine", "disagg",
-                   "cluster")
+                   "cluster", "vllm_v1")
 # The disagg path: greedy tokens a leg, the fallback leg's retry deadline, and
 # rounds of its five legs (the first pays every first use: pinned staging,
 # the prefetch arena's page locking, the store pool's first touch).
@@ -277,6 +335,16 @@ CLUSTER_MEMBERS = 3
 CLUSTER_STORE_BYTES = 2 << 30
 CLUSTER_BLOCK_BYTES = 32 << 10
 CLUSTER_RESHARD_TIMEOUT_S = 600.0
+# The vllm_v1 path: engine A's prompts arrive in chunked-prefill steps of
+# V1_CHUNK_TOKENS scheduled tokens; engine B's requests are the prompts plus
+# V1_SUFFIX_TOKENS new tokens. Its store: 2 GiB in 32 KiB units.
+V1_CHUNK_TOKENS = 1024
+V1_SUFFIX_TOKENS = 16
+# The serving_cli path: the benchmark's decode-wave rows (``--wave``), the
+# fleet client's roots, and how long to wait for its catalog.
+SERVING_WAVE = 8
+FLEET_ROOTS = 4
+FLEET_READY_S = 180.0
 
 
 def log(msg: str) -> None:
@@ -461,11 +529,14 @@ def kernel_phase(torch, timer, nomerge):
 
     results["paged_decode_attention"]["prefill_continue"] = _prefill_continue_check(
         torch, timer, g, pa)
+    results["paged_decode_attention"].update(_k3_serving_shapes_check(torch, timer, g, pa))
     (results["paged_decode_attention_ragged"],
      results["paged_decode_attention_ragged_stats"]) = _ragged_kernel_check(torch, timer, g, pa,
                                                                             nomerge)
     results["paged_decode_attention_ragged"]["engine_wave"] = _engine_wave_check(
         torch, timer, g, pa)
+    for name, row in _decode_wave_leg_check(torch, timer).items():
+        results[name]["decode_wave_leg"] = row
     # K8 and K5 at K3's wave (drawn last, so the earlier kernels keep their inputs).
     results["paged_decode_attention_quantized"] = _quant_kernel_check(
         torch, timer, g, tables, (full, ragged), n_cache)
@@ -673,6 +744,110 @@ def _prefill_continue_check(torch, timer, g, pa):
         f"contexts {lens_list[0]}-{lens_list[-1]}): {json.dumps(row)}; "
         f"{bms / row['ms']:.3f} of its bound")
     return row
+
+
+def _k3_serving_shapes_check(torch, timer, g, pa):
+    """K3 at two launches that paths make and no other check times: the
+    vllm_v1 path's suffix (``PROMPTS`` requests x ``V1_SUFFIX_TOKENS`` rows,
+    each request's rows over its own table of the path's width, contexts
+    2,049-2,064) and the disagg path's decode step (one row over a 129-block
+    table, context 2,049). bf16 against the plain version (2e-2), two
+    launches bitwise equal; timed, with the bound over the distinct pages."""
+    cfg = LLAMA3_8B
+    bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
+    d = cfg["dim"] // h
+    shapes = {
+        "vllm_v1_suffix": (PROMPTS, -(-(PROMPT_TOKENS + V1_SUFFIX_TOKENS + DECODE_STEPS) // bt),
+                           [PROMPT_TOKENS + 1 + j for j in range(V1_SUFFIX_TOKENS)]),
+        "disagg_step": (1, -(-(PROMPT_TOKENS + DISAGG_GEN_TOKENS) // bt), [PROMPT_TOKENS + 1]),
+    }
+    out = {}
+    for name, (reqs, width, req_lens) in shapes.items():
+        n_cache = reqs * width + 16
+        tables = (torch.randperm(n_cache, generator=g, device="cuda")[: reqs * width]
+                  .to(torch.int32).reshape(reqs, width)
+                  .repeat_interleave(len(req_lens), dim=0).contiguous())
+        lens_list = req_lens * reqs
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        q = torch.randn((len(lens_list), h, d), generator=g, device="cuda").to(torch.bfloat16)
+        kc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(torch.bfloat16)
+        vc = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda").to(torch.bfloat16)
+        args = (q, kc, vc, tables, lens)
+        got = pa.paged_decode_attention_batched(*args)
+        again = pa.paged_decode_attention_batched(*args)
+        err = max_err(got, pa.paged_decode_attention_plain_batched(*args))
+        torch.cuda.synchronize()
+        if not err <= 2e-2 or not torch.equal(got, again):
+            raise AssertionError(f"K3 bf16 at the {name} shape: max abs err {err} (tol 2e-2), "
+                                 f"two launches equal {torch.equal(got, again)}")
+        bms, by = _decode_bound(torch, q, reqs * -(-max(req_lens) // bt), lens_list, bt, kvh,
+                                tables.numel() * 4 + len(lens_list) * 4)
+        row = dict(max_abs_err=err,
+                   ms=timer.ms(lambda: pa.paged_decode_attention_batched(*args)),
+                   plain_ms=timer.ms(lambda: pa.paged_decode_attention_plain_batched(*args),
+                                     iters=3),
+                   bound_ms=bms, bound_by=by, rows=len(lens_list), table_blocks=width)
+        log(f"K3 bf16 at the {name} shape ({reqs} x {len(req_lens)} rows, {width}-block "
+            f"tables, contexts {lens_list[0]}-{lens_list[-1]}): {json.dumps(row)}; "
+            f"{bms / row['ms']:.3f} of its bound; two launches bitwise equal")
+        out[name] = row
+    return out
+
+
+def _decode_wave_leg_check(torch, timer, wave=SERVING_WAVE, device="cuda"):
+    """K6 and K3 on the serving_cli path's decode-wave leg's own inputs
+    (``benchmark.decode_wave_inputs``: seed 0, f32, 8 query heads over 2 KV
+    heads, head_dim 64, block 16, ``wave`` rows over 16-page tables, 8:1
+    skewed, K6 over the pow2-padded page list). Each against its plain
+    version (1e-5), two launches bitwise equal. With a ``timer`` (on the
+    card) each is also timed: device time, its bound over the distinct pages
+    the rows read, its wrapper host time a call, and its device time a call
+    over ``benchmark.WAVE_REPS`` chained calls (``chained_ms``), as the leg's samples
+    chain them (host wall over the chain). Returns {kernel: row}."""
+    from infinistore_tpu_torch import benchmark
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    ragged, padded, x = benchmark.decode_wave_inputs(wave, device)
+    m, bt, kvh = x.meta, x.k_cache.shape[1], x.k_cache.shape[2]
+    rows = len(x.lens)
+    distinct = len({int(m.pages[m.page_starts[r] + j]) for r, n in enumerate(x.lens)
+                    for j in range(-(-n // bt))})
+    kernels = {
+        "paged_decode_attention_ragged": (
+            ragged, lambda q: pa.paged_decode_attention_ragged_plain(
+                q, x.k_cache, x.v_cache, x.pages, x.page_starts, x.seq_lens, x.table_width),
+            (m.num_pages + 3 * rows + 1) * 4),
+        "paged_decode_attention": (
+            padded, lambda q: pa.paged_decode_attention_plain_batched(
+                q, x.k_cache, x.v_cache, x.tables, x.seq_lens),
+            x.tables.numel() * 4 + rows * 4),
+    }
+    out = {}
+    for name, (run, plain, meta_bytes) in kernels.items():
+        got, again = run(x.q), run(x.q)
+        err = max_err(got, plain(x.q))
+        if not err <= 1e-5 or not torch.equal(got, again):
+            raise AssertionError(f"{name} f32 at the decode-wave leg: max abs err {err} (tol "
+                                 f"1e-5), two launches equal {torch.equal(got, again)}")
+        row = dict(max_abs_err=err, rows=rows, pages=m.num_pages, distinct_pages=distinct)
+        if timer is not None:
+            reps = benchmark.WAVE_REPS
+
+            def chain(run=run):
+                qc = x.q
+                for _ in range(reps):
+                    qc = run(qc)
+
+            bms, by = _decode_bound(torch, x.q, distinct, x.lens, bt, kvh, meta_bytes)
+            row.update(ms=timer.ms(lambda: run(x.q)),
+                       plain_ms=timer.ms(lambda: plain(x.q), iters=3), bound_ms=bms,
+                       bound_by=by, host_us=host_us(torch, lambda: run(x.q)),
+                       chained_ms=timer.ms(chain, spin=reps) / reps)
+        log(f"{name} f32 at the decode-wave leg ({rows} rows, contexts {x.lens[0]} and "
+            f"{x.lens[-1]}, {m.num_pages} pages listed, {distinct} distinct): "
+            f"{json.dumps(row)}; two launches bitwise equal")
+        out[name] = row
+    return out
 
 
 def _engine_wave_check(torch, timer, g, pa):
@@ -1075,16 +1250,19 @@ def _sync(torch, device):
 
 
 def _decode_wave(torch, llama, params, cfg, caches, tables, first_tokens, max_blocks,
-                 prompt_tokens):
-    """DECODE_STEPS greedy steps for the wave; returns per-step logits."""
+                 prompt_tokens, steps=DECODE_STEPS, on_step=None):
+    """``steps`` greedy steps for the wave; returns per-step logits.
+    ``on_step(step, logits)`` is called as each step's logits are queued."""
     tokens = first_tokens.clone()
     out = []
-    for step in range(DECODE_STEPS):
+    for step in range(steps):
         positions = torch.full((tokens.shape[0],), prompt_tokens + step,
                                dtype=torch.int32, device=tokens.device)
         logits, caches = llama.decode_step_batched(
             params, tokens, positions, caches, tables, cfg, max_blocks)
         out.append(logits)
+        if on_step is not None:
+            on_step(step, logits)
         tokens = logits.argmax(dim=-1)
     return out
 
@@ -2320,6 +2498,509 @@ def cluster_phase(torch, params, smi):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the vLLM v1 connector under a vLLM-shaped scheduler and runner
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class V1Request:
+    """vLLM's ``Request``, as far as the connector reads it."""
+
+    request_id: str
+    prompt_token_ids: list
+
+
+@dataclass
+class V1NewRequestData:
+    """vLLM's ``NewRequestData``: a request's first scheduled step."""
+
+    req_id: str
+    prompt_token_ids: list
+    block_ids: list  # one list per KV-cache group
+    num_computed_tokens: int = 0
+
+
+@dataclass
+class V1CachedRequestData:
+    """vLLM's ``CachedRequestData``: a later step of a running request,
+    with no prompt tokens."""
+
+    req_id: str
+    new_block_ids: list
+    num_computed_tokens: int
+    resumed_from_preemption: bool = False
+
+
+@dataclass
+class V1SchedulerOutput:
+    """vLLM's ``SchedulerOutput``, as far as the connector reads it."""
+
+    scheduled_new_reqs: list = field(default_factory=list)
+    scheduled_cached_reqs: list = field(default_factory=list)
+    num_scheduled_tokens: dict = field(default_factory=dict)
+
+
+def v1_runner_step(worker, meta, names, forward=None, save=True, before_wait_for_save=None):
+    """One model-runner step over the v1 connector's worker half, in vLLM's
+    order: ``bind_connector_metadata``, ``start_load_kv``; per layer
+    ``wait_for_layer_load``, the layer's forward (``forward(layer, k, v)``,
+    which writes the layer's KV in place; none given: no compute) and, with
+    ``save``, ``save_kv_layer``; ``before_wait_for_save()`` if given;
+    ``wait_for_save``, ``clear_connector_metadata``. Returns the host time
+    spent in the layer waits and the ``perf_counter`` of the first and last
+    ``save_kv_layer`` call."""
+    worker.bind_connector_metadata(meta)
+    worker.start_load_kv(forward_context=None)
+    waits = 0.0
+    first_save = last_save = None
+    for layer, name in enumerate(names):
+        tw = time.perf_counter()
+        worker.wait_for_layer_load(name)
+        waits += time.perf_counter() - tw
+        if forward is not None:
+            forward(layer, *worker.kv_cache(name))
+        if save:
+            last_save = time.perf_counter()
+            first_save = first_save or last_save
+            worker.save_kv_layer(name, worker.kv_cache(name), attn_metadata=None)
+    if before_wait_for_save is not None:
+        before_wait_for_save()
+    worker.wait_for_save()
+    worker.clear_connector_metadata()
+    return waits, first_save, last_save
+
+
+def vllm_v1_phase(torch, server_port, params, smi):
+    """Phase 11: Llama-3-8B width, bf16, on the card. Returns (launches,
+    summary)."""
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **LLAMA3_8B)
+    t0 = time.perf_counter()
+    summary, launches = _run_vllm_v1(torch, server_port, params, cfg, "cuda")
+    summary = {"card": smi, "wall_s": time.perf_counter() - t0, **summary}
+    log(f"vllm_v1: {json.dumps(summary)}")
+    log(f"vllm_v1 launches: {json.dumps(launches)}")
+    return launches, summary
+
+
+class _V1Engine:
+    """One vLLM-shaped engine: the connector's scheduler half and worker
+    half as separate instances, each over its own ``KVConnector`` and
+    connection, and the runner's paged caches (registered with the worker)
+    with one block table row per request."""
+
+    def __init__(self, torch, server_port, spec, model_id, max_blocks, tables, device):
+        import types
+
+        from infinistore_tpu_torch import config as config_mod
+        from infinistore_tpu_torch import lib as lib_mod
+        from infinistore_tpu_torch.connector import KVConnector
+        from infinistore_tpu_torch.vllm_v1 import InfiniStoreKVConnectorV1, KVConnectorRole
+
+        self.torch, self.device, self.tables = torch, device, tables
+        self.owned = []
+        halves = []
+        for role in (KVConnectorRole.SCHEDULER, KVConnectorRole.WORKER):
+            conn = _client(lib_mod, config_mod, server_port)
+            kv = KVConnector(conn, spec, model_id, max_blocks=max_blocks, device=device)
+            self.owned.append((kv, conn))
+            cfg = types.SimpleNamespace(kv_transfer_config=types.SimpleNamespace(
+                kv_connector_extra_config={"kv_connector": kv}))
+            halves.append(InfiniStoreKVConnectorV1(cfg, role))
+        self.sched, self.worker = halves
+        self.caches = spec.make_caches(device)
+        self.names = [f"model.layers.{i}.self_attn" for i in range(spec.num_layers)]
+        self.worker.register_kv_caches(dict(zip(self.names, self.caches)))
+
+    def blocks(self, p, start, stop):
+        return [int(b) for b in self.tables[p, start:stop].cpu()]
+
+    def step(self, meta, forward, before_wait_for_save=None):
+        """One runner step (``v1_runner_step``); returns its host timings."""
+        w = self.worker
+        t0 = time.perf_counter()
+        waits, first_save, last_save = v1_runner_step(w, meta, self.names, forward,
+                                                      before_wait_for_save=before_wait_for_save)
+        _sync(self.torch, self.device)
+        end = time.perf_counter()
+        return {"wall_s": end - t0, "load_s": w.load_seconds, "layer_waits_s": waits,
+                "save_s": end - first_save, "save_tail_s": end - last_save}
+
+    def close(self):
+        self.worker.close()
+        for kv, conn in self.owned:
+            kv.close()
+            conn.close()
+
+
+def _run_vllm_v1(torch, server_port, params, cfg, device, prompt_tokens=PROMPT_TOKENS,
+                 chunk_tokens=V1_CHUNK_TOKENS, suffix_tokens=V1_SUFFIX_TOKENS,
+                 decode_steps=DECODE_STEPS):
+    """The vLLM v1 connector's path (module docstring, phase 11). Engine A
+    prefills ``PROMPTS`` prompts in chunked steps (the first chunk through
+    ``prefill_layer``, later ones through ``decode_wave_layer``), saving
+    each step's blocks layer by layer; engine B loads every prefix behind
+    per-layer waits, computes and saves a ``suffix_tokens`` suffix, and
+    decodes ``decode_steps`` greedy steps; engine A runs the same suffix and
+    steps on its own caches as the oracle. Raises on the first failed check.
+    Returns (summary, launches); the launches are those of the whole path."""
+    import numpy as np
+
+    from infinistore_tpu_torch import config as config_mod
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch.connector import KVConnector
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    bt = cfg.block_tokens
+    nb = prompt_tokens // bt
+    if prompt_tokens % chunk_tokens or chunk_tokens % bt or suffix_tokens % bt:
+        raise ValueError("chunks and the suffix must be whole blocks of the prompt")
+    chunks = prompt_tokens // chunk_tokens
+    total = prompt_tokens + suffix_tokens
+    max_blocks = -(-(total + decode_steps) // bt)
+    num_blocks = PROMPTS * max_blocks + 8
+    spec = cfg.kv_spec(num_blocks)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, prompt_tokens).tolist() for _ in range(PROMPTS)]
+    suffixes = rng.integers(0, cfg.vocab, (PROMPTS, suffix_tokens))
+    tables_a = torch.arange(PROMPTS * max_blocks, dtype=torch.int32,
+                            device=device).reshape(PROMPTS, max_blocks)
+    tables_b = torch.from_numpy(rng.permutation(num_blocks)[: PROMPTS * max_blocks]
+                                .astype(np.int32)).to(device).reshape(PROMPTS, max_blocks)
+    layer_bytes = 2 * spec.block_nbytes  # one block's K and V, one layer
+    summary = {"prompt_tokens": prompt_tokens, "prompts": PROMPTS, "chunk_tokens": chunk_tokens,
+               "suffix_tokens": suffix_tokens, "decode_steps": decode_steps, "steps": []}
+
+    def record(engine, step, timing, saved_blocks, loaded_blocks):
+        saved = saved_blocks * layer_bytes * cfg.n_layers
+        loaded = loaded_blocks * layer_bytes * cfg.n_layers
+        row = {"engine": engine, "step": step, **timing, "saved_bytes": saved,
+               "loaded_bytes": loaded,
+               "save_GBps": saved / timing["save_s"] / 1e9 if saved else None,
+               "load_GBps": loaded / timing["load_s"] / 1e9 if loaded else None,
+               "load_hidden_s": timing["load_s"] - timing["layer_waits_s"] if loaded else None}
+        summary["steps"].append(row)
+        log(f"vllm_v1 engine {engine} step {step}: {json.dumps(row)}")
+
+    def suffix_chain(tables):
+        """The suffix through the layer functions: [PROMPTS, suffix, vocab]."""
+        positions = (prompt_tokens + torch.arange(suffix_tokens, dtype=torch.int32,
+                                                  device=device)).repeat(PROMPTS, 1)
+        index = llama.wave_index(positions, tables, cfg, max_blocks)
+        state = {"x": llama.embed_wave(params, torch.from_numpy(suffixes).to(device))}
+
+        def forward(layer, k, v):
+            state["x"], _, _ = llama.decode_wave_layer(
+                params, state["x"], positions, k, v, tables, cfg, layer, max_blocks,
+                index=index)
+
+        return forward, lambda: llama.lm_logits(params, state["x"])
+
+    def decode(caches, tables, first, on_step=None):
+        return _decode_wave(torch, llama, params, cfg, caches, tables, first, max_blocks,
+                            total, steps=decode_steps, on_step=on_step)
+
+    probe_conn = _client(lib_mod, config_mod, server_port)
+    probe = KVConnector(probe_conn, spec, "v1-llama", max_blocks=max_blocks, device=device)
+    engines = []
+    _ext.reset_launches()
+    try:
+        # Engine A: misses, prefilled in chunks of chunk_tokens scheduled tokens.
+        a = _V1Engine(torch, server_port, spec, "v1-llama", max_blocks, tables_a, device)
+        engines.append(a)
+        reqs = [V1Request(f"a{p}", prompts[p]) for p in range(PROMPTS)]
+        cb = chunk_tokens // bt
+        for p, req in enumerate(reqs):
+            promised, is_async = a.sched.get_num_new_matched_tokens(req, 0)
+            if promised != 0 or is_async:
+                raise AssertionError(f"vllm_v1: engine A's {req.request_id} promised {promised}")
+            a.sched.update_state_after_alloc(req, [a.blocks(p, 0, cb)], 0)
+        for step in range(chunks):
+            lo = step * chunk_tokens
+            sched_tokens = {req.request_id: chunk_tokens for req in reqs}
+            if step == 0:
+                out = V1SchedulerOutput(
+                    scheduled_new_reqs=[V1NewRequestData(req.request_id, req.prompt_token_ids,
+                                                         [a.blocks(p, 0, cb)])
+                                        for p, req in enumerate(reqs)],
+                    num_scheduled_tokens=sched_tokens)
+                xs = [llama.embed_prompt(params, prompts[p][:chunk_tokens]) for p in range(PROMPTS)]
+
+                def forward(layer, k, v, xs=xs):
+                    for p in range(PROMPTS):
+                        xs[p], _, _ = llama.prefill_layer(params, xs[p], k, v,
+                                                          tables_a[p, :cb], cfg, layer)
+            else:
+                out = V1SchedulerOutput(
+                    scheduled_cached_reqs=[V1CachedRequestData(
+                        req.request_id, [a.blocks(p, step * cb, (step + 1) * cb)], lo)
+                        for p, req in enumerate(reqs)],
+                    num_scheduled_tokens=sched_tokens)
+                tokens = torch.tensor([pr[lo:lo + chunk_tokens] for pr in prompts], device=device)
+                positions = (lo + torch.arange(chunk_tokens, dtype=torch.int32,
+                                               device=device)).repeat(PROMPTS, 1)
+                index = llama.wave_index(positions, tables_a, cfg, max_blocks)
+                state = {"x": llama.embed_wave(params, tokens)}
+
+                def forward(layer, k, v, state=state, positions=positions, index=index):
+                    state["x"], _, _ = llama.decode_wave_layer(
+                        params, state["x"], positions, k, v, tables_a, cfg, layer, max_blocks,
+                        index=index)
+            meta = a.sched.build_connector_meta(out)
+            want = [(step * cb, cb)] * PROMPTS
+            got = [(s.first_block, len(s.block_ids)) for s in meta.saves]
+            if meta.loads or got != want:
+                raise AssertionError(f"vllm_v1: engine A step {step + 1} plans saves {got}, "
+                                     f"loads {len(meta.loads)}")
+            record("A", step + 1, a.step(meta, forward), PROMPTS * cb, 0)
+        hits = [probe.lookup(p) for p in prompts]
+        if hits != [nb] * PROMPTS:
+            raise AssertionError(f"vllm_v1: after the chunked prefill lookups read {hits}")
+        summary["lookup_after_chunks"] = hits
+        for req in reqs:
+            a.sched.request_finished(req, None)
+        log(f"vllm_v1: engine A's {PROMPTS} prompts prefilled in {chunks} chunked steps, "
+            f"saved layer by layer, every lookup {nb} blocks")
+
+        # Engine B: fresh caches; the prompts plus a suffix, the prefixes loaded.
+        b = _V1Engine(torch, server_port, spec, "v1-llama", max_blocks, tables_b, device)
+        engines.append(b)
+        t_first = time.perf_counter()
+        nt = total // bt
+        full = [prompts[p] + suffixes[p].tolist() for p in range(PROMPTS)]
+        reqs = [V1Request(f"b{p}", full[p]) for p in range(PROMPTS)]
+        promised = []
+        for p, req in enumerate(reqs):
+            ext, is_async = b.sched.get_num_new_matched_tokens(req, 0)
+            promised.append(ext if not is_async else None)
+            b.sched.update_state_after_alloc(req, [b.blocks(p, 0, nt)], ext)
+        if promised != [prompt_tokens] * PROMPTS:
+            raise AssertionError(f"vllm_v1: engine B was promised {promised} tokens")
+        summary["promised_tokens"] = promised
+        meta = b.sched.build_connector_meta(V1SchedulerOutput(
+            scheduled_new_reqs=[V1NewRequestData(req.request_id, req.prompt_token_ids,
+                                                 [b.blocks(p, 0, nt)], promised[p])
+                                for p, req in enumerate(reqs)],
+            num_scheduled_tokens={req.request_id: suffix_tokens for req in reqs}))
+        loads = [(s.first_block, len(s.block_ids)) for s in meta.loads]
+        saves = [(s.first_block, len(s.block_ids)) for s in meta.saves]
+        if loads != [(0, nb)] * PROMPTS or saves != [(nb, nt - nb)] * PROMPTS:
+            raise AssertionError(f"vllm_v1: engine B plans loads {loads}, saves {saves}")
+        forward, logits_of = suffix_chain(tables_b)
+        sentinel = {}
+
+        def before_wait_for_save():
+            sentinel["before"] = sorted({probe.lookup(f) for f in full})
+
+        timing = b.step(meta, forward, before_wait_for_save)
+        sentinel["after"] = sorted({probe.lookup(f) for f in full})
+        summary["lookup_before_wait_for_save"] = sentinel["before"]
+        summary["lookup_after_wait_for_save"] = sentinel["after"]
+        if (sentinel["before"], sentinel["after"]) != ([nb], [nt]):
+            raise AssertionError(f"vllm_v1: lookups of prompt + suffix read {sentinel['before']} "
+                                 f"blocks before wait_for_save and {sentinel['after']} after "
+                                 f"(expected {nb}, then {nt}: the sentinel commits last)")
+        loaded = [b.worker.loaded_tokens(req.request_id) for req in reqs]
+        summary["loaded_tokens"] = loaded
+        if loaded != [prompt_tokens] * PROMPTS:
+            raise AssertionError(f"vllm_v1: engine B's loads delivered {loaded} tokens")
+        record("B", 1, timing, PROMPTS * (nt - nb), PROMPTS * nb)
+        logits_b = logits_of()
+
+        def first_logits(step, logits):
+            if step == 0:
+                logits.cpu()
+                summary["time_to_first_decode_logits_s"] = time.perf_counter() - t_first
+
+        decode_b = decode(b.caches, tables_b, logits_b[:, -1].argmax(dim=-1), first_logits)
+        _sync(torch, device)
+        for layer in range(cfg.n_layers):
+            for kind in (0, 1):
+                for p in range(PROMPTS):
+                    if not torch.equal(a.caches[layer][kind][tables_a[p, :nb].long()],
+                                       b.caches[layer][kind][tables_b[p, :nb].long()]):
+                        raise AssertionError(f"vllm_v1: layer {layer} kind {kind} prompt {p}: "
+                                             "engine B's loaded blocks differ from A's")
+        log("vllm_v1: engine B's loaded blocks equal engine A's byte for byte")
+
+        # The oracle: engine A continues on its own caches, with no store.
+        forward, logits_of = suffix_chain(tables_a)
+        for layer in range(cfg.n_layers):
+            forward(layer, *a.caches[layer])
+        logits_a = logits_of()
+        decode_a = decode(a.caches, tables_a, logits_a[:, -1].argmax(dim=-1))
+        _sync(torch, device)
+        launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+        if logits_b.shape != (PROMPTS, suffix_tokens, cfg.vocab) or \
+                not bool(torch.isfinite(logits_b.float()).all()):
+            raise AssertionError(f"vllm_v1: bad suffix logits {tuple(logits_b.shape)}")
+        if not torch.equal(logits_a, logits_b):
+            raise AssertionError("vllm_v1: engine B's suffix logits differ from engine A's")
+        for step, (la, lb) in enumerate(zip(decode_a, decode_b)):
+            if not bool(torch.isfinite(lb.float()).all()) or not torch.equal(la, lb):
+                raise AssertionError(f"vllm_v1: decode step {step}: engine B's logits differ "
+                                     "from engine A's")
+        log(f"vllm_v1: engine B's suffix logits and {decode_steps} decode steps bitwise engine "
+            "A's own continuation")
+    finally:
+        for engine in engines:
+            engine.close()
+        probe.close()
+        probe_conn.close()
+    return summary, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the serving surface's command-line entry points
+# ---------------------------------------------------------------------------
+
+
+def _run_main(main, argv):
+    """Call an entry point's ``main(argv)`` in this process; returns (exit
+    code, its last stdout line as JSON)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _wait_membership(port, proc, predicate, timeout_s):
+    """Poll a fleet client's ``GET /membership`` until ``predicate`` holds;
+    raises if the process exits or the deadline passes."""
+    import urllib.request
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"serving_cli: the fleet client exited ({proc.returncode})")
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/membership",
+                                        timeout=2) as resp:
+                doc = json.loads(resp.read())
+            if predicate(doc):
+                return doc
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"serving_cli: /membership on {port} not ready in {timeout_s} s")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_serving_cli(torch, device, benchmark_args=("--wave", str(SERVING_WAVE)),
+                     roots=FLEET_ROOTS):
+    """The serving surface's entry points (module docstring, phase 12): the
+    benchmark CLI's store, decode-wave and trace legs in this process
+    against an in-process server, its module entry point once as a
+    subprocess, and a fleet client seeded in a subprocess, stopped, and
+    verified by its ``--verify`` run in this process. Raises on the first
+    failed check. Returns (summary, launches); the launches are this
+    process's over the whole path."""
+    import signal
+    import tempfile
+
+    from infinistore_tpu_torch import benchmark, fleet_client
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch.cuda import _ext
+
+    dev = ["--device", str(device)]
+    summary = {}
+    _ext.reset_launches()
+    server = lib_mod.start_local_server(prealloc_bytes=1 << 30, block_bytes=64 << 10,
+                                        pin_memory=False)
+    try:
+        port = ["--service-port", str(server.port)]
+        for leg, argv in (("store", [*benchmark_args, "--json"]),
+                          ("trace", ["--trace", "skewed", "--json"])):
+            t0 = time.perf_counter()
+            rc, result = _run_main(benchmark.main, argv + port + dev)
+            result["wall_s"] = time.perf_counter() - t0
+            log(f"serving_cli benchmark {leg}: {json.dumps(result)}")
+            if rc != 0 or result["verified"] is not True:
+                raise AssertionError(f"serving_cli: benchmark {leg} leg rc {rc}, verified "
+                                     f"{result['verified']}")
+            summary[f"benchmark_{leg}"] = result
+        if "decode_wave" not in summary["benchmark_store"]:
+            raise AssertionError("serving_cli: the benchmark ran no decode-wave leg")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "infinistore_tpu_torch.benchmark", "--type", "tcp",
+             "--size", "4", "--json", *port, *dev],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0 or json.loads(out.stdout.strip().splitlines()[-1])["verified"] \
+                is not True:
+            raise AssertionError(f"serving_cli: python -m infinistore_tpu_torch.benchmark exited "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        summary["benchmark_module_s"] = time.perf_counter() - t0
+        log(f"serving_cli: python -m infinistore_tpu_torch.benchmark --type tcp: "
+            f"{out.stdout.strip().splitlines()[-1]}")
+    finally:
+        server.stop()
+
+    stores = [lib_mod.start_local_server(prealloc_bytes=64 << 20, block_bytes=4 << 10,
+                                         pin_memory=False) for _ in range(2)]
+    journal = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    manage = _free_port()
+    args = ["--manage-port", str(manage),
+            "--stores", ",".join(f"127.0.0.1:{s.port}" for s in stores),
+            "--journal", os.path.join(journal.name, "client.journal"),
+            "--roots", str(roots), "--seed", "23", *dev]
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "infinistore_tpu_torch.fleet_client",
+                                 *args], cwd=HERE)
+        doc = _wait_membership(manage, proc,
+                               lambda d: d.get("reshard_catalog_roots", 0) >= roots,
+                               FLEET_READY_S)
+        summary["fleet_seed_s"] = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0 or doc["reshard_catalog_roots"] != roots:
+            raise AssertionError(f"serving_cli: the seeding fleet client exited {rc} with "
+                                 f"{doc['reshard_catalog_roots']} roots in its catalog")
+        t0 = time.perf_counter()
+        rc, report = _run_main(fleet_client.main, args + ["--verify"])
+        summary["fleet_verify_s"] = time.perf_counter() - t0
+        summary["fleet_verify"] = report
+        log(f"serving_cli fleet client --verify: {json.dumps(report)}")
+        if rc != 0 or (report["reads"], report["wrong"], report["misses"]) != (roots, 0, 0):
+            raise AssertionError(f"serving_cli: fleet --verify rc {rc}: {report}")
+        launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        for s in stores:
+            s.stop()
+        journal.cleanup()
+    return summary, launches
+
+
+def serving_cli_phase(torch, smi):
+    """Phase 12: on the card. Returns (launches, summary)."""
+    t0 = time.perf_counter()
+    summary, launches = _run_serving_cli(torch, "cuda")
+    summary = {"card": smi, "wall_s": time.perf_counter() - t0, **summary}
+    log("serving_cli: the benchmark's store, decode-wave and trace legs verified; the module "
+        "entry point started; the fleet client's restart-and-verify read every root right")
+    log(f"serving_cli: {json.dumps(summary)}")
+    log(f"serving_cli launches: {json.dumps(launches)}")
+    return launches, summary
+
+
 def _build_all(torch):
     """Compile the kernels (nvcc) while the native store library builds
     (g++, at its first import), and K5's and K7's source with the split
@@ -2352,6 +3033,7 @@ def _build_all(torch):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2434,8 +3116,17 @@ def main() -> int:
     # The multi-server pool reuses them too, over servers of its own.
     torch.cuda.empty_cache()
     paths["cluster"], _ = cluster_phase(torch, params, smi)
+    # So does the vLLM v1 connector, on a store of its own.
+    torch.cuda.empty_cache()
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        paths["vllm_v1"], _ = vllm_v1_phase(torch, server.port, params, smi)
+    finally:
+        server.stop()
     del params
     torch.cuda.empty_cache()
+    paths["serving_cli"], _ = serving_cli_phase(torch, smi)
 
     for path, names in PATH_KERNELS.items():
         idle = [name for name in names if paths[path][name] == 0]
@@ -2472,6 +3163,7 @@ def main() -> int:
         if name in ("gather_blocks", "scatter_blocks"):
             row["bulk_launches"] = sum(c[f"{name}_bulk"] for c in paths.values())
         rows.append(row)
+    log(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,13 +1,15 @@
 """infinistore_tpu_torch: the KV-cache store's client side on PyTorch and CUDA.
 
 The PyTorch port of ``infinistore_tpu``. The store itself (native core,
-client, server, membership, fault injection) is framework-neutral and kept
-here as copies; what touches device memory (the paged cache, its staging to
-host, the layerwise writer and reader, the connector, the cluster over it and
-the model) is rewritten on torch tensors, and the TPU kernels (paged block
-copies, batched, ragged, sharded and int8 paged decode, flash prefill) are
-hand-written CUDA kernels for Hopper (``cuda/csrc``). The package imports
-nothing of ``infinistore_tpu`` and never imports jax.
+client, server, membership, fault injection, the trace generator) is
+framework-neutral and kept here as copies; what touches device memory (the
+paged cache, its staging to host, the layerwise writer and reader, the
+connector, the cluster over it, the vLLM v1 connector, the model and the
+benchmark and fleet-client entry points) is rewritten on torch tensors, and
+the TPU kernels (paged block copies, batched, ragged, sharded and int8 paged
+decode, flash prefill) are hand-written CUDA kernels for Hopper
+(``cuda/csrc``). The package imports nothing of ``infinistore_tpu`` and
+never imports jax.
 
 Importing the package loads nothing: every name resolves lazily, so neither
 the native library (compiled at first use of ``lib``) nor torch is pulled in
@@ -49,6 +51,10 @@ _LAZY = {
     "cuda.kv_quant": (
         "QuantizedKVConnector", "QuantizingKVAdapter", "dequantize_kv",
         "paged_decode_attention_quantized", "quantize_kv",
+    ),
+    "vllm_v1": (
+        "InfiniStoreKVConnectorV1", "KVConnectorMetadata", "KVConnectorRole",
+        "KVLoadUnderDelivery",
     ),
 }
 _WHERE = {name: mod for mod, names in _LAZY.items() for name in names}

@@ -642,7 +642,7 @@ class LayerwisePrefetch:
 
         loop.run_in_executor(None, wait_and_mark)
 
-    def _upload_and_scatter(self, caches, ids_dev, kv_host, stream=None):
+    def _upload_and_scatter(self, caches, ids_dev, kv_host, stream):
         """Upload one span of staged layers and scatter it into the caches,
         every layer's K and V at once (K2 on CUDA: the packed span is
         ``[layer 0 K | layer 0 V | layer 1 K | ...]``, the layout of
@@ -652,15 +652,14 @@ class LayerwisePrefetch:
         bytes were read and the caches hold them.
 
         Runs in an executor thread, whose current stream is that thread's
-        own default, not necessarily the caller's. ``stream`` (CUDA): run
-        the upload and the scatter on that stream instead; the caller has
-        ordered it after the caches' earlier writes."""
+        own default, not necessarily the caller's: ``stream`` (CUDA; None on
+        CPU) is the stream to run the upload and the scatter on, which the
+        caller has ordered after the caches' earlier writes."""
         device = caches[0][0].device
         flat = [t for kv in caches for t in kv]
         if device.type != "cuda":
             flat = scatter_blocks_many(flat, ids_dev, kv_host)
             return [tuple(flat[2 * i : 2 * i + 2]) for i in range(len(caches))], None
-        stream = stream if stream is not None else torch.cuda.current_stream(device)
         with torch.cuda.stream(stream):
             flat = scatter_blocks_many(flat, ids_dev, kv_host.to(device, non_blocking=True))
             for t in flat:
@@ -678,7 +677,12 @@ class LayerwisePrefetch:
 
         The only phase that needs the engine's exclusive cache gate. When
         every layer sits staged in back-to-back regions, the whole prefix
-        rides ONE host-to-device upload."""
+        rides ONE host-to-device upload.
+
+        On CUDA the uploads and scatters run in an executor thread but on
+        the caller's current stream (as :meth:`LayerwiseKVReader.read`'s),
+        so an event the caller records on that stream after ``on_layer``
+        fired, or after this returns, follows the layer's scatter."""
         if self._discarded:
             raise PrefetchDiscarded("install() after discard()")
         out = list(caches)
@@ -694,7 +698,9 @@ class LayerwisePrefetch:
             raise ValueError(
                 f"cache list has {len(caches)} layers, prefetch fetched {self.num_layers}"
             )
-        ids_dev = _block_ids_on(block_ids, caches[0][0].device)
+        device = caches[0][0].device
+        ids_dev = _block_ids_on(block_ids, device)
+        stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
         loop = asyncio.get_running_loop()
         fused = (
             self.regions >= self.num_layers
@@ -708,7 +714,7 @@ class LayerwisePrefetch:
             # the caller's gate still serializes the cache mutation.
             kv_host = self._host_kv(self._lease.offset, self.num_layers)
             scattered, done = await loop.run_in_executor(
-                None, self._upload_and_scatter, list(out), ids_dev, kv_host)
+                None, self._upload_and_scatter, list(out), ids_dev, kv_host, stream)
             for layer in range(self.num_layers):
                 out[layer] = scattered[layer]
                 self._installing.add(layer)
@@ -749,7 +755,7 @@ class LayerwisePrefetch:
                 return out, 0
             kv_host = self._host_kv(self._region_offset(layer), 1)
             (out[layer],), done = await loop.run_in_executor(
-                None, self._upload_and_scatter, [out[layer]], ids_dev, kv_host)
+                None, self._upload_and_scatter, [out[layer]], ids_dev, kv_host, stream)
             self._installing.add(layer)
             self.blocks_installed += 2 * n
             if on_layer is not None:

@@ -645,8 +645,8 @@ class DisaggHarness:
         return demo_prompt(self.config, n_blocks or self.req_blocks, seed=seed)
 
     def trace_prompts(self, trace, count: Optional[int] = None) -> List[List[int]]:
-        """Materialise a load-generator trace (an object with the JAX
-        package's ``loadgen.Trace.prompts(block_tokens, vocab=,
+        """Materialise a load-generator trace (a ``loadgen.Trace``, the
+        port's or the JAX package's: ``prompts(block_tokens, vocab=,
         max_blocks=)``) into prompts sized for this harness: clamped to
         ``req_blocks`` so every prompt fits the per-request table."""
         prompts = trace.prompts(

@@ -1243,3 +1243,122 @@ def test_disagg_overlapped_leg_on_the_card_is_bitwise_its_local_leg(dev):
     for name, res in card.items():
         np.testing.assert_allclose(res.first_logits, cpu[name].first_logits, rtol=0, atol=2e-4)
         assert res.tokens == cpu[name].tokens
+
+
+def _saved_prefix(dev, spec, model_id, seed):
+    """A store with one prompt's prefix saved from random caches; returns
+    (server, connection, connector, prompt, the source caches, their block
+    ids)."""
+    from infinistore_tpu_torch import config, lib
+    from infinistore_tpu_torch.connector import KVConnector
+
+    srv = lib.start_local_server(prealloc_bytes=64 << 20, block_bytes=32 << 10)
+    conn = lib.InfinityConnection(config.ClientConfig(
+        host_addr="127.0.0.1", service_port=srv.port, log_level="error"))
+    conn.connect()
+    kv = KVConnector(conn, spec, model_id, max_blocks=4, device=dev)
+    caches = [(_randn(seed + 2 * i, spec.cache_shape, spec.dtype, dev),
+               _randn(seed + 2 * i + 1, spec.cache_shape, spec.dtype, dev))
+              for i in range(spec.num_layers)]
+    prompt = list(range(4 * spec.block_tokens))
+    src = np.array([3, 9, 0, 7], np.int32)
+    asyncio.run(kv.save(prompt, caches, src))
+    return srv, conn, kv, prompt, caches, src
+
+
+def test_prefetch_install_scatters_on_the_callers_stream(dev):
+    """LayerwisePrefetch.install uploads and scatters (K2) in an executor
+    thread, on its CALLER's current stream: with the default stream held
+    busy, a copy queued on the caller's side stream once install() returned
+    reads the installed bytes (on the executor thread's own default stream
+    the scatter would still wait behind the hold)."""
+    from infinistore_tpu_torch.cuda.paged import PagedKVCacheSpec
+
+    spec = PagedKVCacheSpec(2, 16, 16, 8, 128, torch.bfloat16)
+    srv, conn, kv, prompt, caches, src = _saved_prefix(dev, spec, "install-stream", 60)
+    dst = np.array([5, 1, 12, 8], np.int32)
+    side = torch.cuda.Stream(dev)
+    try:
+        out = spec.make_caches(dev)
+        torch.cuda.synchronize()
+
+        async def install():
+            handle = await kv.start_fetch_async(prompt)
+            await handle.primed()
+            with torch.cuda.stream(torch.cuda.default_stream(dev)):
+                torch.cuda._sleep(200_000_000)  # about 0.1 s on the default stream
+            with torch.cuda.stream(side):
+                got, n = await handle.install(out, dst)
+                snapshot = [(k.clone(), v.clone()) for k, v in got]
+            return n, snapshot
+
+        n, snapshot = asyncio.run(install())
+        torch.cuda.synchronize()
+        assert n == 4
+        for layer in range(spec.num_layers):
+            for kind in (0, 1):
+                assert torch.equal(snapshot[layer][kind][dst.tolist()],
+                                   caches[layer][kind][src.tolist()]), (layer, kind)
+    finally:
+        kv.close()
+        conn.close()
+        srv.stop()
+
+
+def test_v1_layer_wait_orders_the_runners_stream_after_the_load(dev, monkeypatch):
+    """The v1 worker loads on its own stream; wait_for_layer_load returns
+    once a layer's scatter is enqueued and makes the runner's stream wait
+    for it on the device. With every install's scatter held on the device
+    (a spin queued before it on its stream, after its block ids are on the
+    card), a copy the runner queues on its own stream after each layer's
+    wait reads the loaded bytes."""
+    import types
+
+    from infinistore_tpu_torch.cuda.layerwise import LayerwisePrefetch
+    from infinistore_tpu_torch.cuda.paged import PagedKVCacheSpec
+    from infinistore_tpu_torch.vllm_v1 import (
+        InfiniStoreConnectorMetadata, InfiniStoreKVConnectorV1, KVConnectorRole, _LoadSpec,
+    )
+
+    upload_and_scatter = LayerwisePrefetch._upload_and_scatter
+
+    def held(self, caches, ids_dev, kv_host, stream):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(100_000_000)  # about 50 ms before the scatter
+        return upload_and_scatter(self, caches, ids_dev, kv_host, stream)
+
+    monkeypatch.setattr(LayerwisePrefetch, "_upload_and_scatter", held)
+    spec = PagedKVCacheSpec(3, 16, 16, 8, 128, torch.bfloat16)
+    srv, conn, kv, prompt, caches, src = _saved_prefix(dev, spec, "v1-stream", 80)
+    dst = np.array([2, 14, 6, 11], np.int32)
+    runner = torch.cuda.Stream(dev)
+    cfg = types.SimpleNamespace(kv_transfer_config=types.SimpleNamespace(
+        kv_connector_extra_config={"kv_connector": kv}))
+    worker = InfiniStoreKVConnectorV1(cfg, KVConnectorRole.WORKER)
+    try:
+        names = [f"layer{i}" for i in range(spec.num_layers)]
+        with torch.cuda.stream(runner):
+            out = spec.make_caches(dev)
+            worker.register_kv_caches(dict(zip(names, out)))
+            worker.bind_connector_metadata(InfiniStoreConnectorMetadata(loads=[_LoadSpec(
+                req_id="r", token_ids=prompt, block_ids=dst, num_tokens=len(prompt),
+                first_block=0)]))
+            worker.start_load_kv(forward_context=None)
+            snapshot = []
+            for name in names:
+                worker.wait_for_layer_load(name)
+                k, v = worker.kv_cache(name)
+                snapshot.append((k.clone(), v.clone()))
+            worker.wait_for_save()
+            worker.clear_connector_metadata()
+        torch.cuda.synchronize()
+        assert worker.loaded_tokens("r") == len(prompt)
+        for layer in range(spec.num_layers):
+            for kind in (0, 1):
+                assert torch.equal(snapshot[layer][kind][dst.tolist()],
+                                   caches[layer][kind][src.tolist()]), (layer, kind)
+    finally:
+        worker.close()
+        kv.close()
+        conn.close()
+        srv.stop()

@@ -6,9 +6,12 @@
   nor the JAX package, and compiles nothing (the native library and the
   kernels are built at first use).
 - The cluster, membership and fault-injection modules import neither jax
-  nor the kernels, and resolve lazily from the package.
+  nor the kernels, and resolve lazily from the package; the serving modules
+  (the v1 connector, the trace generator, the benchmark CLI and the fleet
+  client) import no jax, and the v1 names resolve lazily to ``vllm_v1``.
 - Without a card, an entry point called without ``device=`` raises instead
-  of running on the CPU (the cluster's default member factory too), and the
+  of running on the CPU (the cluster's default member factory, the
+  benchmark CLI and the fleet client too), and the
   client library refuses to register a tensor that does not live on the CPU.
 """
 
@@ -56,6 +59,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert sum(1 for _ in _port_sources()) > 10  # the scan saw the package
     scanned = {os.path.relpath(path, PORT) for path in _port_sources()}
     assert {"cluster.py", "membership.py", "faults.py"} <= scanned
+    assert {"vllm_v1.py", "loadgen.py", "benchmark.py", "fleet_client.py"} <= scanned
 
 
 def test_package_import_is_light_and_builds_nothing():
@@ -182,6 +186,46 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--manage-port" in out.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "infinistore_tpu_torch.benchmark", "--wave", "4", "--service-port", "1"],
+    ["-m", "infinistore_tpu_torch.fleet_client", "--roots", "1", "--stores", "127.0.0.1:1"],
+])
+def test_serving_entry_points_raise_without_a_card(argv):
+    """The benchmark CLI and the fleet client, with no card visible and no
+    --device, exit non-zero before they connect to anything."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, *argv], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_serving_modules_import_neither_jax_nor_the_jax_package():
+    """The v1 connector, the trace generator, the benchmark CLI and the
+    fleet client import nothing of jax or the JAX package, and the
+    package's lazy v1 names are ``vllm_v1``'s objects."""
+    script = textwrap.dedent(
+        """
+        import sys
+        import infinistore_tpu_torch as itt
+        from infinistore_tpu_torch import benchmark, fleet_client, loadgen, vllm_v1
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "triton", "infinistore_tpu"))
+        assert not bad, bad
+        for name in ("InfiniStoreKVConnectorV1", "KVConnectorRole", "KVConnectorMetadata",
+                     "KVLoadUnderDelivery"):
+            assert name in itt.__all__, name
+            assert getattr(itt, name) is getattr(vllm_v1, name), name
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_register_mr_refuses_tensors_off_the_cpu():
