@@ -223,10 +223,62 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    pow2-padded page list) against their plain versions (1e-5), two
    launches bitwise equal, and times each with its wrapper host time.
 
+13-15 run after phase 11, on the main path's weights, before phase 12:
+13. The same-mesh block handoff (``cuda/ici.py``) at Llama-3-8B width
+   (bf16; a fresh 2 GiB store in 32 KiB units): engine A prefills 4 x
+   2,048-token prompts (1 GiB of KV, 256 MiB a request; K4, K2), and
+   ``KVConnector(None, ..., ici=IciBlockTransfer([cuda:0, cuda:0], ...))
+   .handoff(..., src=0, dst=1)`` moves each into engine B's cache: a mesh
+   that names the card twice, so the move is a device-to-device copy on
+   one card (a peer copy over NVLink needs two cards, which this script
+   does not have). Each handoff must be one transfer launch, one K1 and one
+   K2 launch (all 64 caches in one launch each, on the bulk ring); B's
+   blocks must equal A's byte for byte, A's caches must be unchanged and
+   B's other blocks zero. Then the store branch (``handoff`` without
+   ``src``/``dst``, through the store) moves the same prompts to the same
+   block ids inside A's caches, and 16 greedy steps at B=4 (K3) from B
+   must be bitwise those from A after the store handoff. Each handoff's
+   wall and GB/s are logged beside the store branch's.
+14. The long-context prefill (``models/long_context.py prefill_ring``,
+   ring attention inside) at Llama-3-8B width on one 4,096-token prompt,
+   on a process group of world size 1 over NCCL (NCCL refuses two ranks
+   on one card: the multi-rank ring is held on the CPU at 2, 4 and 8 gloo
+   ranks by the tests). The shard's K/V are scattered into a paged cache
+   (K2) and saved through ``KVConnector.save`` under the full token list
+   (K1, a fresh 2 GiB store); a fresh cache loads the prefix (K2) and must
+   be byte-equal to a cache filled directly with the ring's K/V, and 16
+   decode steps (K3) from the two must be bitwise equal. The ring's logits
+   and every layer's K/V must be within ``LONG_CONTEXT_TOL`` of the dense
+   masked forward (``_kv_proj`` + ``_block`` with an explicit mask), and
+   ``ulysses_attention`` on layer 0's inputs within ``ULYSSES_TOL`` of
+   ``ring_attention``.
+15. The soft mixture of experts at Llama-3-8B widths with 8 experts, cut
+   to 4 layers (``MOE_LAYERS``): a 2,048-token prefill (K4, K2) and 16
+   greedy decode steps (K3), whose last logits must be within ``MOE_TOL``
+   of a one-shot prefill of all 2,064 tokens (the same reading is logged
+   at each depth, for the dense model on the same prompt and for the
+   mixture with uniform gates); layer 0's bf16 mixture must be within
+   ``MOE_LAYER_TOL`` of the reference's contraction in f32, and planted
+   gate faults outside it. Then ``speculative_verify`` on the dense
+   main-path model (K3 through ``prefill_continue``): a greedy draft of 8
+   tokens is accepted whole with greedy's next token, a draft corrupted at
+   index 5 is cut there with greedy's token, decoding on from the accepted
+   point reproduces greedy, and the verify rows' logits are bitwise the
+   greedy decode steps'.
+
 Prints the card's name and power limit, a line with the script's total
 wall, a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, on any failure or
 when no CUDA device is present.
+
+    python3 chip_smoke.py --cards N
+
+runs instead, on N >= 2 cards of one host, the two legs that one card
+cannot show: the ICI handoff (phase 13, every check) over the mesh
+``[cuda:0, cuda:1]``, so that K1 runs on one card, the packed blocks cross
+to the other as a peer copy and K2 and engine B's decode run there; and the
+long-context path (phase 14, every check) at world size N over NCCL, one
+process a card (``--long-context-rank``, spawned by the script itself).
 """
 
 import asyncio
@@ -236,7 +288,7 @@ import subprocess
 import sys
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -316,13 +368,17 @@ PATH_KERNELS = {
     "vllm_v1": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
     "serving_cli": ("gather_blocks", "scatter_blocks", "paged_decode_attention",
                     "paged_decode_attention_ragged"),
+    "ici_handoff": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
+    "long_context": ("gather_blocks", "scatter_blocks", "paged_decode_attention"),
+    "moe_spec": ("scatter_blocks", "paged_decode_attention", "flash_prefill"),
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
-BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster", "vllm_v1")
+BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster", "vllm_v1",
+                 "ici_handoff", "moe_spec")
 # Paths whose every K1/K2 launch moves 16-byte aligned blocks, so must take
 # the TMA bulk ring.
 BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine", "disagg",
-                   "cluster", "vllm_v1")
+                   "cluster", "vllm_v1", "ici_handoff", "long_context", "moe_spec")
 # The disagg path: greedy tokens a leg, the fallback leg's retry deadline, and
 # rounds of its five legs (the first pays every first use: pinned staging,
 # the prefetch arena's page locking, the store pool's first touch).
@@ -345,6 +401,46 @@ V1_SUFFIX_TOKENS = 16
 SERVING_WAVE = 8
 FLEET_ROOTS = 4
 FLEET_READY_S = 180.0
+# The long-context path: one prompt's tokens through prefill_ring. The
+# ring's online softmax divides by its denominator after PV, the dense
+# oracle before, both in f32, so an attention output may round to a
+# neighbouring bf16 value; such flips compound over 32 layers of bf16
+# activations (the engine's ENGINE_VERIFY_TOL has the same source), while a
+# wrong chunk order, position or mask moves values by O(1):
+# allclose(rtol=atol=0.1). Ulysses and the ring on the same inputs differ by
+# one bf16 rounding of the output (the kernel phase's bf16 tolerance, as
+# rtol=atol).
+LONG_CONTEXT_TOKENS = 4096
+LONG_CONTEXT_TOL = 0.1
+ULYSSES_TOL = 2e-2
+# The moe_spec path: Mixtral-8x7B's expert count (its published
+# config.json) at Llama-3-8B widths, cut to 4 layers: the dense soft mixture
+# holds every expert, 2.8 GB of bf16 weights a layer, so 32 layers (90 GB)
+# would not fit the card. Its decode (K3, f32 softmax, bf16 output) and its
+# one-shot prefill (K4, probabilities rounded to bf16 before PV; other GEMM
+# shapes) differ by one bf16 ulp of a layer's output. The expert weights are
+# drawn as the JAX package draws them (scaled by 1/sqrt of the first axis,
+# E), so a mixture layer's output is about 10^4 times a dense FFN's and is
+# the whole residual stream: the ulps add up layer by layer, where a dense
+# model's stay level. On an H100 the last logits (up to 4.5) read 0.039,
+# 0.047, 0.064 and 0.109 from the one-shot prefill at depths 1-4, the
+# dense model 0.031-0.033 at each (logged by depth every run):
+# allclose(rtol=atol=0.1) holds both.
+MOE_EXPERTS = 8
+MOE_LAYERS = 4
+MOE_TOL = 0.1
+# The mixture itself: layer 0's bf16 _moe on MOE_LAYER_TOKENS tokens
+# against the reference's contraction einsum("bse,bsef,efd->bsd") in plain
+# f32 over the same weights, as max abs error over the reference's max
+# magnitude. bf16 rounds gate_up, the SwiGLU product, the gates, the gated
+# product and the output, each 2^-9 relative; the planted faults
+# (MOE_FAULTS, in the f32 gates: the expert order reversed, the top expert
+# alone) move the output by more than its range. On an H100 the sound
+# mixture reads 0.0070, the faults 1.29 and 1.44; MOE_LAYER_TOL sits
+# between, and the check raises if a fault reads inside it.
+MOE_LAYER_TOKENS = 256
+MOE_LAYER_TOL = 0.03
+SPEC_DRAFT = 8
 
 
 def log(msg: str) -> None:
@@ -552,8 +648,10 @@ def kernel_phase(torch, timer, nomerge):
 # int8 data blocks, 512 B f32 scale blocks).
 COPY_NUM_BLOCKS = 1024
 COPY_SHAPES = {
-    "gather_blocks": {"a_writer_layer": (2, 128), "b_engine_snapshot": (64, 64)},
-    "scatter_blocks": {"a_reader_layer": (2, 128), "c_install_span": (64, 48)},
+    "gather_blocks": {"a_writer_layer": (2, 128), "b_engine_snapshot": (64, 64),
+                      "e_ici_handoff": (64, 128)},
+    "scatter_blocks": {"a_reader_layer": (2, 128), "c_install_span": (64, 48),
+                       "e_ici_handoff": (64, 128), "f_long_context": (64, 256)},
 }
 
 
@@ -569,7 +667,7 @@ def copy_inputs(torch, g, dtype, block_shape, caches, device="cuda"):
     return dict(
         caches=[draw((COPY_NUM_BLOCKS, *block_shape)) for _ in range(caches)],
         ids={n: torch.randperm(COPY_NUM_BLOCKS, generator=g, device=device)[:n].to(torch.int32)
-             for n in (128, 64, 48)},
+             for n in (256, 128, 64, 48)},
         src=draw((max(c * n for shapes in COPY_SHAPES.values() for c, n in shapes.values()),
                   *block_shape)),
     )
@@ -747,12 +845,16 @@ def _prefill_continue_check(torch, timer, g, pa):
 
 
 def _k3_serving_shapes_check(torch, timer, g, pa):
-    """K3 at two launches that paths make and no other check times: the
+    """K3 at launches that paths make and no other check times: the
     vllm_v1 path's suffix (``PROMPTS`` requests x ``V1_SUFFIX_TOKENS`` rows,
     each request's rows over its own table of the path's width, contexts
-    2,049-2,064) and the disagg path's decode step (one row over a 129-block
-    table, context 2,049). bf16 against the plain version (2e-2), two
-    launches bitwise equal; timed, with the bound over the distinct pages."""
+    2,049-2,064), the disagg path's decode step (one row over a 129-block
+    table, context 2,049; the moe_spec path's decode steps have this
+    shape), the long-context path's decode step (one row over a 257-block
+    table, context 4,097) and ``speculative_verify``'s draft (``SPEC_DRAFT``
+    rows over one 129-block table, contexts 2,049-2,056). bf16 against the
+    plain version (2e-2), two launches bitwise equal; timed, with the bound
+    over the distinct pages."""
     cfg = LLAMA3_8B
     bt, kvh, h = cfg["block_tokens"], cfg["n_kv_heads"], cfg["n_heads"]
     d = cfg["dim"] // h
@@ -760,6 +862,10 @@ def _k3_serving_shapes_check(torch, timer, g, pa):
         "vllm_v1_suffix": (PROMPTS, -(-(PROMPT_TOKENS + V1_SUFFIX_TOKENS + DECODE_STEPS) // bt),
                            [PROMPT_TOKENS + 1 + j for j in range(V1_SUFFIX_TOKENS)]),
         "disagg_step": (1, -(-(PROMPT_TOKENS + DISAGG_GEN_TOKENS) // bt), [PROMPT_TOKENS + 1]),
+        "long_context_step": (1, -(-(LONG_CONTEXT_TOKENS + DECODE_STEPS) // bt),
+                              [LONG_CONTEXT_TOKENS + 1]),
+        "spec_verify": (1, -(-(PROMPT_TOKENS + DECODE_STEPS) // bt),
+                        [PROMPT_TOKENS + 1 + j for j in range(SPEC_DRAFT)]),
     }
     out = {}
     for name, (reqs, width, req_lens) in shapes.items():
@@ -1244,9 +1350,10 @@ def _client(lib_mod, config_mod, port):
     return conn
 
 
-def _sync(torch, device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+def _sync(torch, *devices):
+    for device in devices:
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _decode_wave(torch, llama, params, cfg, caches, tables, first_tokens, max_blocks,
@@ -3001,6 +3108,726 @@ def serving_cli_phase(torch, smi):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the same-mesh block handoff (``cuda/ici.py``)
+# ---------------------------------------------------------------------------
+
+
+def _run_ici_handoff(torch, server_port, params, device="cuda", geometry=LLAMA3_8B,
+                     prompt_tokens=PROMPT_TOKENS, device_b=None):
+    """Engine A (on ``device``) prefills ``PROMPTS`` prompts; the
+    connector's interconnect branch moves each into engine B's cache over
+    the mesh ``[device, device_b]`` (shard 0 engine A, shard 1 engine B;
+    ``device_b`` None: ``device`` again, the one-card mesh); then the store
+    branch moves the same prompts within engine A's caches to B's block ids
+    (module docstring, phase 13). Engine B decodes on ``device_b`` with a
+    copy of the weights. ``params`` None: seeded weights (the CPU
+    rehearsal). Returns (metrics, launches); the launches are the path's
+    own, every leg included."""
+    import numpy as np
+
+    from infinistore_tpu_torch import config as config_mod
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch.connector import KVConnector
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda.ici import IciBlockTransfer
+    from infinistore_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **geometry)
+    if params is None:
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                   device=device)
+    device_b = device if device_b is None else device_b
+    params_b = params if device_b == device else {k: w.to(device_b) for k, w in params.items()}
+    bt = cfg.block_tokens
+    nb = prompt_tokens // bt
+    max_blocks = -(-(prompt_tokens + DECODE_STEPS) // bt)
+    # Engine A's requests in the first half of the blocks, B's scattered over
+    # the second half, so that the store leg can land B's layout inside A's
+    # caches without overwriting a prompt it has yet to save.
+    half = PROMPTS * max_blocks
+    spec = cfg.kv_spec(2 * half)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab, prompt_tokens).tolist() for _ in range(PROMPTS)]
+    tables_a = torch.arange(half, dtype=torch.int32).reshape(PROMPTS, max_blocks)
+    tables_b = torch.from_numpy(half + rng.permutation(half).astype(np.int32)).reshape(
+        PROMPTS, max_blocks)
+    outside = torch.ones(2 * half, dtype=torch.bool)
+    outside[tables_b[:, :nb].reshape(-1).long()] = False
+    ids_a, ids_b = tables_a[:, :nb].numpy(), tables_b[:, :nb].numpy()
+    tables_a, tables_b, outside = tables_a.to(device), tables_b.to(device_b), outside.to(device_b)
+    # The CPU's plain versions count no launch.
+    per_call = 1 if torch.device(device).type == "cuda" else 0
+
+    tr = IciBlockTransfer([device, device_b], "store", perm=[(0, 1)])
+    kv_ici = KVConnector(None, spec, "llama-3-8b-ici", max_blocks=nb, device=device, ici=tr)
+    conn = _client(lib_mod, config_mod, server_port)
+    kv_store = KVConnector(conn, spec, "llama-3-8b-ici", max_blocks=nb, device=device)
+    try:
+        caches_a = spec.make_caches(device)
+        caches_b = spec.make_caches(device_b)
+        _ext.reset_launches()
+        first = []
+        for p in range(PROMPTS):
+            logits, caches_a = llama.prefill(params, prompts[p], caches_a, tables_a[p, :nb], cfg)
+            first.append(logits.argmax())
+        first_tokens = torch.stack(first)
+        before_a = [(k.clone(), v.clone()) for k, v in caches_a]
+        _sync(torch, device)
+
+        ici_s, handoff_launches = [], []
+        copies = ("gather_blocks", "gather_blocks_bulk", "scatter_blocks", "scatter_blocks_bulk")
+        for p in range(PROMPTS):
+            counts, launched = dict(_ext.LAUNCHES), tr.launches
+            sharded = [((ka, kb), (va, vb)) for (ka, va), (kb, vb) in zip(caches_a, caches_b)]
+            t0 = time.perf_counter()
+            out, n = asyncio.run(kv_ici.handoff(prompts[p], sharded, ids_a[p], ids_b[p],
+                                                src=0, dst=1))
+            _sync(torch, device, device_b)
+            ici_s.append(time.perf_counter() - t0)
+            if n != nb:
+                raise AssertionError(f"ICI handoff of prompt {p} moved {n} blocks, expected {nb}")
+            moved = {name: _ext.LAUNCHES[name] - counts[name] for name in copies}
+            handoff_launches.append(tr.launches - launched)
+            if handoff_launches[-1] != 1 or set(moved.values()) != {per_call}:
+                raise AssertionError(
+                    f"ICI handoff of prompt {p}: {handoff_launches[-1]} transfer launches and "
+                    f"{moved}, expected 1 and {per_call} K1 / K2 launch each, on the bulk ring")
+            if any(got is not want for layer in range(cfg.n_layers) for kind in (0, 1)
+                   for got, want in zip(out[layer][kind],
+                                        (caches_a[layer][kind], caches_b[layer][kind]))):
+                raise AssertionError("the ICI handoff did not update the caches in place")
+        for layer in range(cfg.n_layers):
+            for kind in (0, 1):
+                a, b = caches_a[layer][kind], caches_b[layer][kind]
+                if not torch.equal(a, before_a[layer][kind]):
+                    raise AssertionError(f"layer {layer} kind {kind}: the source shard changed")
+                for p in range(PROMPTS):
+                    if not torch.equal(b[tables_b[p, :nb].long()],
+                                       a[tables_a[p, :nb].long()].to(b.device)):
+                        raise AssertionError(
+                            f"layer {layer} kind {kind} prompt {p}: ICI-moved bytes differ")
+                if bool(b[outside].any()):
+                    raise AssertionError(f"layer {layer} kind {kind}: blocks outside dst changed")
+        del before_a
+        log(f"ici handoff: {PROMPTS} requests byte-equal in engine B, one transfer launch "
+            "(one K1, one K2) each, the source shard unchanged")
+        logits_ici = _decode_wave(torch, llama, params_b, cfg, caches_b, tables_b,
+                                  first_tokens.to(device_b), max_blocks, prompt_tokens)
+
+        store_s = []
+        for p in range(PROMPTS):
+            t0 = time.perf_counter()
+            caches_a, n = asyncio.run(kv_store.handoff(prompts[p], caches_a, ids_a[p], ids_b[p]))
+            _sync(torch, device)
+            store_s.append(time.perf_counter() - t0)
+            if n != nb:
+                raise AssertionError(f"store handoff of prompt {p} moved {n} blocks")
+        logits_store = _decode_wave(torch, llama, params, cfg, caches_a, tables_b.to(device),
+                                    first_tokens, max_blocks, prompt_tokens)
+        _sync(torch, device, device_b)
+        launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+        for step, (li, ls) in enumerate(zip(logits_ici, logits_store)):
+            if li.shape != (PROMPTS, cfg.vocab) or not bool(torch.isfinite(li.float()).all()):
+                raise AssertionError(f"decode step {step}: bad logits {tuple(li.shape)}")
+            if not torch.equal(li.to(ls.device), ls):
+                raise AssertionError(
+                    f"decode step {step}: after the ICI handoff the logits differ from those "
+                    "after the store handoff")
+        log(f"ici handoff: {DECODE_STEPS} greedy steps at B={PROMPTS} from engine B bitwise "
+            "those after the store handoff")
+        for p in range(PROMPTS):
+            kv_store.drop(prompts[p])
+    finally:
+        kv_ici.close()
+        kv_store.close()
+        conn.close()
+    req_bytes = nb * spec.block_nbytes * 2 * cfg.n_layers
+    metrics = {
+        "request_bytes": req_bytes,
+        "handoff_ms": [s * 1e3 for s in ici_s],
+        "handoff_GBps": [req_bytes / s / 1e9 for s in ici_s],
+        "store_handoff_ms": [s * 1e3 for s in store_s],
+        "store_handoff_GBps": [req_bytes / s / 1e9 for s in store_s],
+        "handoff_launches": handoff_launches,
+    }
+    return metrics, launches
+
+
+def ici_handoff_phase(torch, server_port, params, smi):
+    """Phase 13: Llama-3-8B width, bf16, on the card. Returns (launches,
+    metrics)."""
+    metrics, launches = _run_ici_handoff(torch, server_port, params)
+    metrics = {"card": smi, **metrics}
+    log(f"ici handoff: {json.dumps(metrics)}")
+    log(f"ici handoff launches: {json.dumps(launches)}")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the sequence-parallel long-context prefill
+# ---------------------------------------------------------------------------
+
+
+def _dense_long_context(torch, llama, params, cfg, tokens):
+    """The oracle of ``prefill_ring``: the dense masked forward of
+    ``tests/test_long_context.py:37-48`` over the whole prompt (``_kv_proj``
+    and ``_block`` with an explicit causal mask). Returns (logits [1, S, V],
+    [(k, v)] per layer)."""
+    s = tokens.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
+    mask = positions[:, :, None] >= positions[:, None, :]
+    x = params["embed"][tokens]
+    kvs = []
+    for layer in range(cfg.n_layers):
+        k, v = llama._kv_proj(params, layer, x, positions, cfg)
+        kvs.append((k, v))
+        x = llama._block(params, layer, x, k, v, positions, mask, cfg)
+    return llama.lm_logits(params, x), kvs
+
+
+def _check_close(torch, what, got, want, tol):
+    """Raise unless ``got`` is finite, of ``want``'s shape and within
+    ``tol`` (absolute and relative) of it; returns the largest absolute
+    difference."""
+    if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                             "or values not finite")
+    err = max_err(got, want)
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: max abs diff {err} over the tolerance {tol}")
+    return err
+
+
+def _run_long_context(torch, server_port, params, device="cuda", backend="nccl",
+                      geometry=LLAMA3_8B, tokens=LONG_CONTEXT_TOKENS, rank=0, world=1,
+                      init_file=None):
+    """One rank of the long-context path (module docstring, phase 14): its
+    token chunk through ``prefill_ring`` on a process group of ``world``
+    ranks, initialised from ``init_file`` (a fresh FileStore when None),
+    its K/V saved under the full token list, every rank's K/V gathered, the
+    prefix loaded into a fresh cache and decoded. ``params`` None: seeded
+    weights (the CPU rehearsal, which runs 4 gloo ranks). Returns (metrics,
+    launches); the launches are read before the oracles run."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch import config as config_mod
+    from infinistore_tpu_torch import lib as lib_mod
+    from infinistore_tpu_torch.connector import KVConnector
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda.paged import scatter_blocks_many
+    from infinistore_tpu_torch.models import llama, long_context, ring_attention, ulysses
+
+    if backend == "nccl":
+        # Loopback for NCCL's bootstrap; a caller's own setting wins. One
+        # card a rank: "cuda" is then the rank's card.
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **geometry)
+    if params is None:
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                   device=device)
+    bt, s_loc = cfg.block_tokens, tokens // world
+    nb, bps = tokens // bt, s_loc // bt
+    max_blocks = -(-(tokens + DECODE_STEPS) // bt)
+    spec = cfg.kv_spec(max_blocks)
+    prompt = np.random.default_rng(17).integers(0, cfg.vocab, tokens)
+    token_list = prompt.tolist()
+    chunk = torch.from_numpy(prompt[rank * s_loc:(rank + 1) * s_loc]).to(device)[None]
+    table = torch.arange(max_blocks, dtype=torch.int32, device=device)
+    own_ids = table[rank * bps:(rank + 1) * bps]
+
+    def blocks(t):
+        """[1, S, KVH, D] K or V -> [S // bt, *block]."""
+        return t[0].reshape(-1, *spec.block_shape)
+
+    def gather(t):
+        """Every rank's [1, S_loc, ...] chunk, concatenated in rank order."""
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts, dim=1)
+
+    conn = _client(lib_mod, config_mod, server_port)
+    kv = KVConnector(conn, spec, "llama-3-8b-long", max_blocks=nb, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{init_file or tmp + '/filestore'}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            _ext.reset_launches()
+            # Twice: the first call also sets up the group's point-to-point
+            # channels (NCCL makes them at their first use).
+            prefill_s = []
+            for _ in range(2):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                logits, kvs = long_context.prefill_ring(params, chunk, cfg)
+                _sync(torch, device)
+                prefill_s.append(time.perf_counter() - t0)
+
+            # This rank's shard into a paged cache at its global block ids,
+            # saved under the full token list from its first block on.
+            own = spec.make_caches(device)
+            scatter_blocks_many([c for pair in own for c in pair], own_ids,
+                                [blocks(t) for pair in kvs for t in pair])
+            t0 = time.perf_counter()
+            written = asyncio.run(kv.save(token_list, own, own_ids.cpu().numpy(),
+                                          first_block=rank * bps))
+            save_s = time.perf_counter() - t0
+            if written != 2 * cfg.n_layers * bps:
+                raise AssertionError(f"rank {rank} saved {written} blocks")
+            del own
+            dist.barrier()
+
+            direct = spec.make_caches(device)
+            scatter_blocks_many([c for pair in direct for c in pair], table[:nb],
+                                [blocks(gather(t)) for pair in kvs for t in pair])
+            hit = kv.lookup(token_list)
+            if hit != nb:
+                raise AssertionError(f"rank {rank}: lookup found {hit} blocks, expected {nb}")
+            t0 = time.perf_counter()
+            loaded, n = asyncio.run(kv.load(token_list, spec.make_caches(device),
+                                            table[:nb].cpu().numpy()))
+            _sync(torch, device)
+            load_s = time.perf_counter() - t0
+            if n != nb:
+                raise AssertionError(f"rank {rank}: load brought {n} blocks")
+            for layer in range(cfg.n_layers):
+                for kind in (0, 1):
+                    if not torch.equal(loaded[layer][kind], direct[layer][kind]):
+                        raise AssertionError(
+                            f"layer {layer} kind {kind}: the loaded prefix differs from the "
+                            "ring's K/V")
+            # The last rank holds the prompt's last row.
+            first = logits[0, -1].argmax().reshape(1)
+            dist.broadcast(first, src=world - 1)
+            steps = [_decode_wave(torch, llama, params, cfg, caches, table[None], first,
+                                  max_blocks, tokens) for caches in (loaded, direct)]
+            _sync(torch, device)
+            launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+            for step, (a, b) in enumerate(zip(*steps)):
+                if a.shape != (1, cfg.vocab) or not bool(torch.isfinite(a.float()).all()):
+                    raise AssertionError(f"decode step {step}: bad logits {tuple(a.shape)}")
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"decode step {step}: from the loaded prefix the logits differ from "
+                        "those from the ring's own K/V")
+            dist.barrier()
+            if rank == 0 and kv.drop(token_list) == 0:
+                raise AssertionError("the long-context prefix held no keys to drop")
+            del loaded, direct, steps
+
+            # The oracles: the dense masked forward, and Ulysses against the
+            # ring on layer 0's inputs.
+            ref_logits, ref_kvs = _dense_long_context(
+                torch, llama, params, cfg, torch.from_numpy(prompt).to(device)[None])
+            sl = slice(rank * s_loc, (rank + 1) * s_loc)
+            errs = {"logits": _check_close(torch, "ring logits", logits,
+                                           ref_logits[:, sl], LONG_CONTEXT_TOL)}
+            del ref_logits
+            errs["kv"] = max(
+                _check_close(torch, f"layer {layer} {'kv'[side]}", kvs[layer][side],
+                             ref_kvs[layer][side][:, sl], LONG_CONTEXT_TOL)
+                for layer in range(cfg.n_layers) for side in (0, 1))
+            del ref_kvs
+            x = params["embed"][chunk]
+            pos = (rank * s_loc + torch.arange(s_loc, dtype=torch.int32, device=device))[None]
+            groups = cfg.n_heads // cfg.n_kv_heads
+            q = llama._q_proj(params, 0, x, pos, cfg)
+            k, v = (t.repeat_interleave(groups, dim=2)
+                    for t in llama._kv_proj(params, 0, x, pos, cfg))
+            errs["ulysses_vs_ring"] = _check_close(
+                torch, "ulysses against ring", ulysses.ulysses_attention(q, k, v),
+                ring_attention.ring_attention(q, k, v), ULYSSES_TOL)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+            kv.close()
+            conn.close()
+    kv_bytes = 2 * cfg.n_layers * bps * spec.block_nbytes
+    metrics = {
+        "world_size": world,
+        "backend": backend,
+        "tokens": tokens,
+        "prefill_ring_s": prefill_s[0],
+        "prefill_ring_warm_s": prefill_s[1],
+        "save_GBps": kv_bytes / save_s / 1e9,
+        "load_GBps": world * kv_bytes / load_s / 1e9,
+        "max_abs_err": errs,
+    }
+    return metrics, launches
+
+
+def long_context_phase(torch, server_port, params, smi):
+    """Phase 14: Llama-3-8B width, bf16, world size 1 over NCCL on the
+    card. Returns (launches, metrics)."""
+    metrics, launches = _run_long_context(torch, server_port, params)
+    metrics = {"card": smi, **metrics}
+    log(f"long context: {json.dumps(metrics)}")
+    log("long context: one NCCL rank (NCCL refuses two ranks on one card); the multi-rank "
+        "ring and Ulysses are held on the CPU at 2, 4 and 8 gloo ranks "
+        "(tests/test_torch_ring_attention.py, tests/test_torch_long_context.py)")
+    log(f"long context launches: {json.dumps(launches)}")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the soft mixture of experts, and speculative_verify
+# ---------------------------------------------------------------------------
+
+
+MOE_FAULTS = {
+    "experts_reversed": lambda g: g.flip(-1),
+    "top1_expert_only": lambda g: (g == g.amax(dim=-1, keepdim=True)).to(g.dtype),
+}
+
+
+def _moe_layer_check(torch, llama, params, cfg, tokens):
+    """Layer 0's bf16 ``_moe`` on ``tokens``' rms-normed embeddings against
+    the reference's contraction ``einsum("bse,bsef,efd->bsd")`` in plain f32
+    over the same weights, read as max abs error over the reference's max
+    magnitude; the same reading for each of ``MOE_FAULTS`` planted in the
+    f32 gates. Raises unless the sound reading is within ``MOE_LAYER_TOL``
+    and every fault's is over it. Returns {"sound": x, fault: x, ...}."""
+    silu = torch.nn.functional.silu
+    h = llama._rms_norm(params["embed"][tokens], params["l0.ffn_norm"])
+    got = llama._moe(params, "l0.", h, cfg).float()
+    h32 = h.float()
+    router, gate_up_w, down_w = (params[f"l0.{name}"].float()
+                                 for name in ("router", "w_gate_up_moe", "w_down_moe"))
+    gates = torch.softmax(torch.einsum("bsd,de->bse", h32, router), dim=-1)
+    gate_up = torch.einsum("bsd,edcf->bsecf", h32, gate_up_w)
+    ffn = silu(gate_up[..., 0, :]) * gate_up[..., 1, :]
+    del gate_up, gate_up_w
+    want = torch.einsum("bse,bsef,efd->bsd", gates, ffn, down_w)
+    scale = float(want.abs().max())
+    readings = {"sound": float((got - want).abs().max()) / scale}
+    for name, fault in MOE_FAULTS.items():
+        wrong = torch.einsum("bse,bsef,efd->bsd", fault(gates), ffn, down_w)
+        readings[name] = float((wrong - want).abs().max()) / scale
+    if not readings["sound"] <= MOE_LAYER_TOL:
+        raise AssertionError(f"the bf16 mixture is {readings['sound']} (relative) from the f32 "
+                             f"contraction, over {MOE_LAYER_TOL}")
+    blind = [name for name in MOE_FAULTS if readings[name] <= MOE_LAYER_TOL]
+    if blind:
+        raise AssertionError(f"planted faults {blind} read within {MOE_LAYER_TOL}: {readings}")
+    return readings
+
+
+def _ffn_row_alone(torch, llama, params, cfg, tokens):
+    """Layer 0's FFN half on ``tokens``' embeddings: its last row computed
+    with the others (a prefill's GEMM shapes) and alone (a decode step's).
+    Returns the two's max abs difference, and the largest magnitude of the
+    FFN's own output (without the residual)."""
+    x = params["embed"][tokens]
+    full = llama._ffn(params, 0, x, cfg)[:, -1]
+    alone = llama._ffn(params, 0, x[:, -1:], cfg)[:, 0]
+    return {"max_abs_diff": max_err(full, alone),
+            "ffn_out_max_abs": float((full.float() - x[:, -1].float()).abs().max())}
+
+
+def _decode_gap(torch, llama, params, cfg, prompt, table, device):
+    """``prefill`` of ``prompt`` (K4, K2), ``DECODE_STEPS`` greedy steps
+    (K3), and a one-shot prefill of the prompt and the generated tokens.
+    Returns (the last step's logits, the one-shot's, prefill s, decode s a
+    step)."""
+    n = len(prompt)
+    max_blocks = table.shape[0]
+    spec = cfg.kv_spec(max_blocks)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    logits, caches = llama.prefill(params, prompt, spec.make_caches(device),
+                                   table[:n // cfg.block_tokens], cfg)
+    _sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    generated = []
+    t0 = time.perf_counter()
+    for step in range(DECODE_STEPS):
+        generated.append(int(logits.argmax()))
+        logits, caches = llama.decode_step(params, generated[-1], n + step, caches, table, cfg,
+                                           max_blocks)
+    _sync(torch, device)
+    decode_s = (time.perf_counter() - t0) / DECODE_STEPS
+    del caches
+    one_shot, _ = llama.prefill(params, prompt + generated, spec.make_caches(device), table,
+                                cfg)
+    return logits, one_shot, prefill_s, decode_s
+
+
+def _run_moe_spec(torch, params, device="cuda", geometry=LLAMA3_8B, moe_layers=MOE_LAYERS,
+                  prompt_tokens=PROMPT_TOKENS):
+    """The MoE leg on seeded mixture weights of ``moe_layers`` layers, then
+    ``speculative_verify`` on ``params`` (the dense model; None: seeded, the
+    CPU rehearsal) (module docstring, phase 15). Returns (metrics,
+    launches)."""
+    import numpy as np
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    bt = geometry["block_tokens"]
+    nb = prompt_tokens // bt
+    max_blocks = -(-(prompt_tokens + DECODE_STEPS) // bt)
+    table = torch.arange(max_blocks, dtype=torch.int32, device=device)
+    rng = np.random.default_rng(23)
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **geometry)
+    if params is None:
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                   device=device)
+    _ext.reset_launches()
+
+    # The mixture: prefill (K4, K2), DECODE_STEPS greedy steps (K3), against
+    # a one-shot prefill of the prompt and the generated tokens.
+    mcfg = llama.LlamaConfig(dtype=torch.bfloat16, **dict(
+        geometry, n_layers=moe_layers, n_experts=MOE_EXPERTS))
+    mparams = llama.init_params(mcfg, torch.Generator(device=device).manual_seed(3),
+                                device=device)
+    prompt = rng.integers(0, mcfg.vocab, prompt_tokens).tolist()
+    logits, one_shot, moe_prefill_s, moe_decode_s = _decode_gap(
+        torch, llama, mparams, mcfg, prompt, table, device)
+    moe_err = _check_close(torch, "MoE decode against its one-shot prefill", logits, one_shot,
+                           MOE_TOL)
+    launches = dict(_ext.LAUNCHES)  # the path's own launches: the mixture's, then verify's
+    layer_errs = _moe_layer_check(torch, llama, mparams, mcfg,
+                                  torch.tensor([prompt[:MOE_LAYER_TOKENS]], device=device))
+    # Where the gap comes from: the same reading at each depth, for the
+    # mixture, for the dense model on the same prompt, and for the mixture
+    # with its routers zeroed (uniform gates: no path through the router).
+    dcfg = llama.LlamaConfig(dtype=torch.bfloat16, **dict(geometry, n_layers=moe_layers))
+    uniform = dict(mparams, **{f"l{layer}.router": torch.zeros_like(mparams[f"l{layer}.router"])
+                               for layer in range(moe_layers)})
+    gaps = {}
+    for name, weights, config in (("moe", mparams, mcfg), ("dense", params, dcfg),
+                                  ("moe_uniform_gates", uniform, mcfg)):
+        gaps[name] = []
+        for depth in range(1, moe_layers + 1):
+            last, ref, _, _ = _decode_gap(torch, llama, weights, replace(config, n_layers=depth),
+                                          prompt, table, device)
+            gaps[name].append({"max_abs_diff": max_err(last, ref),
+                               "logits_max_abs": float(ref.float().abs().max())})
+    rows = torch.tensor([prompt], device=device)
+    row_alone = {"moe": _ffn_row_alone(torch, llama, mparams, mcfg, rows),
+                 "dense": _ffn_row_alone(torch, llama, params, dcfg, rows)}
+    del mparams, uniform, last, ref
+    dense_err = gaps["dense"][-1]["max_abs_diff"]
+    if not dense_err <= MOE_TOL:
+        raise AssertionError(f"the dense model's {moe_layers} layers: decode {dense_err} from "
+                             f"its one-shot prefill, over {MOE_TOL}")
+    log(f"moe: {moe_layers} layers x {MOE_EXPERTS} experts, {DECODE_STEPS} decode steps "
+        f"after a {prompt_tokens}-token prefill match the one-shot prefill, "
+        f"allclose(rtol=atol={MOE_TOL}) (max abs diff {moe_err}); by depth 1-{moe_layers} "
+        f"{json.dumps(gaps)}; layer 0's FFN, last row with the prompt and alone "
+        f"{json.dumps(row_alone)}; layer 0's bf16 mixture against the f32 contraction "
+        f"{layer_errs['sound']} of its range, within {MOE_LAYER_TOL}, planted faults "
+        f"{({k: layer_errs[k] for k in MOE_FAULTS})}")
+
+    # speculative_verify on the dense model.
+    spec = cfg.kv_spec(max_blocks)
+    prompt = rng.integers(0, cfg.vocab, prompt_tokens).tolist()
+
+    def prefilled():
+        return llama.prefill(params, prompt, spec.make_caches(device), table[:nb], cfg)[1]
+
+    _ext.reset_launches()
+    logits, caches = llama.prefill(params, prompt, spec.make_caches(device), table[:nb], cfg)
+    greedy, greedy_logits = [], []
+    for step in range(SPEC_DRAFT + 1):
+        greedy.append(int(logits.argmax()))
+        logits, caches = llama.decode_step(params, greedy[-1], prompt_tokens + step, caches,
+                                           table, cfg, max_blocks)
+        greedy_logits.append(logits)
+    caches = prefilled()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    n, nxt, _ = llama.speculative_verify(params, greedy[:SPEC_DRAFT], prompt_tokens, caches,
+                                         table, cfg, max_blocks)
+    verify_s = time.perf_counter() - t0
+    if (n, nxt) != (SPEC_DRAFT, greedy[SPEC_DRAFT]):
+        raise AssertionError(f"a greedy draft of {SPEC_DRAFT}: accepted {n} with next token "
+                             f"{nxt}, expected {SPEC_DRAFT} and {greedy[SPEC_DRAFT]}")
+    cut = SPEC_DRAFT - 3
+    bad = list(greedy[:SPEC_DRAFT])
+    bad[cut] = (bad[cut] + 1) % cfg.vocab
+    n, nxt, caches = llama.speculative_verify(params, bad, prompt_tokens, prefilled(), table,
+                                              cfg, max_blocks)
+    if (n, nxt) != (cut, greedy[cut]):
+        raise AssertionError(f"a draft corrupted at {cut}: accepted {n} with next token {nxt}, "
+                             f"expected {cut} and {greedy[cut]}")
+    on = [nxt]
+    for step in range(SPEC_DRAFT - cut):
+        logits, caches = llama.decode_step(params, on[-1], prompt_tokens + cut + step, caches,
+                                           table, cfg, max_blocks)
+        on.append(int(logits.argmax()))
+    if on != greedy[cut:SPEC_DRAFT + 1]:
+        raise AssertionError(f"decoding on from the accepted point gave {on}, greedy "
+                             f"{greedy[cut:SPEC_DRAFT + 1]}")
+    rows, _ = llama.prefill_continue(params, greedy[:SPEC_DRAFT], prompt_tokens, prefilled(),
+                                     table, cfg, max_blocks)
+    _sync(torch, device)
+    for name, count in _ext.LAUNCHES.items():
+        launches[name] += count
+    # The verify rows and the 1-row decode steps run the same ops over the
+    # same cache; they are held bitwise.
+    steps = torch.stack(greedy_logits[:SPEC_DRAFT])
+    if rows.shape != steps.shape or not torch.equal(rows, steps):
+        raise AssertionError(f"the verify rows differ from the greedy decode steps' logits "
+                             f"(max abs diff {max_err(rows, steps)})")
+    log(f"speculative_verify: a greedy draft of {SPEC_DRAFT} accepted whole, a draft "
+        f"corrupted at {cut} cut there with greedy's token, decoding on reproduces greedy; "
+        "the verify rows bitwise the decode steps' logits")
+    metrics = {
+        "moe_layers": moe_layers,
+        "moe_experts": MOE_EXPERTS,
+        "moe_prefill_ms": moe_prefill_s * 1e3,
+        "moe_decode_ms_per_step": moe_decode_s * 1e3,
+        "moe_max_abs_err": moe_err,
+        "decode_gap_by_depth": gaps,
+        "ffn_row_alone": row_alone,
+        "moe_layer_rel_err": layer_errs,
+        "verify_ms": verify_s * 1e3,
+    }
+    return metrics, launches
+
+
+def moe_spec_phase(torch, params, smi):
+    """Phase 15: Llama-3-8B widths, bf16, on the card. Returns (launches,
+    metrics)."""
+    metrics, launches = _run_moe_spec(torch, params)
+    metrics = {"card": smi, **metrics}
+    log(f"moe_spec: {json.dumps(metrics)}")
+    log(f"moe_spec launches: {json.dumps(launches)}")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
+# --cards N: the legs across cards
+# ---------------------------------------------------------------------------
+
+CARDS_RANK_TIMEOUT_S = 600.0
+
+
+def _long_context_rank(torch, args) -> int:
+    """One rank of ``--cards N``'s long-context leg, in a process of its
+    own; prints its metrics and launches as its last line."""
+    metrics, launches = _run_long_context(torch, args.port, None, rank=args.long_context_rank,
+                                          world=args.cards, init_file=args.init_file)
+    print(json.dumps({"rank": args.long_context_rank, "metrics": metrics,
+                      "launches": launches}), flush=True)
+    return 0
+
+
+def _spawn_long_context(port, cards, tmp):
+    """The long-context path at world size ``cards`` over NCCL, one process
+    a card. Returns each rank's last line; raises with a failing rank's
+    output, and stops every rank before it returns."""
+    init_file = os.path.join(tmp, "filestore")
+    procs, outs = [], []
+    try:
+        for rank in range(cards):
+            outs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cards", str(cards),
+                 "--long-context-rank", str(rank), "--port", str(port),
+                 "--init-file", init_file],
+                cwd=HERE, stdout=outs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + CARDS_RANK_TIMEOUT_S
+        while True:
+            codes = [proc.poll() for proc in procs]
+            if None not in codes or any(code not in (None, 0) for code in codes):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"long-context ranks still running after "
+                                   f"{CARDS_RANK_TIMEOUT_S} s")
+            time.sleep(0.5)
+    finally:
+        stopped = [proc.poll() is None for proc in procs]
+        for proc, stop in zip(procs, stopped):
+            if stop:
+                proc.kill()
+            proc.wait()
+    texts = []
+    for out in outs:
+        out.seek(0)
+        texts.append(out.read())
+        out.close()
+    # A rank that failed on its own, before the ones stopped here.
+    for rank in sorted(range(cards), key=lambda r: stopped[r]):
+        if procs[rank].returncode != 0:
+            raise AssertionError(f"long-context rank {rank} exited {procs[rank].returncode}:\n"
+                                 f"{texts[rank][-4000:]}")
+    return [json.loads(text.strip().splitlines()[-1]) for text in texts]
+
+
+def cards_main(torch, cards: int, t_start: float) -> int:
+    """``--cards N``: the ICI handoff over ``[cuda:0, cuda:1]`` and the
+    long-context path at world size N over NCCL (module docstring)."""
+    import tempfile
+
+    if cards < 2 or torch.cuda.device_count() < cards:
+        print(f"chip_smoke: --cards {cards} needs 2 or more cards, "
+              f"{torch.cuda.device_count()} present", file=sys.stderr)
+        return 1
+    _build_all(torch)
+    from infinistore_tpu_torch import lib
+
+    paths = {}
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        metrics, paths["ici_handoff"] = _run_ici_handoff(torch, server.port, None,
+                                                         device="cuda:0", device_b="cuda:1")
+    finally:
+        server.stop()
+    metrics = {"mesh": ["cuda:0", "cuda:1"],
+               "peer_access": torch.cuda.can_device_access_peer(0, 1), **metrics}
+    log(f"ici handoff across two cards: {json.dumps(metrics)}")
+    torch.cuda.empty_cache()
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = _spawn_long_context(server.port, cards, tmp)
+    finally:
+        server.stop()
+    for result in ranks:
+        log(f"long context rank {result['rank']} of {cards}: {json.dumps(result['metrics'])}")
+        idle = [name for name in PATH_KERNELS["long_context"] if result["launches"][name] == 0]
+        if idle:
+            raise AssertionError(f"long-context rank {result['rank']} never launched {idle}")
+    paths["long_context"] = {name: sum(r["launches"][name] for r in ranks)
+                             for name in ranks[0]["launches"]}
+    idle = [name for name in PATH_KERNELS["ici_handoff"] if paths["ici_handoff"][name] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the ici_handoff path: {idle}")
+    log(f"total wall: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"cards": cards, "launches": paths}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+def _args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="2 or more: run the legs across cards instead (module docstring)")
+    ap.add_argument("--long-context-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init-file", default=None, help=argparse.SUPPRESS)
+    return ap.parse_args(argv)
+
+
 def _build_all(torch):
     """Compile the kernels (nvcc) while the native store library builds
     (g++, at its first import), and K5's and K7's source with the split
@@ -3034,6 +3861,7 @@ def _build_all(torch):
 
 def main() -> int:
     t_start = time.perf_counter()
+    args = _args(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -3043,10 +3871,16 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    smi = subprocess.run(
+    if args.long_context_rank is not None:
+        return _long_context_rank(torch, args)
+    smi_lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = smi_lines[0]
+    if args.cards != 1:
+        print("\n".join(smi_lines), flush=True)
+        return cards_main(torch, args.cards, t_start)
     print(smi, flush=True)
 
     nomerge = _build_all(torch)
@@ -3124,6 +3958,23 @@ def main() -> int:
         paths["vllm_v1"], _ = vllm_v1_phase(torch, server.port, params, smi)
     finally:
         server.stop()
+    # The multi-device serving paths reuse them too, each store its own.
+    torch.cuda.empty_cache()
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        paths["ici_handoff"], _ = ici_handoff_phase(torch, server.port, params, smi)
+    finally:
+        server.stop()
+    torch.cuda.empty_cache()
+    server = lib.start_local_server(prealloc_bytes=2 << 30, block_bytes=32 << 10,
+                                    pin_memory=False)
+    try:
+        paths["long_context"], _ = long_context_phase(torch, server.port, params, smi)
+    finally:
+        server.stop()
+    torch.cuda.empty_cache()
+    paths["moe_spec"], _ = moe_spec_phase(torch, params, smi)
     del params
     torch.cuda.empty_cache()
     paths["serving_cli"], _ = serving_cli_phase(torch, smi)

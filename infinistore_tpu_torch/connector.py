@@ -2,8 +2,8 @@
 ``token_chain_hashes``, ``_ChainHashCache``, ``FetchCoalescer`` and
 ``KVConnector`` with lookup / save / load / start_fetch / start_fetch_async /
 stage_layer_save / handoff / manifest / get_stats / drop; ``handoff`` moves
-blocks through the store only: its interconnect transport waits for a port
-of ``IciBlockTransfer``).
+blocks device to device through ``cuda/ici.py``'s ``IciBlockTransfer`` when
+one is bound, through the store otherwise).
 
 A connector hashes token prefixes into chain keys, asks the store how much
 of a prompt is already cached (``get_match_last_index``), and streams
@@ -272,7 +272,13 @@ class KVConnector:
     own close.
 
     ``QOS_AWARE``: ``start_fetch`` takes the two-class priority kwarg
-    (adapters gate forwarding on the attribute)."""
+    (adapters gate forwarding on the attribute).
+
+    ``ici``: an optional ``IciBlockTransfer`` over the devices this engine's
+    caches live on. With it, ``handoff`` moves blocks device to device;
+    without it the same call goes through the store. ``conn`` may be None
+    with ``ici`` set: a pure-interconnect connector, with no staging pool and
+    no store path."""
 
     QOS_AWARE = True
 
@@ -284,23 +290,31 @@ class KVConnector:
         max_blocks: int,
         pool: Optional[HostStagingPool] = None,
         device="cuda",
+        ici=None,
     ):
         self.device = _ext.resolve_device(device)
         self.conn = conn
         self.spec = spec
         self.model_id = model_id
         self.max_blocks = max_blocks
-        if pool is None:
-            # 6 read-staging regions (K+V each): deep enough that network
-            # fetches and uploads overlap several layers (layerwise.py
-            # _LayerRegions adapts the pipeline depth to this size).
-            pool = HostStagingPool(
-                12 * max_blocks * spec.block_nbytes, spec.block_nbytes, conn=conn,
-                device=self.device,
-            )
-        self.pool = pool
-        self._writer = LayerwiseKVWriter(conn, pool, spec, max_blocks)
-        self._reader = LayerwiseKVReader(conn, pool, spec, max_blocks)
+        self.ici = ici
+        if conn is None and ici is not None:
+            # Pure interconnect: no store data plane, so none of the staging
+            # it would need.
+            self.pool = pool
+            self._writer = self._reader = None
+        else:
+            if pool is None:
+                # 6 read-staging regions (K+V each): deep enough that network
+                # fetches and uploads overlap several layers (layerwise.py
+                # _LayerRegions adapts the pipeline depth to this size).
+                pool = HostStagingPool(
+                    12 * max_blocks * spec.block_nbytes, spec.block_nbytes, conn=conn,
+                    device=self.device,
+                )
+            self.pool = pool
+            self._writer = LayerwiseKVWriter(conn, pool, spec, max_blocks)
+            self._reader = LayerwiseKVReader(conn, pool, spec, max_blocks)
         # Two-phase admission (start_fetch) reserves from its own arena: the
         # reader's _LayerRegions owns ``pool``'s layout outright. Lazy: only
         # engines on the pipelined path pay for it.
@@ -313,7 +327,8 @@ class KVConnector:
 
     def close(self) -> None:
         """Release the staging pools' page locks (idempotent)."""
-        self.pool.close()
+        if self.pool is not None:
+            self.pool.close()
         if self._prefetch_pool is not None:
             self._prefetch_pool.close()
 
@@ -682,36 +697,65 @@ class KVConnector:
         src: Optional[int] = None,
         dst: Optional[int] = None,
     ):
-        """Move a request's KV blocks from a producer to a consumer through
-        the store: save the blocks under the request's chain keys at
-        FOREGROUND priority (the consumer loads the same blocks next), then
-        load them into ``dst_block_ids``. The cross-process flow runs the
-        save on the producer and the load on the consumer; calling handoff
-        in one process does both. ``caches`` are per-layer
-        ``[num_blocks, *block]`` tensors, updated in place.
+        """Move a request's KV blocks from a producer to a consumer.
 
-        Only the request's complete token blocks move (an incomplete tail
-        block has no chain key). ``src``/``dst``, the interconnect shard
-        indices of the JAX package's same-mesh transport, are accepted and
-        not used: that transport waits for a port of ``IciBlockTransfer``,
-        and until then every handoff takes the store, as the JAX package's
-        does when no interconnect is bound. Returns (caches, blocks
-        moved)."""
+        With an ``IciBlockTransfer`` bound (``ici``) and ``src``/``dst``
+        given: device to device, no host, no store. ``caches`` are then per
+        layer ``(K, V)``, each a list of per-shard ``[num_blocks, *block]``
+        tensors (shard ``i`` on the transfer's ``mesh[i]``); a uniform list
+        moves in one ``handoff_layers`` (one K1 launch, one copy, one K2
+        launch), a ragged one in one ``handoff_kv`` per layer. Only shard
+        ``dst``'s caches change, in place.
+
+        Otherwise through the store: save the blocks under the request's
+        chain keys at FOREGROUND priority (the consumer loads the same blocks
+        next), then load them into ``dst_block_ids``. The cross-process flow
+        runs the save on the producer and the load on the consumer; calling
+        handoff in one process does both. ``caches`` are per-layer
+        ``[num_blocks, *block]`` tensors, updated in place. A pure
+        interconnect connector (``conn`` None) has no store to go through and
+        raises without ``src``/``dst``.
+
+        Both transports move the request's complete token blocks only (an
+        incomplete tail block has no chain key, so the store could not carry
+        it). Returns (caches, blocks moved)."""
         chains = self._chains(token_ids)
         n = min(len(src_block_ids), len(dst_block_ids), len(chains))
         if n == 0:
             return list(caches), 0
+        if self.ici is not None and src is not None and dst is not None:
+            src_ids, dst_ids = src_block_ids[:n], dst_block_ids[:n]
+            flat = [c for kv in caches for c in kv]
+            uniform = all(
+                len(c) == len(flat[0]) and all(
+                    t.shape == flat[0][0].shape and t.dtype == flat[0][0].dtype for t in c)
+                for c in flat
+            )
+            if uniform:
+                out = self.ici.handoff_layers(list(caches), src_ids, dst_ids, src, dst)
+            else:
+                # Ragged layers (fewer blocks, another dtype) cannot share one
+                # packed buffer: one K + V handoff per layer.
+                out = [self.ici.handoff_kv(k, v, src_ids, dst_ids, src, dst)
+                       for k, v in caches]
+            return out, n
+        if self.ici is not None and self.conn is None:
+            raise ValueError(
+                "pure interconnect connector: handoff needs src and dst shard "
+                "indices (no store connection to go through)"
+            )
         # The store path gathers along axis 0 = blocks, so a cache with an
         # extra leading (device) axis would ship wrong bytes under valid
         # keys: reject it.
         block_shape = tuple(self.spec.block_shape)
         for k_cache, v_cache in caches:
             for c in (k_cache, v_cache):
-                if c.dim() != 1 + len(block_shape) or tuple(c.shape[1:]) != block_shape:
+                if not isinstance(c, torch.Tensor) or c.dim() != 1 + len(block_shape) \
+                        or tuple(c.shape[1:]) != block_shape:
                     raise ValueError(
                         "handoff through the store needs per-layer caches of shape "
                         f"[num_blocks, {', '.join(map(str, block_shape))}]; "
-                        f"got {tuple(c.shape)}"
+                        f"got {tuple(c.shape) if isinstance(c, torch.Tensor) else type(c)}"
                     )
         await self.save(
             token_ids, caches, np.asarray(src_block_ids)[:n],

@@ -27,6 +27,7 @@ the scratch and the ticket counters of the splits' merge from the stream's
 workspace (``split_workspace``).
 """
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -167,6 +168,18 @@ def kernels() -> ctypes.CDLL:
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of the current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(device: torch.device):
+    """The context every kernel entry is called in: ``device`` made the
+    current CUDA device. The library works on the current device (its
+    launch-time attributes and grid caps are per device), and a launch onto
+    another device's stream fails, so a tensor off the current device (a
+    mesh's second card) needs it. Any other device has no current device to
+    set: nothing is entered."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def decode_splits(width: int) -> int:

@@ -70,8 +70,9 @@ def _flash_prefill_cuda(q, k, v, *, causal):
         raise ValueError(f"{name}: TMA needs 16-byte aligned q, k and v")
     lib = _ext.kernels()
     entry = lib.its_flash_prefill_wgmma if wgmma else lib.its_flash_prefill
-    code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, t, h, kvh, d, int(causal), _ext.stream_of(q))
+    with _ext.on_device(q.device):
+        code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     b, s, t, h, kvh, d, int(causal), _ext.stream_of(q))
     _ext.LAUNCHES["flash_prefill"] += 1
     if wgmma:
         _ext.LAUNCHES["flash_prefill_wgmma"] += 1

@@ -98,12 +98,13 @@ def _quant_decode_cuda(q, k_data, k_scales, v_data, v_scales, block_tables, seq_
     stream = _ext.stream_of(q)
     scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     out = torch.empty_like(q)
-    code = _ext.kernels().its_paged_decode_attention_quantized(
-        q.data_ptr(), k_data.data_ptr(), k_scales.data_ptr(), v_data.data_ptr(),
-        v_scales.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits,
-        stream,
-    )
+    with _ext.on_device(q.device):
+        code = _ext.kernels().its_paged_decode_attention_quantized(
+            q.data_ptr(), k_data.data_ptr(), k_scales.data_ptr(), v_data.data_ptr(),
+            v_scales.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits,
+            stream,
+        )
     _ext.LAUNCHES["paged_decode_attention_quantized"] += 1
     _ext.check(code, name)
     return out

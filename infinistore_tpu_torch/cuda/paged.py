@@ -176,15 +176,16 @@ def _launch(name, caches, block_ids, flats):
     bulk = block_bytes % 16 == 0 and all(p % 16 == 0 for p in (*ptrs, *flats))
     entry = getattr(_ext.kernels(), f"its_{name}_many" if bulk else f"its_{name}_many_vec")
     stream = _ext.stream_of(first)
-    for lo in range(0, len(caches), MAX_CACHES):
-        count = min(MAX_CACHES, len(caches) - lo)
-        table = c_void_p * count
-        code = entry(table(*ptrs[lo:lo + count]), table(*flats[lo:lo + count]),
-                     block_ids.data_ptr(), count, n, first.shape[0], block_bytes, stream)
-        _ext.LAUNCHES[name] += 1
-        if bulk:
-            _ext.LAUNCHES[f"{name}_bulk"] += 1
-        _ext.check(code, name)
+    with _ext.on_device(first.device):
+        for lo in range(0, len(caches), MAX_CACHES):
+            count = min(MAX_CACHES, len(caches) - lo)
+            table = c_void_p * count
+            code = entry(table(*ptrs[lo:lo + count]), table(*flats[lo:lo + count]),
+                         block_ids.data_ptr(), count, n, first.shape[0], block_bytes, stream)
+            _ext.LAUNCHES[name] += 1
+            if bulk:
+                _ext.LAUNCHES[f"{name}_bulk"] += 1
+            _ext.check(code, name)
 
 
 def _gather_many_cuda(caches, block_ids):

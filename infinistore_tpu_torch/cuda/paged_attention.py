@@ -176,11 +176,12 @@ def _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens):
     stream = _ext.stream_of(q)
     scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     out = torch.empty_like(q)
-    code = _ext.kernels().its_paged_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), dtype,
-        bsz, h, kvh, d, bt, n, width, splits, stream,
-    )
+    with _ext.on_device(q.device):
+        code = _ext.kernels().its_paged_decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), dtype,
+            bsz, h, kvh, d, bt, n, width, splits, stream,
+        )
     _ext.LAUNCHES["paged_decode_attention"] += 1
     _ext.check(code, name)
     return out
@@ -355,11 +356,12 @@ def _paged_decode_attention_ragged_cuda(q, k_cache, v_cache, pages, page_rows,
     stream = _ext.stream_of(q)
     scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     out = torch.empty_like(q)
-    code = _ext.kernels().its_paged_decode_attention_ragged(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
-        page_starts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p, width, splits, stream,
-    )
+    with _ext.on_device(q.device):
+        code = _ext.kernels().its_paged_decode_attention_ragged(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
+            page_starts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p, width, splits, stream,
+        )
     _ext.LAUNCHES["paged_decode_attention_ragged"] += 1
     _ext.check(code, name)
     return out
@@ -424,11 +426,12 @@ def _decode_attention_stats_cuda(q, k_cache, v_cache, block_tables, seq_lens):
     stream = _ext.stream_of(q)
     scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     acc, m, l = _stats_outputs(q)
-    code = _ext.kernels().its_paged_decode_attention_stats(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), scratch.data_ptr(),
-        tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits, stream,
-    )
+    with _ext.on_device(q.device):
+        code = _ext.kernels().its_paged_decode_attention_stats(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
+            seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), scratch.data_ptr(),
+            tickets.data_ptr(), dtype, bsz, h, kvh, d, bt, n, width, splits, stream,
+        )
     _ext.LAUNCHES["paged_decode_attention_stats"] += 1
     _ext.check(code, name)
     return acc, m, l
@@ -459,12 +462,13 @@ def _decode_attention_stats_ragged_cuda(q, k_cache, v_cache, pages, page_rows, p
     stream = _ext.stream_of(q)
     scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
     acc, m, l = _stats_outputs(q)
-    code = _ext.kernels().its_paged_decode_attention_ragged_stats(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
-        page_starts.data_ptr(), seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p,
-        width, splits, stream,
-    )
+    with _ext.on_device(q.device):
+        code = _ext.kernels().its_paged_decode_attention_ragged_stats(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
+            page_starts.data_ptr(), seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(),
+            l.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p,
+            width, splits, stream,
+        )
     _ext.LAUNCHES["paged_decode_attention_ragged_stats"] += 1
     _ext.check(code, name)
     return acc, m, l

@@ -1,5 +1,10 @@
-"""Model family of the port: the small Llama-style transformer with a paged
-KV cache (``llama.py``), mirroring ``infinistore_tpu/models``."""
+"""Model family of the port, mirroring ``infinistore_tpu/models``: the small
+Llama-style transformer with a paged KV cache (``llama.py``), and the
+sequence-parallel serving paths over ``torch.distributed``: ring attention
+(``ring_attention.py``), Ulysses attention (``ulysses.py``) and the
+long-context prefill (``long_context.py``). Their names resolve lazily;
+``ring_attention`` itself is reached through its module, whose name it
+shares."""
 
 from .llama import (
     LlamaConfig,
@@ -12,15 +17,36 @@ from .llama import (
     lm_logits,
     params_from_numpy,
     prefill,
+    prefill_continue,
     prefill_layer,
+    speculative_verify,
     verify_step_batched,
 )
+
+_LAZY = {
+    "ring_attention": ("dense_attention_reference",),
+    "ulysses": ("ulysses_attention",),
+    "long_context": ("prefill_ring",),
+}
+_WHERE = {name: mod for mod, names in _LAZY.items() for name in names}
+
+
+def __getattr__(name):
+    mod = _WHERE.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+
 
 __all__ = [
     "LlamaConfig",
     "init_params",
     "params_from_numpy",
     "prefill",
+    "prefill_continue",
+    "speculative_verify",
     "decode_step",
     "decode_step_batched",
     "verify_step_batched",
@@ -29,4 +55,5 @@ __all__ = [
     "lm_logits",
     "embed_wave",
     "decode_wave_layer",
+    *sorted(_WHERE),
 ]

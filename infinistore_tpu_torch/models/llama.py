@@ -37,11 +37,6 @@ from ..cuda.paged_attention import paged_decode_attention_batched, paged_decode_
 Params = Dict[str, torch.Tensor]
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
-_MOE_TODO = (
-    "the soft mixture-of-experts FFN (n_experts > 0) is not ported yet; "
-    "see ROADMAP.md Queue A"
-)
-
 
 def _set_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -57,8 +52,9 @@ class LlamaConfig:
     n_heads: int = 8
     n_kv_heads: int = 4
     ffn_dim: int = 256
-    # > 0 selects the soft mixture-of-experts FFN of the JAX package, which
-    # the port does not run yet (NotImplementedError).
+    # > 0 switches every FFN to the JAX package's dense soft mixture of
+    # experts: a router's softmax gates weight every expert for every token
+    # (not top-k), with expert-major weights [n_experts, ...].
     n_experts: int = 0
     block_tokens: int = 8
     rope_theta: float = 10000.0
@@ -81,8 +77,6 @@ class LlamaConfig:
 
 
 def _param_shapes(config: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
-    if config.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
     hd = config.head_dim
     shapes = {
         "embed": (config.vocab, config.dim),
@@ -97,15 +91,22 @@ def _param_shapes(config: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
         shapes[pre + "wv"] = (config.dim, config.n_kv_heads, hd)
         shapes[pre + "wo"] = (config.n_heads, hd, config.dim)
         shapes[pre + "ffn_norm"] = (config.dim,)
-        shapes[pre + "w_gate_up"] = (config.dim, 2, config.ffn_dim)
-        shapes[pre + "w_down"] = (config.ffn_dim, config.dim)
+        if config.n_experts > 0:
+            e = config.n_experts
+            shapes[pre + "router"] = (config.dim, e)
+            shapes[pre + "w_gate_up_moe"] = (e, config.dim, 2, config.ffn_dim)
+            shapes[pre + "w_down_moe"] = (e, config.ffn_dim, config.dim)
+        else:
+            shapes[pre + "w_gate_up"] = (config.dim, 2, config.ffn_dim)
+            shapes[pre + "w_down"] = (config.ffn_dim, config.dim)
     return shapes
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator, device="cuda") -> Params:
-    """He-scaled dense params as a flat dict (layer-prefixed keys), drawn
-    from ``generator`` on its own device and placed on ``device``. Norm
-    weights are ones."""
+    """He-scaled params as a flat dict (layer-prefixed keys), drawn from
+    ``generator`` on its own device and placed on ``device``. Norm weights
+    are ones; an MoE config has ``router`` / ``w_gate_up_moe`` /
+    ``w_down_moe`` in place of each layer's dense FFN weights."""
     dev = _ext.resolve_device(device)
     _set_numerics()
     p: Params = {}
@@ -197,16 +198,39 @@ def _block(params: Params, layer: int, x, k, v, q_positions, mask, config):
 
 
 def _ffn(params: Params, layer: int, x, config):
-    """FFN half of the block (dense SwiGLU)."""
-    if config.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
+    """FFN half of the block: dense SwiGLU, or the soft mixture of experts
+    when ``config.n_experts > 0``."""
     pre = f"l{layer}."
     h = _rms_norm(x, params[pre + "ffn_norm"])
+    if config.n_experts > 0:
+        return x + _moe(params, pre, h, config)
     gate_up = (h @ params[pre + "w_gate_up"].reshape(config.dim, -1)).unflatten(
         -1, (2, config.ffn_dim)
     )
     ffn = F.silu(gate_up[..., 0, :]) * gate_up[..., 1, :]
     return x + ffn @ params[pre + "w_down"]
+
+
+def _moe(params: Params, pre: str, h, config):
+    """The JAX package's dense soft mixture: router logits in f32, softmax,
+    gates cast to the activation dtype, then every expert for every token.
+
+    The reference's three-operand contraction ``bse,bsef,efd->bsd`` runs in
+    one fixed order: the gates scale each expert's SwiGLU output first
+    (elementwise, in the activation dtype), then one GEMM contracts the
+    joint (expert, ffn) axis against ``w_down_moe`` viewed as
+    ``[E * ffn, dim]``, so each output sums over all experts in one f32
+    accumulation."""
+    e, f = config.n_experts, config.ffn_dim
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, config.dim)  # [N, dim]
+    gates = torch.softmax((h2 @ params[pre + "router"]).float(), dim=-1).to(h.dtype)  # [N, E]
+    # One batched GEMM over the experts' [dim, 2 * ffn] weights: [E, N, 2 * ffn].
+    gate_up = h2[None] @ params[pre + "w_gate_up_moe"].reshape(e, config.dim, 2 * f)
+    ffn = F.silu(gate_up[..., :f]) * gate_up[..., f:]  # [E, N, F]
+    weighted = (ffn * gates.t()[..., None]).permute(1, 0, 2).reshape(-1, e * f)  # [N, E * F]
+    out = weighted @ params[pre + "w_down_moe"].reshape(e * f, config.dim)
+    return out.reshape(*lead, config.dim)
 
 
 def _q_proj(params: Params, layer: int, x, positions, config):
@@ -461,6 +485,65 @@ def prefill_continue(
         params, tokens[None], positions[None], caches, block_table[None], config, max_blocks,
     )
     return logits[0], new_caches
+
+
+def speculative_verify(
+    params: Params,
+    draft,  # [D] int draft tokens (draft[0] already validated by the caller
+    #         against its previous step's logits)
+    start_pos,  # int, absolute position of draft[0]
+    caches: Caches,
+    block_table,  # [max_blocks] int (padded)
+    config: LlamaConfig,
+    max_blocks: int,
+    pad_to: int = 0,
+):
+    """Score a whole speculative draft in ONE chunked pass and accept its
+    longest greedy-consistent prefix.
+
+    ``prefill_continue`` processes all D draft tokens at once (each row
+    attends its own prefix; K3 on CUDA); row i's argmax is the target
+    model's next token after ``draft[:i+1]``, so ``draft[i+1]`` is accepted
+    iff it equals that argmax. Returns ``(n_accepted, next_token, caches)``
+    where ``next_token`` is the model's continuation after the accepted
+    prefix, the token the engine emits beside the accepted draft.
+
+    Rejected draft positions did write K/V into their slots, but every later
+    decode masks attention at ``position + 1``, so those slots are never
+    attended and are overwritten when real tokens reach them: the caller
+    only rewinds its position counter.
+
+    ``pad_to``: a fixed chunk length >= D for engines that keep one launch
+    shape across rounds. The draft is padded with its last token (the pad
+    rows' K/V land beyond the accepted point, like any rejection) and
+    acceptance is computed over the true D only."""
+    draft_host = np.asarray(draft, dtype=np.int32)
+    d = int(draft_host.shape[0])
+    if d == 0:
+        raise ValueError("speculative_verify needs a non-empty draft")
+    span = pad_to or d
+    if int(start_pos) + span > max_blocks * config.block_tokens:
+        # An out-of-table block index would write past the request's blocks.
+        raise ValueError(
+            f"draft span [{int(start_pos)}, {int(start_pos) + span}) exceeds "
+            f"the table's {max_blocks * config.block_tokens}-token capacity"
+        )
+    if pad_to:
+        if pad_to < d:
+            raise ValueError(f"pad_to={pad_to} < draft length {d}")
+        draft_host = np.concatenate(
+            [draft_host, np.full(pad_to - d, draft_host[-1], np.int32)]
+        )
+    logits, caches = prefill_continue(
+        params, draft_host, int(start_pos), caches, block_table, config, max_blocks,
+    )
+    # ONE device-to-host transfer per round: the [D] argmaxes; the draft
+    # comparison stays on the host.
+    preds = logits.argmax(dim=-1).cpu().numpy()  # preds[i] follows draft[:i+1]
+    ok = preds[: d - 1] == draft_host[1:d]  # draft[i+1] consistent?
+    n_accepted = 1 + int(np.argmin(ok)) if not ok.all() else d
+    next_token = int(preds[n_accepted - 1])
+    return n_accepted, next_token, caches
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,12 @@
   of running on the CPU (the cluster's default member factory, the
   benchmark CLI and the fleet client too), and the
   client library refuses to register a tensor that does not live on the CPU.
+- The multi-device serving modules (the block transfer, ring and Ulysses
+  attention, the long-context prefill) import no jax and compile nothing;
+  the ``models`` names of the sequence-parallel modules resolve lazily; the
+  sequence-parallel entry points raise without a process group, and the
+  transfer refuses shard indices outside its mesh and a mesh on a card
+  that is not there.
 """
 
 import ast
@@ -60,6 +66,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     scanned = {os.path.relpath(path, PORT) for path in _port_sources()}
     assert {"cluster.py", "membership.py", "faults.py"} <= scanned
     assert {"vllm_v1.py", "loadgen.py", "benchmark.py", "fleet_client.py"} <= scanned
+    assert {os.path.join("cuda", "ici.py"), os.path.join("models", "ring_attention.py"),
+            os.path.join("models", "ulysses.py"), os.path.join("models", "long_context.py")} <= scanned
 
 
 def test_package_import_is_light_and_builds_nothing():
@@ -241,3 +249,64 @@ def test_register_mr_refuses_tensors_off_the_cpu():
         lib._extract_ptr_size(fake_cuda, None)
     host = torch.zeros(16, dtype=torch.uint8)
     assert lib._extract_ptr_size(host, None) == (host.data_ptr(), 16)
+
+
+def test_multi_device_modules_are_light_and_refuse_misuse(monkeypatch):
+    script = textwrap.dedent(
+        """
+        import subprocess, sys
+
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"import started a process: {args[:1]}")
+
+        subprocess.Popen = refuse
+        import infinistore_tpu_torch.models as models
+        for mod in ("ring_attention", "ulysses", "long_context"):
+            assert f"infinistore_tpu_torch.models.{mod}" not in sys.modules, mod
+        from infinistore_tpu_torch.models import long_context, ulysses
+        assert models.prefill_ring is long_context.prefill_ring
+        assert models.ulysses_attention is ulysses.ulysses_attention
+        from infinistore_tpu_torch.models import ring_attention
+        assert models.dense_attention_reference is ring_attention.dense_attention_reference
+        import infinistore_tpu_torch.cuda.ici
+        from infinistore_tpu_torch.cuda import _ext
+        assert _ext._lib is None, "kernel library loaded at import"
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "triton", "infinistore_tpu"))
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+    from infinistore_tpu_torch.cuda.ici import IciBlockTransfer, mesh_from_devices
+    from infinistore_tpu_torch.models import llama, ring_attention, ulysses
+    from infinistore_tpu_torch.models.long_context import prefill_ring
+
+    x = torch.zeros(1, 4, 2, 8)
+    for fn in (ring_attention.ring_attention, ulysses.ulysses_attention):
+        with pytest.raises(RuntimeError, match="process group"):
+            fn(x, x, x)
+    cfg = llama.LlamaConfig(dtype=torch.float32, n_layers=1)
+    with pytest.raises(RuntimeError, match="process group"):
+        prefill_ring(llama.init_params(cfg, torch.Generator(), device="cpu"),
+                     torch.zeros(1, 8, dtype=torch.long), cfg)
+    with pytest.raises(ValueError, match="out of range"):
+        IciBlockTransfer(["cpu", "cpu"], "store", perm=[(0, 2)])
+    tr = IciBlockTransfer(["cpu", "cpu"], "store", perm=[(0, 1)])
+    cache = [torch.zeros(4, 2), torch.zeros(4, 2)]
+    for src, dst in ((-1, 1), (0, 2)):
+        with pytest.raises(ValueError, match="out of range"):
+            tr.handoff_blocks(cache, [0], [1], src, dst)
+        with pytest.raises(ValueError, match="out of range"):
+            tr.send_blocks(cache, [0], src, dst)
+    assert tr.launches == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_from_devices()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IciBlockTransfer(["cuda:0", "cuda:0"], "store", perm=[(0, 1)])
