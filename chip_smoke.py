@@ -265,6 +265,31 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    index 5 is cut there with greedy's token, decoding on from the accepted
    point reproduces greedy, and the verify rows' logits are bitwise the
    greedy decode steps'.
+16. Training (``llama.loss_fn`` / ``train_step``) at Llama-3-8B widths cut to
+   8 layers (``TRAIN_LAYERS``; 2.80 B parameters), a batch of 2 x 2,048
+   tokens, random weights (seed 0). The bf16 gradients are held against an
+   f32 step's on the same weights, upcast, as the largest relative error
+   over the parameters, within ``TRAIN_GRAD_TOL``; the same reading with a
+   planted fault (``TRAIN_FAULTS``: the causal mask dropped, the targets
+   shifted by one) must land outside it; the bf16 loss within
+   ``TRAIN_LOSS_TOL`` of the f32 one. Two f32 steps on the same batch: the
+   second's loss must be lower. Two bf16 steps, and a third under
+   ``torch.profiler`` (the device's busy time by kind). Each step's wall
+   (forward, backward and update, synced), tokens/s and the peak device
+   memory of each stage are logged. A small f32 model's gradients and step
+   on the card must agree with the CPU's within 1e-4; K4 called with CUDA
+   inputs that require grad must raise (its output would carry no
+   gradient). The path launches none of K1-K8.
+17. The parallel training paths on a process group of world size 1 over
+   NCCL (NCCL refuses two ranks on one card): ring and Ulysses gradients on
+   layer 0's q/k/v of 4,096 tokens (f32) against the dense oracle's
+   (``dense_attention_reference``), within ``SP_GRAD_TOL``; the GPipe
+   pipeline (``models/pipeline.py``, 1 stage, 4 microbatches, 4 f32 layers
+   at Llama-3-8B widths, 4 x 512 tokens) against ``loss_fn``'s loss and
+   gradients; the expert-parallel step (``models/expert_parallel.py``,
+   Mixtral-8x7B's 8 experts at Llama-3-8B widths cut to 2 layers, bf16, one
+   1,024-token sequence) against the single-device gradients, each rank
+   holding only its slices before and after a step. No K1-K8 launch.
 
 Prints the card's name and power limit, a line with the script's total
 wall, a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -273,12 +298,16 @@ when no CUDA device is present.
 
     python3 chip_smoke.py --cards N
 
-runs instead, on N >= 2 cards of one host, the two legs that one card
-cannot show: the ICI handoff (phase 13, every check) over the mesh
-``[cuda:0, cuda:1]``, so that K1 runs on one card, the packed blocks cross
-to the other as a peer copy and K2 and engine B's decode run there; and the
+runs instead, on N >= 2 cards of one host, the legs that one card cannot
+show: the ICI handoff (phase 13, every check) over the mesh ``[cuda:0,
+cuda:1]``, so that K1 runs on one card, the packed blocks cross to the
+other as a peer copy and K2 and engine B's decode run there; the
 long-context path (phase 14, every check) at world size N over NCCL, one
-process a card (``--long-context-rank``, spawned by the script itself).
+process a card (``--long-context-rank``, spawned by the script itself); and
+the parallel training path (phase 17, every check) at world size N, one
+process a card (``--parallel-train-rank``): the ring and Ulysses gradients
+across N ranks, the pipeline at N stages and the expert-parallel step at
+(dp, tp, ep) = (1, 2, N / 2).
 """
 
 import asyncio
@@ -371,6 +400,10 @@ PATH_KERNELS = {
     "ici_handoff": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
     "long_context": ("gather_blocks", "scatter_blocks", "paged_decode_attention"),
     "moe_spec": ("scatter_blocks", "paged_decode_attention", "flash_prefill"),
+    # The training paths run no kernel: their attention is the dense,
+    # differentiable one (every launch count must stay 0, checked in main).
+    "train": (),
+    "parallel_train": (),
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
 BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster", "vllm_v1",
@@ -441,6 +474,58 @@ MOE_TOL = 0.1
 MOE_LAYER_TOKENS = 256
 MOE_LAYER_TOL = 0.03
 SPEC_DRAFT = 8
+# The train path: Llama-3-8B widths cut to TRAIN_LAYERS layers (2.80 B
+# parameters: 1.74 B in the layers, 1.05 B in embed and lm_head), a batch of
+# TRAIN_BATCH x TRAIN_TOKENS tokens, random weights (seed 0). At 4 layers
+# the peak was 32.4 GiB (the bf16 gradients computed while the f32 weights
+# and gradients are held), about 4.5 GiB a layer on top of the vocabulary's
+# and the f32 copies' share: 8 layers leave 25 GiB of the card free, 16
+# would not fit. The bf16
+# gradients are held against an f32 step on the same weights, upcast: for
+# each parameter ||g_bf16 - g_f32|| / ||g_f32||, the largest over the
+# parameters. bf16 rounds every activation, the weights and the gradients
+# (2^-9 relative each), and the error compounds through 4 layers and back.
+# Planted faults (TRAIN_FAULTS, in the bf16 loss: the causal mask dropped,
+# the targets shifted by one position) must read outside TRAIN_GRAD_TOL. On
+# an H100 at 4 layers the sound reading was 0.0166, the faults 2.31 (mask
+# dropped) and 0.931 (targets shifted); TRAIN_GRAD_TOL sits between.
+# The bf16 loss against the f32 one: TRAIN_LOSS_TOL, the CPU tests' bf16
+# bound. In f32, lr * g clears the weights' spacing, so the f32 step is the
+# one whose loss must fall.
+TRAIN_LAYERS = 8
+TRAIN_BATCH = 2
+TRAIN_TOKENS = 2048
+TRAIN_STEPS = 2
+TRAIN_GRAD_TOL = 0.1
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_FAULTS = ("mask_dropped", "targets_shifted")
+# The small f32 model's step on the card against the CPU's (loss, every
+# gradient and new parameter): sums in another order, within 1e-4.
+SMALL_TRAIN = dict(vocab=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=512,
+                   block_tokens=16)
+SMALL_TRAIN_TOL = 1e-4
+# The parallel_train path: ring and Ulysses gradients on layer 0's q/k/v of
+# SP_TOKENS tokens, in f32, against the dense oracle's (relative norm; f32
+# sums in another order); the pipeline over PP_LAYERS f32 layers (PP_BATCH
+# x PP_TOKENS tokens, PP_MICROBATCHES microbatches) against loss_fn's loss
+# and gradients; the expert-parallel step with MOE_EXPERTS experts at
+# Llama-3-8B widths cut to EP_LAYERS layers, bf16 (4 B parameters: 8 GB,
+# and as much again for the gradients), one sequence of EP_TOKENS tokens a
+# dp shard, against the single-device gradients (two bf16 computations of
+# one gradient, their sums split differently across the ranks: held to the
+# bf16-against-f32 bound).
+SP_TOKENS = 4096
+SP_GRAD_TOL = 1e-4
+PP_LAYERS = 4
+PP_BATCH = 4
+PP_TOKENS = 512
+PP_MICROBATCHES = 4
+PP_GRAD_TOL = 1e-4
+PARALLEL_LOSS_TOL = 1e-4
+EP_LAYERS = 2
+EP_TOKENS = 1024
+EP_GRAD_TOL = TRAIN_GRAD_TOL
+EP_LOSS_TOL = TRAIN_LOSS_TOL
 
 
 def log(msg: str) -> None:
@@ -3704,6 +3789,415 @@ def moe_spec_phase(torch, params, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: training, loss_fn / train_step
+# ---------------------------------------------------------------------------
+
+
+def _train_loss(torch, llama, params, tokens, cfg, fault=None):
+    """``llama.loss_fn``, or its math with one of ``TRAIN_FAULTS`` planted."""
+    if fault is None:
+        return llama.loss_fn(params, tokens, cfg)
+    b, s = tokens.shape
+    positions, mask = llama._causal(b, s, tokens.device)
+    if fault == "mask_dropped":
+        mask = torch.ones_like(mask)
+    x = params["embed"][tokens]
+    for layer in range(cfg.n_layers):
+        k, v = llama._kv_proj(params, layer, x, positions, cfg)
+        x = llama._block(params, layer, x, k, v, positions, mask, cfg)
+    if fault == "targets_shifted":
+        x, tokens = x[:, :-1], tokens[:, 1:]
+    return llama._next_token_nll(params, x, tokens).mean()
+
+
+def _rel_err(torch, got, want) -> float:
+    """||got - want|| / ||want||, in f32."""
+    want = want.float()
+    return float(torch.linalg.vector_norm(got.float() - want) / torch.linalg.vector_norm(want))
+
+
+def _timed_steps(torch, llama, params, tokens, cfg, device):
+    """TRAIN_STEPS ``train_step``s on the same batch, each timed from a
+    sync to its loss on the host (forward, backward and update). Returns
+    (walls in s, losses)."""
+    walls, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        params, loss = llama.train_step(params, tokens, cfg)
+        losses.append(float(loss))
+        _sync(torch, device)
+        walls.append(time.perf_counter() - t0)
+    return walls, losses
+
+
+def _small_train_check(torch, llama, device):
+    """The small f32 model's gradients and ``train_step`` on ``device``
+    against the CPU's on the same weights and tokens; returns the largest
+    absolute difference (loss, gradients, new parameters)."""
+    import numpy as np
+
+    cfg = llama.LlamaConfig(dtype=torch.float32, **SMALL_TRAIN)
+    host = llama.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    card = {k: v.to(device=device, copy=True) for k, v in host.items()}
+    tokens = np.random.default_rng(37).integers(0, cfg.vocab, (4, 64))
+    (loss_h, grads_h), (loss_c, grads_c) = (
+        llama._loss_and_grads(p, lambda q: llama.loss_fn(q, tokens, cfg)) for p in (host, card))
+    errs = [abs(float(loss_h) - float(loss_c))]
+    errs += [max_err(grads_c[k].cpu(), grads_h[k]) for k in grads_h]
+    for p in (host, card):
+        llama.train_step(p, tokens, cfg)
+    errs += [max_err(card[k].cpu(), host[k]) for k in host]
+    err = max(errs)
+    if not err <= SMALL_TRAIN_TOL:
+        raise AssertionError(f"the small model's step on {device} is {err} from the CPU's, "
+                             f"over {SMALL_TRAIN_TOL}")
+    return err
+
+
+def _k4_refuses_grad(torch, cfg, device):
+    """K4 on inputs that require grad: the CUDA route raises (its output
+    would carry no gradient); the CPU route is the plain, differentiable
+    version. Returns what happened."""
+    from infinistore_tpu_torch.cuda.flash_prefill import flash_prefill_attention
+
+    def qkv(heads):
+        return torch.zeros((1, 128, heads, cfg.head_dim), dtype=cfg.dtype, device=device,
+                           requires_grad=True)
+
+    q, k, v = qkv(cfg.n_heads), qkv(cfg.n_kv_heads), qkv(cfg.n_kv_heads)
+    if torch.device(device).type != "cuda":
+        if flash_prefill_attention(q, k, v).grad_fn is None:
+            raise AssertionError("K4's CPU route lost the graph")
+        return "the CPU route differentiates"
+    try:
+        flash_prefill_attention(q, k, v)
+    except RuntimeError as exc:
+        if "requires grad" not in str(exc):
+            raise
+        return str(exc)
+    raise AssertionError("K4 launched on inputs that require grad")
+
+
+def _run_train(torch, device="cuda", geometry=LLAMA3_8B, layers=TRAIN_LAYERS,
+               batch=TRAIN_BATCH, tokens=TRAIN_TOKENS):
+    """The train path (module docstring, phase 16). Returns (metrics,
+    launches); the launches are read after the steps, and every later check
+    must leave them at 0 too."""
+    import numpy as np
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **dict(geometry, n_layers=layers))
+    cfg32 = replace(cfg, dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    n_params = sum(p.numel() for p in params.values())
+    data = torch.from_numpy(np.random.default_rng(29).integers(0, cfg.vocab, (batch, tokens)))
+    data = data.to(device)
+    peak = {}
+
+    def peak_of(name, fn):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        if cuda:
+            peak[name] = torch.cuda.max_memory_allocated(device)
+        return out
+
+    _ext.reset_launches()
+    # The f32 reference on the same weights, upcast; then the bf16 sound and
+    # planted losses' gradients against it.
+    params32 = {k: p.float() for k, p in params.items()}
+    loss32, grads32 = peak_of("f32_grads", lambda: llama._loss_and_grads(
+        params32, lambda p: llama.loss_fn(p, data, cfg32)))
+    readings, losses, by_param = {}, {}, {}
+    for fault in (None, *TRAIN_FAULTS):
+        name = fault or "sound"
+        loss, grads = peak_of(f"bf16_grads_{name}", lambda: llama._loss_and_grads(
+            params, lambda p: _train_loss(torch, llama, p, data, cfg, fault)))
+        errs = {k: _rel_err(torch, grads[k], grads32[k]) for k in grads32}
+        readings[name], losses[name] = max(errs.values()), float(loss)
+        if fault is None:
+            by_param = errs
+        del grads
+    del grads32
+    if not all(np.isfinite(list(losses.values()))) or not np.isfinite(float(loss32)):
+        raise AssertionError(f"losses not finite: {losses}, f32 {float(loss32)}")
+    loss_err = abs(losses["sound"] - float(loss32))
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"the bf16 loss {losses['sound']} is {loss_err} from the f32 "
+                             f"{float(loss32)}, over {TRAIN_LOSS_TOL}")
+    if not readings["sound"] <= TRAIN_GRAD_TOL:
+        worst = max(by_param, key=by_param.get)
+        raise AssertionError(f"the bf16 gradients are {readings['sound']} (relative, {worst}) "
+                             f"from the f32 ones, over {TRAIN_GRAD_TOL}")
+    blind = [f for f in TRAIN_FAULTS if readings[f] <= TRAIN_GRAD_TOL]
+    if blind:
+        raise AssertionError(f"planted faults {blind} read within {TRAIN_GRAD_TOL}: {readings}")
+
+    # Steps: f32 twice on the same batch (the loss must fall), then bf16.
+    walls32, losses32 = peak_of("f32_step", lambda: _timed_steps(torch, llama, params32, data,
+                                                                  cfg32, device))
+    del params32
+    if not losses32[1] < losses32[0]:
+        raise AssertionError(f"a second f32 step did not lower the loss: {losses32}")
+    walls16, losses16 = peak_of("bf16_step", lambda: _timed_steps(torch, llama, params, data,
+                                                                  cfg, device))
+    # One more bf16 step under the profiler: the device's busy time by kind.
+    profile = _profile(torch, lambda: llama.train_step(params, data, cfg)) if cuda else None
+    del params
+    _sync(torch, device)
+    launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+    small_err = _small_train_check(torch, llama, device)
+    refused = _k4_refuses_grad(torch, cfg, device)
+    if any(_ext.LAUNCHES.values()):
+        raise AssertionError(f"the train path launched kernels: {_ext.LAUNCHES}")
+    n_tokens = batch * tokens
+    metrics = {
+        "layers": layers,
+        "batch": batch,
+        "tokens": tokens,
+        "parameters": n_params,
+        "loss_f32": float(loss32),
+        "loss_bf16": losses["sound"],
+        "loss_abs_err": loss_err,
+        "grad_rel_err": readings,
+        "grad_rel_err_by_param": by_param,
+        "f32_losses": losses32,
+        "bf16_losses": losses16,
+        "step_s": {"bf16": walls16, "f32": walls32},
+        "tokens_per_s": {"bf16": n_tokens / walls16[-1], "f32": n_tokens / walls32[-1]},
+        "peak_GiB": {k: v / 2 ** 30 for k, v in peak.items()},
+        "bf16_step_profile": profile,
+        "small_model_max_abs_err": small_err,
+        "k4_with_grad": refused,
+    }
+    return metrics, launches
+
+
+def train_phase(torch, smi):
+    """Phase 16: Llama-3-8B widths cut to TRAIN_LAYERS layers, on the card.
+    Returns (launches, metrics)."""
+    metrics, launches = _run_train(torch)
+    metrics = {"card": smi, **metrics}
+    log(f"train: {json.dumps(metrics)}")
+    log(f"train launches: {json.dumps(launches)}")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the parallel training paths (ring and Ulysses gradients, the
+# pipeline, the expert-parallel step)
+# ---------------------------------------------------------------------------
+
+
+def _ep_layout(world):
+    """(dp, tp, ep) of the expert-parallel leg at ``world`` ranks."""
+    return (1, 2, world // 2) if world > 1 and world % 2 == 0 else (1, 1, world)
+
+
+def _sp_grads_leg(torch, llama, geometry, device, rank, world, tokens):
+    """Ring and Ulysses gradients on this rank's chunk of layer 0's q/k/v
+    (GQA heads repeated, f32) against the dense oracle's over the whole
+    sequence, of the global mean of squares of the causal output."""
+    import numpy as np
+
+    from infinistore_tpu_torch.models import ring_attention, ulysses
+
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **dict(geometry, n_layers=1))
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    prompt = torch.from_numpy(np.random.default_rng(31).integers(0, cfg.vocab, tokens))
+    pos = torch.arange(tokens, dtype=torch.int32, device=device)[None]
+    groups = cfg.n_heads // cfg.n_kv_heads
+    with torch.no_grad():
+        x = params["embed"][prompt.to(device)][None]
+        q = llama._q_proj(params, 0, x, pos, cfg).float()
+        k, v = (t.repeat_interleave(groups, dim=2).float()
+                for t in llama._kv_proj(params, 0, x, pos, cfg))
+    del params, x
+    count = q.numel()
+
+    def grads(attention, *qkv):
+        leaves = [t.detach().clone().requires_grad_() for t in qkv]
+        (attention(*leaves).square().sum() / count).backward()
+        return [t.grad for t in leaves]
+
+    sl = slice(rank * (tokens // world), (rank + 1) * (tokens // world))
+    want = [g[:, sl].clone() for g in grads(ring_attention.dense_attention_reference, q, k, v)]
+    chunk = [t[:, sl] for t in (q, k, v)]
+    errs, walls = {}, {}
+    for name, attention in (("ring", ring_attention.ring_attention),
+                            ("ulysses", ulysses.ulysses_attention)):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        got = grads(attention, *chunk)
+        _sync(torch, device)
+        walls[name] = time.perf_counter() - t0
+        errs[name] = max(_rel_err(torch, g, w) for g, w in zip(got, want))
+        if not errs[name] <= SP_GRAD_TOL:
+            raise AssertionError(f"rank {rank}: {name} gradients {errs[name]} (relative) from "
+                                 f"the dense oracle's, over {SP_GRAD_TOL}")
+    return {"tokens": tokens, "grad_rel_err": errs, "fwd_bwd_s": walls}
+
+
+def _pp_leg(torch, llama, geometry, device, rank, world, batch, tokens):
+    """The pipeline at ``world`` stages: its loss and this stage's gradients
+    against ``loss_fn``'s, then one timed step; the replicated weights must
+    stay equal on every rank."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch.models import pipeline
+
+    cfg = llama.LlamaConfig(dtype=torch.float32, **dict(geometry, n_layers=PP_LAYERS))
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    data = torch.from_numpy(np.random.default_rng(41).integers(0, cfg.vocab, (batch, tokens)))
+    data = data.to(device)
+    loss_ref, grads_ref = llama._loss_and_grads(params, lambda p: llama.loss_fn(p, data, cfg))
+    step, shard = pipeline.make_pp_train_step(None, cfg, world, PP_MICROBATCHES, device=device)
+    want = shard(pipeline.stack_stage_params(grads_ref, cfg, world))
+    del grads_ref
+    local = shard(pipeline.stack_stage_params(params, cfg, world))
+    del params
+    loss, grads = pipeline.pp_loss_and_grads(local, data, cfg, world, PP_MICROBATCHES)
+    loss_err = abs(float(loss) - float(loss_ref))
+    grad_err = max(_rel_err(torch, grads[k], want[k]) for k in want)
+    del grads, want
+    if not (loss_err <= PARALLEL_LOSS_TOL and grad_err <= PP_GRAD_TOL):
+        raise AssertionError(f"rank {rank}: the pipeline's loss is {loss_err} from loss_fn's "
+                             f"(bound {PARALLEL_LOSS_TOL}), its gradients {grad_err} (relative, "
+                             f"bound {PP_GRAD_TOL})")
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    local, step_loss = step(local, data)
+    step_loss = float(step_loss)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    for name in pipeline._SHARED:
+        first = local[name].clone()
+        dist.broadcast(first, src=0)
+        if not torch.equal(first, local[name]):
+            raise AssertionError(f"rank {rank}: the replicated {name} differs from rank 0's "
+                                 "after the step")
+    return {"stages": world, "microbatches": PP_MICROBATCHES, "batch": batch, "tokens": tokens,
+            "loss": float(loss), "loss_abs_err": loss_err, "grad_rel_err": grad_err,
+            "step_s": wall, "step_loss": step_loss}
+
+
+def _ep_leg(torch, llama, geometry, device, rank, world, tokens):
+    """The expert-parallel step at ``_ep_layout(world)``: this rank's
+    slices and their gradients against the single-device ``loss_fn``'s,
+    the slices' shapes before and after one timed step."""
+    import numpy as np
+
+    from infinistore_tpu_torch.models import expert_parallel
+
+    dp, tp, ep = _ep_layout(world)
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **dict(
+        geometry, n_layers=EP_LAYERS, n_experts=MOE_EXPERTS))
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(3), device=device)
+    data = torch.from_numpy(np.random.default_rng(43).integers(0, cfg.vocab, (dp, tokens)))
+    data = data.to(device)
+    loss_ref, grads_ref = llama._loss_and_grads(params, lambda p: llama.loss_fn(p, data, cfg))
+    grid = expert_parallel.ep_grid(dp, tp, ep)
+    step, shard = expert_parallel.make_ep_train_step(grid, cfg, device=device)
+    want = shard(grads_ref)
+    del grads_ref
+    local = shard(params)
+    del params
+    e, f, dim = cfg.n_experts // ep, cfg.ffn_dim // tp, cfg.dim
+    shapes = {"w_gate_up_moe": (e, dim, 2, f), "w_down_moe": (e, f, dim), "router": (dim, e)}
+
+    def check_slices(when):
+        for layer in range(cfg.n_layers):
+            for name, shape in shapes.items():
+                got = tuple(local[f"l{layer}.{name}"].shape)
+                if got != shape:
+                    raise AssertionError(f"rank {rank} {when}: l{layer}.{name} is {got}, its "
+                                         f"slice {shape}")
+
+    check_slices("before the step")
+    mine = data[grid.d:grid.d + 1]
+    loss, grads = expert_parallel.ep_loss_and_grads(local, mine, cfg, grid)
+    loss_err = abs(float(loss) - float(loss_ref))
+    errs = {k: _rel_err(torch, grads[k], want[k]) for k in want}
+    grad_err = max(errs.values())
+    del grads, want
+    if not (loss_err <= EP_LOSS_TOL and grad_err <= EP_GRAD_TOL):
+        raise AssertionError(f"rank {rank}: the expert-parallel loss is {loss_err} from "
+                             f"loss_fn's (bound {EP_LOSS_TOL}), its gradients {grad_err} "
+                             f"(relative, {max(errs, key=errs.get)}; bound {EP_GRAD_TOL})")
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    local, step_loss = step(local, mine)
+    step_loss = float(step_loss)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    check_slices("after the step")
+    return {"grid": [dp, tp, ep], "coords": [grid.d, grid.i, grid.j], "layers": cfg.n_layers,
+            "experts": cfg.n_experts, "tokens": tokens, "loss": float(loss),
+            "loss_abs_err": loss_err, "grad_rel_err": grad_err, "step_s": wall,
+            "step_loss": step_loss}
+
+
+def _run_parallel_train(torch, device="cuda", backend="nccl", geometry=LLAMA3_8B, rank=0,
+                        world=1, init_file=None, sp_tokens=SP_TOKENS, pp_batch=PP_BATCH,
+                        pp_tokens=PP_TOKENS, ep_tokens=EP_TOKENS):
+    """One rank of the parallel_train path (module docstring, phase 17) on
+    a process group of ``world`` ranks, initialised from ``init_file`` (a
+    fresh FileStore when None). Returns (metrics, launches); the launches
+    are read after the three legs."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import llama
+
+    if backend == "nccl":
+        # Loopback for NCCL's bootstrap; a caller's own setting wins. One
+        # card a rank: "cuda" is then the rank's card.
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{init_file or tmp + '/filestore'}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            _ext.reset_launches()
+            metrics = {"world_size": world, "backend": backend}
+            metrics["ring_ulysses"] = _sp_grads_leg(torch, llama, geometry, device, rank, world,
+                                                    sp_tokens)
+            metrics["pipeline"] = _pp_leg(torch, llama, geometry, device, rank, world, pp_batch,
+                                          pp_tokens)
+            metrics["expert_parallel"] = _ep_leg(torch, llama, geometry, device, rank, world,
+                                                 ep_tokens)
+            _sync(torch, device)
+            launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    return metrics, launches
+
+
+def parallel_train_phase(torch, smi):
+    """Phase 17: world size 1 over NCCL on the card. Returns (launches,
+    metrics)."""
+    metrics, launches = _run_parallel_train(torch)
+    metrics = {"card": smi, **metrics}
+    log(f"parallel train: {json.dumps(metrics)}")
+    log("parallel train: one NCCL rank (NCCL refuses two ranks on one card); world size 4 "
+        "runs under --cards 4, and 2, 4 and 8 gloo ranks on the CPU "
+        "(tests/test_torch_ring_attention.py, test_torch_pipeline.py, "
+        "test_torch_expert_parallel.py)")
+    log(f"parallel train launches: {json.dumps(launches)}")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
 # --cards N: the legs across cards
 # ---------------------------------------------------------------------------
 
@@ -3720,10 +4214,21 @@ def _long_context_rank(torch, args) -> int:
     return 0
 
 
-def _spawn_long_context(port, cards, tmp):
-    """The long-context path at world size ``cards`` over NCCL, one process
-    a card. Returns each rank's last line; raises with a failing rank's
-    output, and stops every rank before it returns."""
+def _parallel_train_rank(torch, args) -> int:
+    """One rank of ``--cards N``'s parallel_train leg, in a process of its
+    own; prints its metrics and launches as its last line."""
+    metrics, launches = _run_parallel_train(torch, rank=args.parallel_train_rank,
+                                            world=args.cards, init_file=args.init_file)
+    print(json.dumps({"rank": args.parallel_train_rank, "metrics": metrics,
+                      "launches": launches}), flush=True)
+    return 0
+
+
+def _spawn_ranks(flag, cards, tmp, *extra):
+    """A leg at world size ``cards`` over NCCL, one process a card, each
+    this script with ``flag`` and its rank. Returns each rank's last line;
+    raises with a failing rank's output, and stops every rank before it
+    returns."""
     init_file = os.path.join(tmp, "filestore")
     procs, outs = [], []
     try:
@@ -3731,8 +4236,7 @@ def _spawn_long_context(port, cards, tmp):
             outs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w+"))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--cards", str(cards),
-                 "--long-context-rank", str(rank), "--port", str(port),
-                 "--init-file", init_file],
+                 flag, str(rank), *extra, "--init-file", init_file],
                 cwd=HERE, stdout=outs[-1], stderr=subprocess.STDOUT))
         deadline = time.monotonic() + CARDS_RANK_TIMEOUT_S
         while True:
@@ -3740,8 +4244,7 @@ def _spawn_long_context(port, cards, tmp):
             if None not in codes or any(code not in (None, 0) for code in codes):
                 break
             if time.monotonic() > deadline:
-                raise TimeoutError(f"long-context ranks still running after "
-                                   f"{CARDS_RANK_TIMEOUT_S} s")
+                raise TimeoutError(f"{flag} ranks still running after {CARDS_RANK_TIMEOUT_S} s")
             time.sleep(0.5)
     finally:
         stopped = [proc.poll() is None for proc in procs]
@@ -3757,14 +4260,15 @@ def _spawn_long_context(port, cards, tmp):
     # A rank that failed on its own, before the ones stopped here.
     for rank in sorted(range(cards), key=lambda r: stopped[r]):
         if procs[rank].returncode != 0:
-            raise AssertionError(f"long-context rank {rank} exited {procs[rank].returncode}:\n"
+            raise AssertionError(f"{flag} rank {rank} exited {procs[rank].returncode}:\n"
                                  f"{texts[rank][-4000:]}")
     return [json.loads(text.strip().splitlines()[-1]) for text in texts]
 
 
 def cards_main(torch, cards: int, t_start: float) -> int:
-    """``--cards N``: the ICI handoff over ``[cuda:0, cuda:1]`` and the
-    long-context path at world size N over NCCL (module docstring)."""
+    """``--cards N``: the ICI handoff over ``[cuda:0, cuda:1]``, and the
+    long-context and parallel training paths at world size N over NCCL
+    (module docstring)."""
     import tempfile
 
     if cards < 2 or torch.cuda.device_count() < cards:
@@ -3790,7 +4294,7 @@ def cards_main(torch, cards: int, t_start: float) -> int:
                                     pin_memory=False)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            ranks = _spawn_long_context(server.port, cards, tmp)
+            ranks = _spawn_ranks("--long-context-rank", cards, tmp, "--port", str(server.port))
     finally:
         server.stop()
     for result in ranks:
@@ -3800,6 +4304,15 @@ def cards_main(torch, cards: int, t_start: float) -> int:
             raise AssertionError(f"long-context rank {result['rank']} never launched {idle}")
     paths["long_context"] = {name: sum(r["launches"][name] for r in ranks)
                              for name in ranks[0]["launches"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _spawn_ranks("--parallel-train-rank", cards, tmp)
+    for result in ranks:
+        log(f"parallel train rank {result['rank']} of {cards}: {json.dumps(result['metrics'])}")
+        if any(result["launches"].values()):
+            raise AssertionError(f"parallel-train rank {result['rank']} launched kernels: "
+                                 f"{result['launches']}")
+    paths["parallel_train"] = {name: sum(r["launches"][name] for r in ranks)
+                               for name in ranks[0]["launches"]}
     idle = [name for name in PATH_KERNELS["ici_handoff"] if paths["ici_handoff"][name] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the ici_handoff path: {idle}")
@@ -3823,6 +4336,7 @@ def _args(argv):
     ap.add_argument("--cards", type=int, default=1,
                     help="2 or more: run the legs across cards instead (module docstring)")
     ap.add_argument("--long-context-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-train-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init-file", default=None, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
@@ -3873,6 +4387,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if args.long_context_rank is not None:
         return _long_context_rank(torch, args)
+    if args.parallel_train_rank is not None:
+        return _parallel_train_rank(torch, args)
     smi_lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
@@ -3978,11 +4494,18 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     paths["serving_cli"], _ = serving_cli_phase(torch, smi)
+    # The training paths make their own weights.
+    torch.cuda.empty_cache()
+    paths["train"], _ = train_phase(torch, smi)
+    torch.cuda.empty_cache()
+    paths["parallel_train"], _ = parallel_train_phase(torch, smi)
 
     for path, names in PATH_KERNELS.items():
         idle = [name for name in names if paths[path][name] == 0]
         if idle:
             raise AssertionError(f"kernels never launched on the {path} path: {idle}")
+        if not names and any(paths[path].values()):
+            raise AssertionError(f"the {path} path launched kernels: {paths[path]}")
     # These paths are bf16 end to end: every K4 launch must be a tensor-core one.
     for path in BF16_K4_PATHS:
         k4, wgmma = paths[path]["flash_prefill"], paths[path]["flash_prefill_wgmma"]

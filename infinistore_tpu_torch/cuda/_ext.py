@@ -233,9 +233,27 @@ def require_aligned(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
 
 
+def refuse_grad(name: str, **tensors: torch.Tensor) -> None:
+    """A kernel's output has no ``grad_fn``: under grad mode, an input that
+    requires grad would silently get no gradient, so it raises instead. The
+    plain versions on the CPU stay differentiable."""
+    if not torch.is_grad_enabled():
+        return
+    for arg, t in tensors.items():
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name}: {arg} requires grad, but the kernel has no backward and its "
+                "output would carry no gradient; train through the dense, differentiable "
+                "path, as the JAX package does (models/llama.py loss_fn: an explicit "
+                "causal mask takes _attention, never the kernels), or call the kernel "
+                "under torch.no_grad()")
+
+
 def require_cuda(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
     """Every tensor a kernel takes must be a contiguous CUDA tensor on
-    ``device``."""
+    ``device``, and none may require grad under grad mode
+    (``refuse_grad``)."""
+    refuse_grad(name, **tensors)
     for arg, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {arg} is on {t.device}; the kernel takes CUDA tensors")

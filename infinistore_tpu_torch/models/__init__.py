@@ -1,10 +1,12 @@
 """Model family of the port, mirroring ``infinistore_tpu/models``: the small
-Llama-style transformer with a paged KV cache (``llama.py``), and the
-sequence-parallel serving paths over ``torch.distributed``: ring attention
-(``ring_attention.py``), Ulysses attention (``ulysses.py``) and the
-long-context prefill (``long_context.py``). Their names resolve lazily;
+Llama-style transformer with a paged KV cache and its training step
+(``llama.py``), and the paths over ``torch.distributed``: ring attention
+(``ring_attention.py``), Ulysses attention (``ulysses.py``), the
+long-context prefill (``long_context.py``), the GPipe pipeline
+(``pipeline.py``) and the expert-parallel MoE train step
+(``expert_parallel.py``). The sequence-parallel names resolve lazily;
 ``ring_attention`` itself is reached through its module, whose name it
-shares."""
+shares, and the pipeline and expert-parallel entry points through theirs."""
 
 from .llama import (
     LlamaConfig,
@@ -15,11 +17,13 @@ from .llama import (
     embed_wave,
     init_params,
     lm_logits,
+    loss_fn,
     params_from_numpy,
     prefill,
     prefill_continue,
     prefill_layer,
     speculative_verify,
+    train_step,
     verify_step_batched,
 )
 
@@ -55,5 +59,7 @@ __all__ = [
     "lm_logits",
     "embed_wave",
     "decode_wave_layer",
+    "loss_fn",
+    "train_step",
     *sorted(_WHERE),
 ]

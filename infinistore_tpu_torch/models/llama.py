@@ -1,5 +1,6 @@
 """Small Llama-style transformer with a paged KV cache, in PyTorch (port of
-the paged-inference path of ``infinistore_tpu/models/llama.py``).
+``infinistore_tpu/models/llama.py``: the paged-inference path and the
+training step).
 
 GQA attention, RoPE (rotate-half), RMSNorm, SwiGLU; the KV cache uses the
 paged layout of ``cuda/paged.py`` ([num_blocks, block_tokens, n_kv_heads,
@@ -19,6 +20,11 @@ and bf16 GEMMs accumulate in f32 without reduced-precision reductions.
 
 The caches are updated IN PLACE; the functions return the same tensors in
 the JAX package's ``(logits, caches)`` shape.
+
+Training (``loss_fn``, ``train_step``) differentiates with ``torch.autograd``
+through the dense ``_attention`` (an explicit causal mask): no kernel runs,
+as the JAX package trains through its XLA path. ``train_step`` updates the
+parameters in place.
 """
 
 import math
@@ -186,15 +192,22 @@ def _block(params: Params, layer: int, x, k, v, q_positions, mask, config):
 
     x: [B, S, dim]; k/v: [B, T, KVH, D]. ``mask`` is [B, S, T] (True =
     attend), or None for plain causal — the None form runs the flash
-    prefill path (no S x T logits)."""
+    prefill path (no S x T logits; K4 has no backward, so training passes
+    an explicit mask and keeps the dense, differentiable ``_attention``)."""
+    return _ffn(params, layer, _attend(params, layer, x, k, v, q_positions, mask, config),
+                config)
+
+
+def _attend(params: Params, layer: int, x, k, v, q_positions, mask, config):
+    """Attention half of the block with its residual (``_block`` less the
+    FFN; the expert-parallel step puts its own FFN after it)."""
     pre = f"l{layer}."
     q = _q_proj(params, layer, x, q_positions, config)
     if mask is None:
         attn = flash_prefill_attention(q, k, v, causal=True)
     else:
         attn = _attention(q, k, v, mask)
-    x = x + attn.flatten(-2) @ params[pre + "wo"].reshape(-1, config.dim)
-    return _ffn(params, layer, x, config)
+    return x + attn.flatten(-2) @ params[pre + "wo"].reshape(-1, config.dim)
 
 
 def _ffn(params: Params, layer: int, x, config):
@@ -213,24 +226,32 @@ def _ffn(params: Params, layer: int, x, config):
 
 def _moe(params: Params, pre: str, h, config):
     """The JAX package's dense soft mixture: router logits in f32, softmax,
-    gates cast to the activation dtype, then every expert for every token.
+    gates cast to the activation dtype, then every expert for every token
+    (``_expert_sum``)."""
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, config.dim)  # [N, dim]
+    gates = torch.softmax((h2 @ params[pre + "router"]).float(), dim=-1).to(h.dtype)  # [N, E]
+    out = _expert_sum(h2, gates, params[pre + "w_gate_up_moe"], params[pre + "w_down_moe"])
+    return out.reshape(*lead, config.dim)
+
+
+def _expert_sum(h2, gates, w_gate_up, w_down):
+    """``sum_e gates[:, e] * SwiGLU_e(h2) @ w_down[e]`` over the experts and
+    ffn columns the weights hold: ``w_gate_up`` [E, dim, 2, F], ``w_down``
+    [E, F, dim], ``gates`` [N, E]; [N, dim] out.
 
     The reference's three-operand contraction ``bse,bsef,efd->bsd`` runs in
     one fixed order: the gates scale each expert's SwiGLU output first
     (elementwise, in the activation dtype), then one GEMM contracts the
-    joint (expert, ffn) axis against ``w_down_moe`` viewed as
-    ``[E * ffn, dim]``, so each output sums over all experts in one f32
-    accumulation."""
-    e, f = config.n_experts, config.ffn_dim
-    lead = h.shape[:-1]
-    h2 = h.reshape(-1, config.dim)  # [N, dim]
-    gates = torch.softmax((h2 @ params[pre + "router"]).float(), dim=-1).to(h.dtype)  # [N, E]
-    # One batched GEMM over the experts' [dim, 2 * ffn] weights: [E, N, 2 * ffn].
-    gate_up = h2[None] @ params[pre + "w_gate_up_moe"].reshape(e, config.dim, 2 * f)
+    joint (expert, ffn) axis against ``w_down`` viewed as ``[E * F, dim]``,
+    so each output sums over all experts in one f32 accumulation. The
+    expert-parallel step runs the same function on each rank's slice."""
+    e, dim, _, f = w_gate_up.shape
+    # One batched GEMM over the experts' [dim, 2 * F] weights: [E, N, 2 * F].
+    gate_up = h2[None] @ w_gate_up.reshape(e, dim, 2 * f)
     ffn = F.silu(gate_up[..., :f]) * gate_up[..., f:]  # [E, N, F]
     weighted = (ffn * gates.t()[..., None]).permute(1, 0, 2).reshape(-1, e * f)  # [N, E * F]
-    out = weighted @ params[pre + "w_down_moe"].reshape(e * f, config.dim)
-    return out.reshape(*lead, config.dim)
+    return weighted @ w_down.reshape(e * f, w_down.shape[-1])
 
 
 def _q_proj(params: Params, layer: int, x, positions, config):
@@ -660,3 +681,73 @@ def decode_wave_layer(
     x = x + attn @ params[pre + "wo"].reshape(-1, config.dim)
     x = _ffn(params, layer, x, config)
     return x, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Training (dense attention, no cache): the JAX package's loss_fn and
+# train_step, with torch.autograd in the place of jax.value_and_grad. The
+# pipeline (``pipeline.py``) and the expert-parallel step
+# (``expert_parallel.py``) share the pieces below.
+# ---------------------------------------------------------------------------
+
+
+def _causal(b: int, s: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Positions ``arange(S)`` for each of B rows, and the explicit causal
+    mask [B, S, S] that keeps ``_block`` on the differentiable
+    ``_attention``."""
+    positions = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    return positions, positions[:, :, None] >= positions[:, None, :]
+
+
+def _next_token_nll(params: Params, x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Final RMSNorm, f32 logits from the ``lm_head`` product, log-softmax
+    over ``logits[:, :-1]``: the [B, S - 1] NLL of ``tokens[:, 1:]``."""
+    logp = torch.log_softmax(lm_logits(params, x).float()[:, :-1], dim=-1)
+    return -logp.gather(-1, tokens[:, 1:, None])[..., 0]
+
+
+def loss_fn(params: Params, tokens, config: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy over a [B, S] token batch (f32 scalar)."""
+    _set_numerics()
+    tokens = _on(params, tokens, torch.long)
+    b, s = tokens.shape
+    positions, mask = _causal(b, s, tokens.device)
+    x = params["embed"][tokens]
+    for layer in range(config.n_layers):
+        k, v = _kv_proj(params, layer, x, positions, config)
+        x = _block(params, layer, x, k, v, positions, mask, config)
+    return _next_token_nll(params, x, tokens).mean()
+
+
+def _loss_and_grads(params: Params, loss_of) -> Tuple[torch.Tensor, Params]:
+    """``loss_of(leaves)`` and its gradient with respect to every parameter:
+    the counterpart of ``jax.value_and_grad``. The leaves share the
+    parameters' storage; the returned loss is detached."""
+    leaves = {name: p.detach().requires_grad_() for name, p in params.items()}
+    loss = loss_of(leaves)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def _sgd_(params: Params, grads: Params, lr: float) -> None:
+    """``p - lr * g.astype(p.dtype)`` in place: the gradient is cast to the
+    parameter's dtype first and ``lr * g`` rounds there, as in the JAX
+    package's update."""
+    with torch.no_grad():
+        for name, p in params.items():
+            p.sub_(grads[name].to(p.dtype) * lr)
+
+
+def train_step(params: Params, tokens, config: LlamaConfig,
+               lr: float = 1e-3) -> Tuple[Params, torch.Tensor]:
+    """One SGD step on next-token loss; returns ``(params, loss)``.
+
+    The parameters are updated IN PLACE (the same dict and tensors come
+    back): the counterpart of the JAX package's ``donate_argnums=(0,)``,
+    which at Llama-3-8B width saves a second copy of the weights. Copy them
+    first to keep the old values. Gradients come from ``torch.autograd``
+    through the dense attention (``loss_fn``'s explicit mask), so no kernel
+    runs; the soft-MoE FFN differentiates like the dense one."""
+    loss, grads = _loss_and_grads(params, lambda p: loss_fn(p, tokens, config))
+    _sgd_(params, grads, lr)
+    return params, loss

@@ -1,6 +1,6 @@
 """Ring attention: context parallelism for long sequences over the ranks of
-a ``torch.distributed`` process group, forward only (port of
-``infinistore_tpu/models/ring_attention.py``).
+a ``torch.distributed`` process group (port of
+``infinistore_tpu/models/ring_attention.py``), forward and gradients.
 
 Each rank holds a contiguous sequence chunk of Q, K and V. Attention needs
 every (q, k) pair, so the K/V chunks rotate around the ring, one neighbour
@@ -16,8 +16,13 @@ raises. The local step is plain f32 ``torch.matmul`` with TF32 off, as the
 reference's einsums at ``Precision.HIGHEST``; the reference reaches no
 Pallas kernel here either.
 
-Gradients (the reference differentiates through the rotation) are not
-ported: inputs that require grad raise ``NotImplementedError``.
+Gradients: the reference differentiates through ``scan`` + ``ppermute``,
+whose transpose is the reverse permutation. Here each step's hop is one
+``torch.autograd.Function`` (``_Hop``) whose backward sends the gradient of
+what arrived back to the rank it came from; autograd differentiates the
+local f32 math as it stands, ``-inf`` guards included. Each rank
+backpropagates its own share of the loss, and the hops carry every other
+rank's share of its K/V gradient to it.
 """
 
 import math
@@ -28,23 +33,69 @@ import torch.distributed as dist
 
 from .llama import _set_numerics
 
-_GRAD_TODO = ("{} runs forward only; its gradients are not ported yet "
-              "(ROADMAP.md Queue A, A12b)")
 
-
-def _group_of(name: str, group, *tensors: torch.Tensor):
+def _group_of(name: str, group):
     """``(world, rank, global rank of each group rank)``; raises without an
-    initialised process group, or when an input requires grad."""
+    initialised process group."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             f"{name} needs an initialised torch.distributed process group "
             "(init_process_group), one rank per sequence chunk")
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(_GRAD_TODO.format(name))
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
     peers = [r if group is None else dist.get_global_rank(group, r) for r in range(world)]
     return world, rank, peers
+
+
+def _p2p_ops(group, sends, to, recvs, frm):
+    """The point-to-point ops of one hop: each of ``sends`` to ``to`` and
+    each of ``recvs`` from ``frm`` (either None: no such side), tagged by
+    position."""
+    ops = []
+    if to is not None:
+        ops += [dist.P2POp(dist.isend, t, to, group, tag=i) for i, t in enumerate(sends)]
+    if frm is not None:
+        ops += [dist.P2POp(dist.irecv, t, frm, group, tag=i) for i, t in enumerate(recvs)]
+    return ops
+
+
+class _Hop(torch.autograd.Function):
+    """One hop of ``tensors`` to the next rank ``nxt`` while the previous
+    rank ``prv``'s arrive (``nxt`` None: nothing is sent; ``prv`` None:
+    zeros arrive). The forward POSTS the transfers and appends their
+    requests to ``pending``, so a caller can overlap them with compute; it
+    waits on them before it reads the outputs. The backward is the reverse
+    hop: the gradients of what arrived go back to ``prv``, those of what was
+    sent come from ``nxt``.
+
+    The ring moves K and V in ONE node a step, and the pipeline one tensor
+    a tick, on purpose: NCCL matches point-to-point operations by their
+    order, not by tag, and independent nodes (one for K, one for V) could
+    run their backward passes in different orders on different ranks. One
+    node a step, each consuming the previous step's output, gives every
+    rank the same chain of backward transfers. (Gloo matches by tag, so the
+    CPU would not show such a mismatch.)"""
+
+    @staticmethod
+    def forward(ctx, group, nxt, prv, pending, *tensors):
+        ctx.peers = group, nxt, prv
+        tensors = [t.contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) if prv is not None else torch.zeros_like(t)
+                 for t in tensors]
+        ops = _p2p_ops(group, tensors, nxt, recvs, prv)
+        if ops:
+            pending.extend(dist.batch_isend_irecv(ops))
+        return tuple(recvs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, nxt, prv = ctx.peers
+        grads = [g.contiguous() for g in grads]
+        sent = [torch.empty_like(g) if nxt is not None else torch.zeros_like(g) for g in grads]
+        ops = _p2p_ops(group, grads, prv, sent, nxt)
+        for req in dist.batch_isend_irecv(ops) if ops else ():
+            req.wait()
+        return (None, None, None, None, *sent)
 
 
 def _ring_attention_local(
@@ -57,7 +108,7 @@ def _ring_attention_local(
     """The ring on this rank. K/V rotate in their own dtype; every product
     and statistic is f32. A fully masked row keeps ``m = -inf`` and adds
     nothing: its correction is defined as 1 and its probabilities as 0."""
-    world, rank, peers = _group_of("ring_attention", group, q, k, v)
+    world, rank, peers = _group_of("ring_attention", group)
     _set_numerics()
     b, s_loc, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
@@ -73,13 +124,7 @@ def _ring_attention_local(
         # The last step needs no next hop (and a ring of one has no hop).
         reqs = []
         if i < world - 1:
-            k_nxt, v_nxt = torch.empty_like(k_cur), torch.empty_like(v_cur)
-            reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, k_cur, nxt, group, tag=0),
-                dist.P2POp(dist.isend, v_cur, nxt, group, tag=1),
-                dist.P2POp(dist.irecv, k_nxt, prv, group, tag=0),
-                dist.P2POp(dist.irecv, v_nxt, prv, group, tag=1),
-            ])
+            k_nxt, v_nxt = _Hop.apply(group, nxt, prv, reqs, k_cur, v_cur)
         src = (rank - i) % world
         scores = (q32 @ k_cur.float().permute(0, 2, 3, 1)) * scale  # [B, H, S_loc, S_loc]
         if causal:

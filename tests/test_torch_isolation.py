@@ -13,6 +13,9 @@
   of running on the CPU (the cluster's default member factory, the
   benchmark CLI and the fleet client too), and the
   client library refuses to register a tensor that does not live on the CPU.
+- The training modules (the pipeline, the expert-parallel step) and the
+  ``shaping`` copy import no jax and nothing of the JAX package, and
+  compile nothing.
 - The multi-device serving modules (the block transfer, ring and Ulysses
   attention, the long-context prefill) import no jax and compile nothing;
   the ``models`` names of the sequence-parallel modules resolve lazily; the
@@ -68,6 +71,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert {"vllm_v1.py", "loadgen.py", "benchmark.py", "fleet_client.py"} <= scanned
     assert {os.path.join("cuda", "ici.py"), os.path.join("models", "ring_attention.py"),
             os.path.join("models", "ulysses.py"), os.path.join("models", "long_context.py")} <= scanned
+    assert {os.path.join("models", "pipeline.py"), os.path.join("models", "expert_parallel.py"),
+            "shaping.py"} <= scanned
 
 
 def test_package_import_is_light_and_builds_nothing():
@@ -310,3 +315,39 @@ def test_multi_device_modules_are_light_and_refuse_misuse(monkeypatch):
         mesh_from_devices()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         IciBlockTransfer(["cuda:0", "cuda:0"], "store", perm=[(0, 1)])
+
+
+def test_training_modules_import_neither_jax_nor_the_jax_package():
+    """The pipeline, the expert-parallel step and the ``shaping`` copy load
+    nothing of jax, triton or the JAX package; the training modules start no
+    process and build no kernel library; ``models`` exports ``loss_fn`` and
+    ``train_step``."""
+    script = textwrap.dedent(
+        """
+        import subprocess, sys
+
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"import started a process: {args[:1]}")
+
+        popen, subprocess.Popen = subprocess.Popen, refuse
+        from infinistore_tpu_torch.models import expert_parallel, pipeline
+        import infinistore_tpu_torch.models as models
+        assert models.loss_fn is models.llama.loss_fn
+        assert models.train_step is models.llama.train_step
+        assert {"loss_fn", "train_step"} <= set(models.__all__)
+        from infinistore_tpu_torch.cuda import _ext
+        assert _ext._lib is None, "kernel library loaded at import"
+        # shaping loads the store library, built from native/ at its first use.
+        subprocess.Popen = popen
+        from infinistore_tpu_torch import shaping
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "triton", "infinistore_tpu"))
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
