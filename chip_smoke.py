@@ -290,6 +290,21 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    Mixtral-8x7B's 8 experts at Llama-3-8B widths cut to 2 layers, bf16, one
    1,024-token sequence) against the single-device gradients, each rank
    holding only its slices before and after a step. No K1-K8 launch.
+18. The tensor-parallel train step (``models/tensor_parallel.py``: heads,
+   FFN hidden columns and vocabulary over tp, activations sharded over the
+   sequence, a vocabulary-parallel cross entropy) at Llama-3-8B widths on a
+   process group of world size 1 over NCCL, (dp, tp, ep) = (1, 1, 1): in
+   f32 at 2 layers (``TP_CHECK_LAYERS``) on 2 x 2,048 tokens against the
+   one-device ``llama._loss_and_grads`` on the same card, the loss within
+   ``TP_LOSS_TOL`` and each parameter's gradient slice within
+   ``TP_GRAD_TOL`` of the largest magnitude of the reference's gradient,
+   the planted fault (the loss shift flipped) outside that bound; then two
+   timed bf16 steps at ``TRAIN_LAYERS`` layers (``step_s``,
+   ``tokens_per_s``, ``peak_GiB``). No K1-K8 launch. Then the multi-chip
+   dryrun, ``dryrun.dryrun_multichip(1)`` (its own rank process: the
+   tp/ep step, the pipeline, ring and Ulysses attention, the sharded and
+   ragged sharded decode with K5 and K7, the connector's interconnect
+   handoff with K1 and K2), every leg's check.
 
 Prints the card's name and power limit, a line with the script's total
 wall, a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -307,7 +322,12 @@ process a card (``--long-context-rank``, spawned by the script itself); and
 the parallel training path (phase 17, every check) at world size N, one
 process a card (``--parallel-train-rank``): the ring and Ulysses gradients
 across N ranks, the pipeline at N stages and the expert-parallel step at
-(dp, tp, ep) = (1, 2, N / 2).
+(dp, tp, ep) = (1, 2, N / 2); and phase 18 at world size N: the
+tensor-parallel step at (1, N, 1), one process a card
+(``--tensor-parallel-rank``; the planted fault there is the norms'
+gradients left unsummed over tp), and ``dryrun_multichip(N)`` (at 4 cards
+the dryrun's mesh (2, 2, 1); its decode legs launch K5 and K7 at N NCCL
+ranks).
 """
 
 import asyncio
@@ -404,6 +424,11 @@ PATH_KERNELS = {
     # differentiable one (every launch count must stay 0, checked in main).
     "train": (),
     "parallel_train": (),
+    "tensor_parallel": (),
+    # The dryrun's sharded and ragged sharded decode legs (K5, K7) and its
+    # handoff (K1, K2); its training and attention legs launch none.
+    "dryrun": ("paged_decode_attention_stats", "paged_decode_attention_ragged_stats",
+               "gather_blocks", "scatter_blocks"),
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
 BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster", "vllm_v1",
@@ -526,6 +551,22 @@ EP_LAYERS = 2
 EP_TOKENS = 1024
 EP_GRAD_TOL = TRAIN_GRAD_TOL
 EP_LOSS_TOL = TRAIN_LOSS_TOL
+# The tensor_parallel path: the tp step (models/tensor_parallel.py) at
+# (dp, tp, ep) = (1, N, 1) on N ranks. Its check, in f32 at TP_CHECK_LAYERS
+# layers on TP_BATCH x TP_TOKENS tokens, against the one-device
+# llama._loss_and_grads on the same card: the loss within TP_LOSS_TOL; each
+# parameter's gradient slice within TP_GRAD_TOL of the largest magnitude of
+# the reference's gradient for that parameter (the split sums round in
+# another order); the planted fault outside that bound (at tp > 1 the norms'
+# gradients left unsummed over tp, at tp = 1, where that changes nothing,
+# the loss shift flipped). Then TP_STEPS timed bf16 steps at TRAIN_LAYERS
+# layers, beside the train path's one-card step.
+TP_CHECK_LAYERS = 2
+TP_BATCH = 2
+TP_TOKENS = 2048
+TP_LOSS_TOL = 1e-5
+TP_GRAD_TOL = 1e-4
+TP_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -4198,6 +4239,188 @@ def parallel_train_phase(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: the tensor-parallel train step and the multi-chip dryrun
+# ---------------------------------------------------------------------------
+
+
+def _tp_shift_flipped(tp, local, tokens, cfg, grid):
+    """``tp_loss_fn`` with the loss shift flipped (each position scored
+    against the token before it): the planted fault at tp = 1."""
+    b, s = tokens.shape
+    logits = (tp._hidden(local, tokens, cfg, grid) @ local["lm_head"]).float()
+    return tp._vocab_parallel_nll(logits[:, 1:], tokens[:, :-1], grid).sum() / (b * (s - 1))
+
+
+def _tp_check(torch, llama, geometry, device, rank, grid, layers, batch, tokens):
+    """The tp step's loss and this rank's gradient slices, f32, against the
+    one-device reference on this card, and the planted fault's reading."""
+    import numpy as np
+
+    from infinistore_tpu_torch.models import tensor_parallel as tp
+
+    cfg = llama.LlamaConfig(dtype=torch.float32, **dict(geometry, n_layers=layers))
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    data = torch.from_numpy(np.random.default_rng(47).integers(0, cfg.vocab, (batch, tokens)))
+    data = data.to(device)
+    loss_ref, grads_ref = llama._loss_and_grads(params, lambda p: llama.loss_fn(p, data, cfg))
+    _step, shard = tp.make_tp_train_step(grid, cfg, device=device)
+    scale = {k: float(g.abs().max()) for k, g in grads_ref.items()}
+    want = shard(grads_ref)
+    del grads_ref
+    local = shard(params)
+    del params
+
+    def worst(grads):
+        errs = {k: float((grads[k] - want[k]).abs().max()) / scale[k] for k in want}
+        return max(errs.values()), max(errs, key=errs.get)
+
+    loss, grads = tp.tp_loss_and_grads(local, data, cfg, grid)
+    loss_err = abs(float(loss) - float(loss_ref))
+    grad_err, where = worst(grads)
+    del grads
+    if grid.tp > 1:
+        fault = "norms_unreduced"
+        _, planted = llama._loss_and_grads(local, lambda p: tp.tp_loss_fn(p, data, cfg, grid))
+        tp._reduce_grads(planted, grid, over_tp=("router",))
+    else:
+        fault = "shift_flipped"
+        _, planted = llama._loss_and_grads(
+            local, lambda p: _tp_shift_flipped(tp, p, data, cfg, grid))
+    fault_err, fault_where = worst(planted)
+    del planted, want, local
+    if not (loss_err <= TP_LOSS_TOL and grad_err <= TP_GRAD_TOL):
+        raise AssertionError(f"rank {rank}: the tp step's loss is {loss_err} from one device's "
+                             f"(bound {TP_LOSS_TOL}), its gradients {grad_err} ({where}; bound "
+                             f"{TP_GRAD_TOL} of each reference gradient's largest magnitude)")
+    if not fault_err > TP_GRAD_TOL:
+        raise AssertionError(f"rank {rank}: the planted fault {fault} reads {fault_err}, within "
+                             f"{TP_GRAD_TOL}")
+    return {"layers": layers, "batch": batch, "tokens": tokens, "loss": float(loss),
+            "loss_ref": float(loss_ref), "loss_abs_err": loss_err, "grad_err": grad_err,
+            "grad_err_param": where, "fault": fault, "fault_err": fault_err,
+            "fault_err_param": fault_where}
+
+
+def _tp_timed(torch, llama, geometry, device, grid, layers, batch, tokens):
+    """TP_STEPS bf16 steps at ``layers`` layers on this rank's slices, each
+    timed from a sync to its loss on the host; the peak device memory over
+    them."""
+    import numpy as np
+
+    from infinistore_tpu_torch.models import tensor_parallel as tp
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = llama.LlamaConfig(dtype=torch.bfloat16, **dict(geometry, n_layers=layers))
+    step, shard = tp.make_tp_train_step(grid, cfg, device=device)
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    local = shard(params)
+    del params
+    data = torch.from_numpy(np.random.default_rng(29).integers(0, cfg.vocab, (batch, tokens)))
+    data = data.to(device)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    walls, losses = [], []
+    for _ in range(TP_STEPS):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        local, loss = step(local, data)
+        losses.append(float(loss))
+        _sync(torch, device)
+        walls.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"the bf16 tp step's losses are not finite: {losses}")
+    return {"layers": layers, "batch": batch, "tokens": tokens,
+            "parameters_on_rank": sum(p.numel() for p in local.values()), "losses": losses,
+            "step_s": walls, "tokens_per_s": batch * tokens / walls[-1],
+            "peak_GiB": torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda else None}
+
+
+def _run_tensor_parallel(torch, device="cuda", backend="nccl", geometry=LLAMA3_8B, rank=0,
+                         world=1, init_file=None, check_layers=TP_CHECK_LAYERS,
+                         timed_layers=TRAIN_LAYERS, batch=TP_BATCH, tokens=TP_TOKENS):
+    """One rank of the tensor_parallel path (module docstring, phase 18) at
+    (1, world, 1) on a process group of ``world`` ranks, initialised from
+    ``init_file`` (a fresh FileStore when None). Returns (metrics,
+    launches); the launches are read after the check and the timed steps."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.models import expert_parallel, llama
+
+    if backend == "nccl":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{init_file or tmp + '/filestore'}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            _ext.reset_launches()
+            grid = expert_parallel.ep_grid(1, world, 1)
+            metrics = {"world_size": world, "backend": backend, "grid": [1, world, 1],
+                       "coords": [grid.d, grid.i, grid.j]}
+            metrics["check"] = _tp_check(torch, llama, geometry, device, rank, grid,
+                                         check_layers, batch, tokens)
+            metrics["step"] = _tp_timed(torch, llama, geometry, device, grid, timed_layers,
+                                        batch, tokens)
+            _sync(torch, device)
+            launches = dict(_ext.LAUNCHES)  # the path's own launches, read here
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    return metrics, launches
+
+
+def tensor_parallel_phase(torch, smi):
+    """Phase 18's tp step: world size 1 over NCCL on the card. Returns
+    (launches, metrics)."""
+    metrics, launches = _run_tensor_parallel(torch)
+    metrics = {"card": smi, **metrics}
+    log(f"tensor parallel: {json.dumps(metrics)}")
+    log("tensor parallel: one NCCL rank at (1, 1, 1); (1, 4, 1) runs under --cards 4, and 1, "
+        "2, 4 and 8 gloo ranks on the CPU (tests/test_torch_tensor_parallel.py)")
+    log(f"tensor parallel launches: {json.dumps(launches)}")
+    return launches, metrics
+
+
+def _run_dryrun(torch, n, device="cuda"):
+    """``dryrun_multichip(n)`` (its own n rank processes). Returns (metrics,
+    launches summed over its legs and ranks); on a card the decode legs must
+    have launched K5 and K7 and the handoff K1 and K2."""
+    from infinistore_tpu_torch import dryrun
+
+    t0 = time.perf_counter()
+    result = dryrun.dryrun_multichip(n, device=device)
+    wall = time.perf_counter() - t0
+    by_leg = result["launches"]
+    if torch.device(device).type == "cuda":
+        for leg, names in (("sharded_decode", ("paged_decode_attention_stats",
+                                               "paged_decode_attention_ragged_stats")),
+                           ("ici_handoff", ("gather_blocks", "scatter_blocks"))):
+            idle = [name for name in names if by_leg[leg][name] == 0]
+            if idle:
+                raise AssertionError(f"the dryrun's {leg} leg never launched {idle}")
+    launches = {name: sum(counts[name] for counts in by_leg.values())
+                for name in next(iter(by_leg.values()))}
+    return {"n": n, "wall_s": wall, "line": result["line"], "legs": result["metrics"],
+            "launches_by_leg": by_leg}, launches
+
+
+def dryrun_phase(torch, smi):
+    """Phase 18's dryrun: ``dryrun_multichip(1)`` on the card. Returns
+    (launches, metrics)."""
+    metrics, launches = _run_dryrun(torch, 1)
+    metrics = {"card": smi, **metrics}
+    log(f"dryrun: {json.dumps(metrics)}")
+    log(f"dryrun launches: {json.dumps(launches)}")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
 # --cards N: the legs across cards
 # ---------------------------------------------------------------------------
 
@@ -4220,6 +4443,16 @@ def _parallel_train_rank(torch, args) -> int:
     metrics, launches = _run_parallel_train(torch, rank=args.parallel_train_rank,
                                             world=args.cards, init_file=args.init_file)
     print(json.dumps({"rank": args.parallel_train_rank, "metrics": metrics,
+                      "launches": launches}), flush=True)
+    return 0
+
+
+def _tensor_parallel_rank(torch, args) -> int:
+    """One rank of ``--cards N``'s tensor_parallel leg, in a process of its
+    own; prints its metrics and launches as its last line."""
+    metrics, launches = _run_tensor_parallel(torch, rank=args.tensor_parallel_rank,
+                                             world=args.cards, init_file=args.init_file)
+    print(json.dumps({"rank": args.tensor_parallel_rank, "metrics": metrics,
                       "launches": launches}), flush=True)
     return 0
 
@@ -4267,8 +4500,8 @@ def _spawn_ranks(flag, cards, tmp, *extra):
 
 def cards_main(torch, cards: int, t_start: float) -> int:
     """``--cards N``: the ICI handoff over ``[cuda:0, cuda:1]``, and the
-    long-context and parallel training paths at world size N over NCCL
-    (module docstring)."""
+    long-context, parallel training and tensor-parallel paths and the
+    dryrun at world size N over NCCL (module docstring)."""
     import tempfile
 
     if cards < 2 or torch.cuda.device_count() < cards:
@@ -4313,9 +4546,22 @@ def cards_main(torch, cards: int, t_start: float) -> int:
                                  f"{result['launches']}")
     paths["parallel_train"] = {name: sum(r["launches"][name] for r in ranks)
                                for name in ranks[0]["launches"]}
-    idle = [name for name in PATH_KERNELS["ici_handoff"] if paths["ici_handoff"][name] == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the ici_handoff path: {idle}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _spawn_ranks("--tensor-parallel-rank", cards, tmp)
+    for result in ranks:
+        log(f"tensor parallel rank {result['rank']} of {cards}: "
+            f"{json.dumps(result['metrics'])}")
+        if any(result["launches"].values()):
+            raise AssertionError(f"tensor-parallel rank {result['rank']} launched kernels: "
+                                 f"{result['launches']}")
+    paths["tensor_parallel"] = {name: sum(r["launches"][name] for r in ranks)
+                                for name in ranks[0]["launches"]}
+    metrics, paths["dryrun"] = _run_dryrun(torch, cards)
+    log(f"dryrun on {cards} cards: {json.dumps(metrics)}")
+    for path in ("ici_handoff", "dryrun"):
+        idle = [name for name in PATH_KERNELS[path] if paths[path][name] == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on the {path} path: {idle}")
     log(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"cards": cards, "launches": paths}), flush=True)
     print(json.dumps({
@@ -4337,6 +4583,7 @@ def _args(argv):
                     help="2 or more: run the legs across cards instead (module docstring)")
     ap.add_argument("--long-context-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-train-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tensor-parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init-file", default=None, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
@@ -4389,6 +4636,8 @@ def main() -> int:
         return _long_context_rank(torch, args)
     if args.parallel_train_rank is not None:
         return _parallel_train_rank(torch, args)
+    if args.tensor_parallel_rank is not None:
+        return _tensor_parallel_rank(torch, args)
     smi_lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
@@ -4499,6 +4748,10 @@ def main() -> int:
     paths["train"], _ = train_phase(torch, smi)
     torch.cuda.empty_cache()
     paths["parallel_train"], _ = parallel_train_phase(torch, smi)
+    torch.cuda.empty_cache()
+    paths["tensor_parallel"], _ = tensor_parallel_phase(torch, smi)
+    torch.cuda.empty_cache()
+    paths["dryrun"], _ = dryrun_phase(torch, smi)
 
     for path, names in PATH_KERNELS.items():
         idle = [name for name in names if paths[path][name] == 0]

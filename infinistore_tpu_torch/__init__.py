@@ -52,6 +52,7 @@ _LAZY = {
         "QuantizedKVConnector", "QuantizingKVAdapter", "dequantize_kv",
         "paged_decode_attention_quantized", "quantize_kv",
     ),
+    "dryrun": ("dryrun_multichip",),
     "vllm_v1": (
         "InfiniStoreKVConnectorV1", "KVConnectorMetadata", "KVConnectorRole",
         "KVLoadUnderDelivery",

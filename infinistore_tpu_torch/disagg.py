@@ -644,6 +644,14 @@ class DisaggHarness:
     def prompt(self, seed: int = 0, n_blocks: Optional[int] = None) -> List[int]:
         return demo_prompt(self.config, n_blocks or self.req_blocks, seed=seed)
 
+    def heterogeneous_prompts(self, count: int, seed: int = 0) -> List[List[int]]:
+        """Heterogeneous prompt lengths for the ragged decode-wave workload
+        (block counts cycle 1..req_blocks): what a benchmark feeds the
+        continuous-batching engine to read its wave pad fraction under a
+        disagg-shaped mix."""
+        return [self.prompt(seed=seed + i, n_blocks=1 + i % self.req_blocks)
+                for i in range(count)]
+
     def trace_prompts(self, trace, count: Optional[int] = None) -> List[List[int]]:
         """Materialise a load-generator trace (a ``loadgen.Trace``, the
         port's or the JAX package's: ``prompts(block_tokens, vocab=,

@@ -3,10 +3,13 @@ Llama-style transformer with a paged KV cache and its training step
 (``llama.py``), and the paths over ``torch.distributed``: ring attention
 (``ring_attention.py``), Ulysses attention (``ulysses.py``), the
 long-context prefill (``long_context.py``), the GPipe pipeline
-(``pipeline.py``) and the expert-parallel MoE train step
-(``expert_parallel.py``). The sequence-parallel names resolve lazily;
-``ring_attention`` itself is reached through its module, whose name it
-shares, and the pipeline and expert-parallel entry points through theirs."""
+(``pipeline.py``), the expert-parallel MoE train step
+(``expert_parallel.py``) and the tensor-parallel train step with
+sequence-sharded activations (``tensor_parallel.py``). The sequence- and
+tensor-parallel names resolve lazily, so importing ``models`` pulls in no
+process group and compiles nothing; ``ring_attention`` itself is reached
+through its module, whose name it shares, and the pipeline and
+expert-parallel entry points through theirs."""
 
 from .llama import (
     LlamaConfig,
@@ -31,6 +34,7 @@ _LAZY = {
     "ring_attention": ("dense_attention_reference",),
     "ulysses": ("ulysses_attention",),
     "long_context": ("prefill_ring",),
+    "tensor_parallel": ("make_tp_train_step", "tp_loss_and_grads"),
 }
 _WHERE = {name: mod for mod, names in _LAZY.items() for name in names}
 

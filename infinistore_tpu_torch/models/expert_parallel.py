@@ -102,34 +102,39 @@ def ep_grid(dp: int, tp: int, ep: int) -> EpGrid:
 class _CopyIn(torch.autograd.Function):
     """Identity forward; the backward sums the input's gradient over
     ``group`` (each rank's share of the FFN reaches the input by its own
-    weights)."""
+    weights). A group of one rank (``world`` 1) posts nothing."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, world):
+        ctx.group, ctx.world = group, world
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.world == 1:
+            return grad, None, None
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return grad, None, None
 
 
 class _ReduceOut(torch.autograd.Function):
     """The ranks' shares summed over ``group`` in the forward; identity
     backward (every rank carries the same loss onward, so each share's
-    gradient is the sum's)."""
+    gradient is the sum's). A group of one rank (``world`` 1) posts
+    nothing."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, world):
+        if world == 1:
+            return x.view_as(x)
         x = x.contiguous().clone()
         dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _GatherExperts(torch.autograd.Function):
@@ -139,29 +144,37 @@ class _GatherExperts(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group, world, rank):
-        ctx.meta = group, rank, x.shape[-1]
+        ctx.meta = group, world, rank, x.shape[-1]
+        if world == 1:
+            return x.view_as(x)
         parts = [torch.empty_like(x) for _ in range(world)]
         dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim=-1)
 
     @staticmethod
     def backward(ctx, grad):
-        group, rank, width = ctx.meta
+        group, world, rank, width = ctx.meta
+        if world == 1:
+            return grad, None, None, None
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=group)
         return grad[..., rank * width:(rank + 1) * width], None, None, None
 
 
-def _ep_moe(local: Params, pre: str, h, config: LlamaConfig, grid: EpGrid):
-    """This rank's share of the soft mixture, summed over the shard group
-    (``llama._moe`` on the grid)."""
+def _ep_moe(local: Params, pre: str, h, config: LlamaConfig, grid: EpGrid, sum_tp=True):
+    """This rank's share of the soft mixture (``llama._moe`` on the grid),
+    summed over the shard group, whose ranks all hold ``h``; with
+    ``sum_tp`` False over the ep group only (the tensor-parallel step's tp
+    ranks gather ``h`` and sum their shares themselves)."""
+    group, world = ((grid.shard_group, grid.tp * grid.ep) if sum_tp
+                    else (grid.ep_group, grid.ep))
     e_loc = config.n_experts // grid.ep
     lead = h.shape[:-1]
-    h2 = _CopyIn.apply(h.reshape(-1, config.dim), grid.shard_group)  # [N, dim]
+    h2 = _CopyIn.apply(h.reshape(-1, config.dim), group, world)  # [N, dim]
     logits = _GatherExperts.apply(h2 @ local[pre + "router"], grid.ep_group, grid.ep, grid.j)
     gates = torch.softmax(logits.float(), dim=-1).to(h.dtype)[:, grid.j * e_loc:(grid.j + 1) * e_loc]
     share = llama._expert_sum(h2, gates, local[pre + "w_gate_up_moe"], local[pre + "w_down_moe"])
-    return _ReduceOut.apply(share, grid.shard_group).reshape(*lead, config.dim)
+    return _ReduceOut.apply(share, group, world).reshape(*lead, config.dim)
 
 
 def ep_loss_fn(local: Params, tokens: torch.Tensor, config: LlamaConfig,
@@ -195,8 +208,11 @@ def ep_loss_and_grads(local: Params, tokens: torch.Tensor, config: LlamaConfig, 
     return loss, grads
 
 
-def _local_slice(name: str, t: torch.Tensor, grid: EpGrid) -> torch.Tensor:
-    for dim, axis in _SPLITS.get(name.rsplit(".", 1)[-1], ()):
+def _local_slice(name: str, t: torch.Tensor, grid: EpGrid, splits=_SPLITS) -> torch.Tensor:
+    """This rank's slice of weight ``name`` under the placement table
+    ``splits`` (``{suffix: ((dim, axis), ...)}``; a suffix it lacks is
+    replicated)."""
+    for dim, axis in splits.get(name.rsplit(".", 1)[-1], ()):
         parts, at = (grid.ep, grid.j) if axis == "ep" else (grid.tp, grid.i)
         size = t.shape[dim] // parts
         t = t.narrow(dim, at * size, size)

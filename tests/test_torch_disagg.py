@@ -187,3 +187,21 @@ def test_chip_smoke_main_path_rehearsal_on_cpu(port_server):
     assert state["caches_a"][0][0].shape == (state["spec"].num_blocks, 16, 2, 64)
     # The CPU runs the plain versions: no kernel was launched.
     assert set(launches.values()) == {0}
+
+
+@pytest.mark.parametrize("count,seed,req_blocks", [(9, 0, 4), (5, 7, 2), (0, 3, 4)])
+def test_heterogeneous_prompts_match_the_jax_harness(count, seed, req_blocks):
+    """``DisaggHarness.heterogeneous_prompts``: the JAX harness's lists (block
+    counts cycling 1..req_blocks, each prompt from its own seed) for the
+    same config, count and seed."""
+    from infinistore_tpu import disagg as jd
+    from infinistore_tpu_torch import disagg as td
+
+    jh = jd.DisaggHarness(lambda: None, jd.demo_config(n_layers=1), req_blocks=req_blocks)
+    th = td.DisaggHarness(lambda: None, td.demo_config(n_layers=1), req_blocks=req_blocks,
+                          device="cpu")
+    want = jh.heterogeneous_prompts(count, seed=seed)
+    got = th.heterogeneous_prompts(count, seed=seed)
+    assert got == want
+    assert [len(p) // th.config.block_tokens for p in got] == [
+        1 + i % req_blocks for i in range(count)]

@@ -16,6 +16,9 @@
 - The training modules (the pipeline, the expert-parallel step) and the
   ``shaping`` copy import no jax and nothing of the JAX package, and
   compile nothing.
+- The tensor-parallel train step and the multi-chip dryrun import no jax
+  and nothing of the JAX package, start no process and compile nothing at
+  import; their names resolve lazily from ``models`` and the package.
 - The multi-device serving modules (the block transfer, ring and Ulysses
   attention, the long-context prefill) import no jax and compile nothing;
   the ``models`` names of the sequence-parallel modules resolve lazily; the
@@ -73,6 +76,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             os.path.join("models", "ulysses.py"), os.path.join("models", "long_context.py")} <= scanned
     assert {os.path.join("models", "pipeline.py"), os.path.join("models", "expert_parallel.py"),
             "shaping.py"} <= scanned
+    assert {os.path.join("models", "tensor_parallel.py"), "dryrun.py"} <= scanned
 
 
 def test_package_import_is_light_and_builds_nothing():
@@ -349,5 +353,44 @@ def test_training_modules_import_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_tensor_parallel_and_dryrun_modules_are_light():
+    """``models/tensor_parallel.py`` and ``dryrun.py`` load nothing of jax,
+    triton or the JAX package, start no process and build no kernel library
+    when imported; ``models`` and the package resolve their names lazily."""
+    script = textwrap.dedent(
+        """
+        import subprocess, sys
+
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"import started a process: {args[:1]}")
+
+        subprocess.Popen = refuse
+        import infinistore_tpu_torch as itt
+        import infinistore_tpu_torch.models as models
+        assert "infinistore_tpu_torch.models.tensor_parallel" not in sys.modules
+        assert "infinistore_tpu_torch.dryrun" not in sys.modules
+        from infinistore_tpu_torch import dryrun
+        from infinistore_tpu_torch.models import tensor_parallel
+        assert models.make_tp_train_step is tensor_parallel.make_tp_train_step
+        assert models.tp_loss_and_grads is tensor_parallel.tp_loss_and_grads
+        assert itt.dryrun_multichip is dryrun.dryrun_multichip
+        assert "make_tp_train_step" in models.__all__ and "dryrun_multichip" in itt.__all__
+        from infinistore_tpu_torch.cuda import _ext
+        assert _ext._lib is None, "kernel library loaded at import"
+        import torch.distributed as dist
+        assert not dist.is_initialized(), "a process group at import"
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "triton", "infinistore_tpu"))
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
