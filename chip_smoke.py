@@ -144,6 +144,11 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    the first and the last layer's caches of an overlapped leg), within
    2e-2, two launches bitwise equal. Each leg's TTFT, the overlap counters
    and the bytes shipped are logged, round by round.
+9b. The same path at ``disagg.demo_config()``'s defaults (the module's
+   CLI model and ``DisaggHarness()``'s: f32, 6 layers, dim 64, 4 heads over
+   2 KV heads, head_dim 16, block 8) with its seed-0 demo weights, one
+   64-token prompt, a 256 MiB store of its own: the same legs, rounds and
+   checks (K3 held at its inputs within 1e-5); K1-K4 must launch.
 10. The multi-server KV pool (``cluster``) at Llama-3-8B width (bf16, the
    main path's weights): four in-process servers (2 GiB each, 32 KiB
    units), a ``ClusterKVConnector`` over three of them (R=2, strict,
@@ -209,7 +214,8 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    in-process server, ``--wave 8`` (the store legs, read coalescing, and
    the decode-wave leg: K6 against K3, f32) and ``--trace skewed`` (a
    loadgen trace through the continuous-batching engine on a small f32
-   model, every request verified: K4 f32, K1, K2, K3, K6), both
+   model, the JAX package's trace model: f32, dim 64, 4 heads over 2 KV
+   heads, head_dim 16; every request verified: K4 f32, K1, K2, K3, K6), both
    ``verified``; ``python -m infinistore_tpu_torch.benchmark --type tcp``
    once as a subprocess; and a fleet client (``python -m
    infinistore_tpu_torch.fleet_client``, 4 roots, a journal) seeded over
@@ -222,6 +228,16 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    heads, head_dim 64, block 16, 8 rows over 16-page tables, K6 over its
    pow2-padded page list) against their plain versions (1e-5), two
    launches bitwise equal, and times each with its wrapper host time.
+   The kernel phase ends with the shapes beyond the main path's
+   (``SHAPES_TAKEN``, at the round trip's wave of 4 x 2,048 tokens): head
+   dim 16 (the trace model's 4 heads over 2, f32, block 8), head_dim 32 (8
+   over 2, bf16) and 7 query heads a KV head (Qwen2.5-7B's 28 over 4, head
+   dim 128, bf16). K3, K5, K6, K7 and K8 at each, K4 in f32 and bf16 at
+   head_dim 16 and 32 and in bf16 at the 7-head group, each against its
+   plain version with the tolerances above (K6 bitwise K3, K5 / K7's
+   combines bitwise K3 / K6, K8 held to its contract) and timed beside its
+   plain version and its bound (``shapes_taken`` on the ``kernels`` line,
+   which also lists each kernel's ``head_dims`` and ``groups``).
 
 13-15 run after phase 11, on the main path's weights, before phase 12:
 13. The same-mesh block handoff (``cuda/ici.py``) at Llama-3-8B width
@@ -303,8 +319,8 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    ``tokens_per_s``, ``peak_GiB``). No K1-K8 launch. Then the multi-chip
    dryrun, ``dryrun.dryrun_multichip(1)`` (its own rank process: the
    tp/ep step, the pipeline, ring and Ulysses attention, the sharded and
-   ragged sharded decode with K5 and K7, the connector's interconnect
-   handoff with K1 and K2), every leg's check.
+   ragged sharded decode with K5 and K7 at the dryrun's head_dim 16, the
+   connector's interconnect handoff with K1 and K2), every leg's check.
 
 Prints the card's name and power limit, a line with the script's total
 wall, a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -413,6 +429,9 @@ PATH_KERNELS = {
     "int8_engine": ENGINE_KERNELS,
     "sharded_decode": ("paged_decode_attention_stats", "paged_decode_attention_ragged_stats"),
     "disagg": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
+    # The disagg demo's defaults (``disagg.demo_config()``: f32, head_dim 16).
+    "disagg_demo": ("gather_blocks", "scatter_blocks", "paged_decode_attention",
+                    "flash_prefill"),
     "cluster": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
     "vllm_v1": ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill"),
     "serving_cli": ("gather_blocks", "scatter_blocks", "paged_decode_attention",
@@ -764,6 +783,19 @@ def kernel_phase(torch, timer, nomerge):
         torch, timer, g, tables, (full, ragged), n_cache)
     results["paged_decode_attention_stats"] = _stats_kernel_check(
         torch, timer, g, tables, (full, ragged), n_cache, nomerge)
+    # The shapes beyond the main path's: head_dim 16 and 32, 7 query heads a
+    # KV head. Each kernel's row lists the head_dims and groups it ran here.
+    taken = _shapes_taken_check(torch, timer, g)
+    for name, row in results.items():
+        if name not in taken:
+            continue
+        row["shapes_taken"] = taken[name]
+        main = {(d, h // kvh)}
+        if name in ("paged_decode_attention", "paged_decode_attention_ragged"):
+            main.add((64, 4))  # the decode-wave leg's (benchmark.decode_wave_inputs)
+        runs = main | {(r["head_dim"], r["group"]) for r in taken[name].values()}
+        row["head_dims"] = sorted({hd for hd, _ in runs})
+        row["groups"] = sorted({gr for _, gr in runs})
     return results
 
 
@@ -1301,6 +1333,194 @@ def _stats_err(torch, stats, plain):
         if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
             raise AssertionError(f"decode stats: m or l differ by {max_err(a, b)}")
     return max_err(acc / torch.clamp(l, min=1e-30), acc_p / torch.clamp(l_p, min=1e-30))
+
+
+# The shapes beyond the main path's that the attention kernels take, each at
+# the round trip's wave (``PROMPTS`` rows of ``PROMPT_TOKENS`` tokens; K4 one
+# ``PROMPT_TOKENS``-token prompt): (dtype, query heads, KV heads, head_dim,
+# block tokens). d16: the JAX package's trace model's heads (4 over 2, head
+# dim 16, f32, block 8); d32: tests/test_paged_attention.py's second case's
+# heads (8 over 2, head_dim 32), bf16; g7: Qwen2.5-7B's published heads (28
+# over 4 KV heads, head_dim 128: 7 query heads a KV head), bf16.
+SHAPES_TAKEN = {
+    "d16": ("float32", 4, 2, 16, 8),
+    "d32": ("bfloat16", 8, 2, 32, 16),
+    "g7": ("bfloat16", 28, 4, 128, 16),
+}
+# K4 at those shapes in both dtypes where its head_dim is new (d16, d32),
+# in bf16 at g7.
+SHAPES_TAKEN_K4 = {"d16": ("float32", "bfloat16"), "d32": ("float32", "bfloat16"),
+                   "g7": ("bfloat16",)}
+
+
+def _shapes_taken_check(torch, timer, g):
+    """K3-K8 at ``SHAPES_TAKEN``: each against its plain version with the
+    kernel phase's tolerances (K3, K6 1e-5 in f32 and 2e-2 in bf16; K5, K7
+    normalised, m and l to 1e-5; K8 ``_k8_contract``), K3's two launches
+    bitwise equal and its zero-length row zeros, K6 bitwise K3 per row,
+    K5's and K7's one-shard combines bitwise K3 and K6; K4 (f32 and bf16)
+    against its plain version, each launch on its dtype's kernel. Each timed
+    beside its plain version and its bound (the decode kernels by their
+    bytes, K4 by its operations), K4 also beside SDPA. Returns {kernel:
+    {shape: row}}."""
+    import torch.nn.functional as F
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    out = {name: {} for name in TPU_KERNELS if name not in ("gather_blocks", "scatter_blocks")}
+    ident = lambda t: t  # noqa: E731
+    for label, (dname, h, kvh, d, bt) in SHAPES_TAKEN.items():
+        dtype = getattr(torch, dname)
+        tol = 1e-5 if dtype is torch.float32 else 2e-2
+        nb = PROMPT_TOKENS // bt
+        n_cache = PROMPTS * nb + 16
+        tables = (torch.randperm(n_cache, generator=g, device="cuda")[: PROMPTS * nb]
+                  .to(torch.int32).reshape(PROMPTS, nb))
+        full = torch.full((PROMPTS,), PROMPT_TOKENS, dtype=torch.int32, device="cuda")
+        ragged = torch.tensor([PROMPT_TOKENS, PROMPT_TOKENS - 1, 1000, 0], dtype=torch.int32,
+                              device="cuda")
+        q = torch.randn((PROMPTS, h, d), generator=g, device="cuda").to(dtype)
+        k32 = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda")
+        v32 = torch.randn((n_cache, bt, kvh, d), generator=g, device="cuda")
+        kc, vc = k32.to(dtype), v32.to(dtype)
+        kd, ks = kq.quantize_kv(k32)
+        vd, vs = kq.quantize_kv(v32)
+        what = f"{label} ({dname}, {h} heads over {kvh}, head_dim {d}, block {bt})"
+        errs = dict.fromkeys(out, 0.0)
+        for lens in (full, ragged):
+            args = (q, kc, vc, tables, lens)
+            k3 = pa.paged_decode_attention_batched(*args)
+            again = pa.paged_decode_attention_batched(*args)
+            stats = pa._decode_attention_stats(*args)
+            m = pa.build_ragged_wave([t.cpu().numpy() for t in tables], lens.cpu().numpy(), bt,
+                                     pad_to_pow2=True)
+            meta = [torch.from_numpy(x).to("cuda") for x in (m.pages, m.page_rows,
+                                                              m.page_starts, m.seq_lens)]
+            k6 = pa.paged_decode_attention_ragged(q, kc, vc, *meta, table_width=nb)
+            rstats = pa._decode_attention_stats_ragged(q, kc, vc, *meta, table_width=nb)
+            k8 = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
+            torch.cuda.synchronize()
+            errs["paged_decode_attention"] = max(errs["paged_decode_attention"], max_err(
+                k3, pa.paged_decode_attention_plain_batched(*args)))
+            errs["paged_decode_attention_ragged"] = max(
+                errs["paged_decode_attention_ragged"], max_err(
+                    k6, pa.paged_decode_attention_ragged_plain(q, kc, vc, meta[0], meta[2],
+                                                               meta[3], nb)))
+            errs["paged_decode_attention_stats"] = max(
+                errs["paged_decode_attention_stats"],
+                _stats_err(torch, stats, pa.decode_attention_stats_plain(*args)))
+            errs["paged_decode_attention_ragged_stats"] = max(
+                errs["paged_decode_attention_ragged_stats"],
+                _stats_err(torch, rstats, pa.decode_attention_stats_ragged_plain(
+                    q, kc, vc, meta[0], meta[2], meta[3], nb)))
+            errs["paged_decode_attention_quantized"] = max(
+                errs["paged_decode_attention_quantized"],
+                _k8_contract(torch, kq, pa, q, kd, ks, vd, vs, tables, lens, k8, what)[0])
+            if not torch.equal(k3, again) or not torch.equal(k6, k3):
+                raise AssertionError(f"{what}: two K3 launches differ, or K6 is not K3 per row")
+            if not torch.equal(pa.combine_stats(*stats, dtype, ident, ident), k3) or \
+                    not torch.equal(pa.combine_stats(*rstats, dtype, ident, ident), k6):
+                raise AssertionError(f"{what}: K5's or K7's one-shard combine is not K3 / K6")
+        if float(k3[-1].float().abs().max()) != 0.0 or float(k8[-1].float().abs().max()) != 0.0:
+            raise AssertionError(f"{what}: a zero-length row must give zeros")
+        for name in ("paged_decode_attention", "paged_decode_attention_ragged",
+                     "paged_decode_attention_stats", "paged_decode_attention_ragged_stats"):
+            if not errs[name] <= tol:
+                raise AssertionError(f"{what}: {name} max abs err {errs[name]} > {tol}")
+        log(f"K3, K5-K8 at {what}: max abs err " + ", ".join(
+            f"{name} {err:.3e}" for name, err in errs.items() if name != "flash_prefill") +
+            f" (tol {tol}); K3 two launches and K6 per row bitwise, K5 / K7 combines bitwise")
+
+        # Timed at the full wave: every valid token's K and V read once, q
+        # and the output once (K5 / K7: f32 acc, m and l), the page metadata.
+        tokens = PROMPTS * PROMPT_TOKENS
+        args = (q, kc, vc, tables, full)
+        m = pa.build_ragged_wave([t.cpu().numpy() for t in tables], full.cpu().numpy(), bt,
+                                 pad_to_pow2=True)
+        meta = [torch.from_numpy(x).to("cuda") for x in (m.pages, m.page_rows, m.page_starts,
+                                                          m.seq_lens)]
+        kv_bytes = 2 * tokens * kvh * d * kc.element_size()
+        q_bytes = q.numel() * q.element_size()
+        stats_bytes = q.numel() * 4 + 2 * PROMPTS * h * 4
+        table_bytes = tables.numel() * 4 + PROMPTS * 4
+        meta_bytes = sum(x.numel() * 4 for x in meta)
+        flops = 4.0 * h * d * tokens
+        calls = {
+            "paged_decode_attention": (
+                lambda: pa.paged_decode_attention_batched(*args),
+                lambda: pa.paged_decode_attention_plain_batched(*args),
+                kv_bytes + 2 * q_bytes + table_bytes),
+            "paged_decode_attention_stats": (
+                lambda: pa._decode_attention_stats(*args),
+                lambda: pa.decode_attention_stats_plain(*args),
+                kv_bytes + q_bytes + stats_bytes + table_bytes),
+            "paged_decode_attention_ragged": (
+                lambda: pa.paged_decode_attention_ragged(q, kc, vc, *meta, table_width=nb),
+                lambda: pa.paged_decode_attention_ragged_plain(q, kc, vc, meta[0], meta[2],
+                                                               meta[3], nb),
+                kv_bytes + 2 * q_bytes + meta_bytes),
+            "paged_decode_attention_ragged_stats": (
+                lambda: pa._decode_attention_stats_ragged(q, kc, vc, *meta, table_width=nb),
+                lambda: pa.decode_attention_stats_ragged_plain(q, kc, vc, meta[0], meta[2],
+                                                               meta[3], nb),
+                kv_bytes + q_bytes + stats_bytes + meta_bytes),
+            "paged_decode_attention_quantized": (
+                lambda: kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, full),
+                lambda: kq._quant_decode_plain(q, kd, ks, vd, vs, tables, full),
+                2 * tokens * kvh * (d + 4) + 2 * q_bytes + table_bytes),
+        }
+        for name, (kernel, plain, nbytes) in calls.items():
+            bms, by = bound_ms(nbytes, flops, dname)
+            row = dict(dtype=dname, heads=h, kv_heads=kvh, head_dim=d, group=h // kvh,
+                       block_tokens=bt, rows=PROMPTS, tokens=PROMPT_TOKENS,
+                       max_abs_err=errs[name], ms=timer.ms(kernel),
+                       plain_ms=timer.ms(plain, iters=3), bound_ms=bms, bound_by=by,
+                       library_ms=None)
+            out[name][label] = row
+            log(f"{name} at {label}: ms {row['ms']:.5f}, plain {row['plain_ms']:.5f}, bound "
+                f"{bms:.5f} ({by}); {bms / row['ms']:.3f} of its bound")
+        del kc, vc, kd, vd, k32, v32
+
+        for k4_dtype_name in SHAPES_TAKEN_K4[label]:
+            k4_dtype = getattr(torch, k4_dtype_name)
+            k4_tol = 1e-5 if k4_dtype is torch.float32 else 2e-2
+            s_len = PROMPT_TOKENS
+            qp = torch.randn((1, s_len, h, d), generator=g, device="cuda").to(k4_dtype)
+            kp = torch.randn((1, s_len, kvh, d), generator=g, device="cuda").to(k4_dtype)
+            vp = torch.randn((1, s_len, kvh, d), generator=g, device="cuda").to(k4_dtype)
+            before = dict(_ext.LAUNCHES)
+            got = fp.flash_prefill_attention(qp, kp, vp, causal=True)
+            wgmma = _ext.LAUNCHES["flash_prefill_wgmma"] - before["flash_prefill_wgmma"]
+            if _ext.LAUNCHES["flash_prefill"] - before["flash_prefill"] != 1 or \
+                    wgmma != int(k4_dtype is torch.bfloat16):
+                raise AssertionError(f"flash_prefill {k4_dtype} at {label}: took the wrong "
+                                     "kernel")
+            err = max_err(got, fp.flash_prefill_plain(qp, kp, vp, causal=True))
+            torch.cuda.synchronize()
+            if not err <= k4_tol:
+                raise AssertionError(f"flash_prefill {k4_dtype} at {label}: max abs err {err} > "
+                                     f"{k4_tol}")
+            pairs = s_len * (s_len + 1) // 2
+            bms, by = bound_ms((2 * s_len * h * d + 2 * s_len * kvh * d) * qp.element_size(),
+                               4.0 * d * h * pairs, k4_dtype_name)
+            qt, kt, vt = (x.transpose(1, 2) for x in (qp, kp, vp))
+            row = dict(dtype=k4_dtype_name, heads=h, kv_heads=kvh, head_dim=d, group=h // kvh,
+                       tokens=s_len, max_abs_err=err,
+                       ms=timer.ms(lambda: fp.flash_prefill_attention(qp, kp, vp, causal=True)),
+                       plain_ms=timer.ms(lambda: fp.flash_prefill_plain(qp, kp, vp, causal=True),
+                                         iters=3),
+                       bound_ms=bms, bound_by=by,
+                       library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True, enable_gqa=True)))
+            out["flash_prefill"][f"{label}_{k4_dtype_name}"] = row
+            log(f"K4 {k4_dtype_name} at {label} (S={s_len}, {h} heads over {kvh}, head_dim {d}): "
+                f"{json.dumps(row)}; {bms / row['ms']:.3f} of its bound")
+            del qp, kp, vp, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
 
 
 def _skewed_wave():
@@ -2416,6 +2636,44 @@ def _run_disagg(torch, server_port, params, cfg, device, prompt_tokens=PROMPT_TO
             conn.close()
 
 
+DISAGG_DEMO_PROMPT_TOKENS = 64
+
+
+def _run_disagg_demo(torch, device):
+    """The disagg path at ``disagg.demo_config()``'s defaults (the module's
+    CLI model and ``DisaggHarness()``'s: f32, 6 layers, dim 64, 4 heads over
+    2 KV heads, head_dim 16, block 8) with the demo weights (``params=None``:
+    seed 0), one ``DISAGG_DEMO_PROMPT_TOKENS``-token prompt, on a store of
+    its own: every check of phase 9, K3 held at its inputs (f32, 1e-5).
+    Returns (summary, launches)."""
+    from infinistore_tpu_torch import disagg
+    from infinistore_tpu_torch import lib
+
+    cfg = disagg.demo_config()
+    if cfg.head_dim != 16:
+        raise AssertionError(f"disagg demo: head_dim {cfg.head_dim}, not the demo's 16")
+    server = lib.start_local_server(prealloc_bytes=256 << 20, block_bytes=64 << 10,
+                                    pin_memory=False)
+    try:
+        summary, launches = _run_disagg(torch, server.port, None, cfg, device,
+                                        prompt_tokens=DISAGG_DEMO_PROMPT_TOKENS)
+    finally:
+        server.stop()
+    return {"head_dim": cfg.head_dim, **summary}, launches
+
+
+def disagg_demo_phase(torch, smi):
+    """Phase 9b: ``_run_disagg_demo`` on the card. Returns (launches,
+    summary)."""
+    summary, launches = _run_disagg_demo(torch, "cuda")
+    summary = {"card": smi, **summary}
+    log(f"disagg demo (demo_config(): head_dim {summary['head_dim']}, f32): every leg bitwise "
+        "the local recompute in each round, the local leg bitwise the round trip's")
+    log(f"disagg demo: {json.dumps(summary)}")
+    log(f"disagg demo launches: {json.dumps(launches)}")
+    return launches, summary
+
+
 def disagg_phase(torch, server_port, params, smi):
     """Phase 9: Llama-3-8B width, bf16, on the card. Returns (launches,
     summary)."""
@@ -3149,7 +3407,8 @@ def _run_serving_cli(torch, device, benchmark_args=("--wave", str(SERVING_WAVE))
     from infinistore_tpu_torch.cuda import _ext
 
     dev = ["--device", str(device)]
-    summary = {}
+    summary = {"trace_model": {k: str(v).removeprefix("torch.")
+                               for k, v in benchmark.TRACE_MODEL.items()}}
     _ext.reset_launches()
     server = lib_mod.start_local_server(prealloc_bytes=1 << 30, block_bytes=64 << 10,
                                         pin_memory=False)
@@ -4407,7 +4666,7 @@ def _run_dryrun(torch, n, device="cuda"):
     launches = {name: sum(counts[name] for counts in by_leg.values())
                 for name in next(iter(by_leg.values()))}
     return {"n": n, "wall_s": wall, "line": result["line"], "legs": result["metrics"],
-            "launches_by_leg": by_leg}, launches
+            "decode_head_dim": dryrun.D, "launches_by_leg": by_leg}, launches
 
 
 def dryrun_phase(torch, smi):
@@ -4712,6 +4971,7 @@ def main() -> int:
         paths["disagg"], _ = disagg_phase(torch, server.port, params, smi)
     finally:
         server.stop()
+    paths["disagg_demo"], _ = disagg_demo_phase(torch, smi)
     # The multi-server pool reuses them too, over servers of its own.
     torch.cuda.empty_cache()
     paths["cluster"], _ = cluster_phase(torch, params, smi)

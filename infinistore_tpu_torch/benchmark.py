@@ -27,15 +27,11 @@ from .cuda import _ext
 from .lib import InfinityConnection, StripedConnection
 
 
-# The trace leg's engine model. It departs from the JAX package's (dim 64, 4
-# heads: head_dim 16), a shape the decode and prefill kernels refuse (they
-# take head_dim 64 or 128 and 1, 2, 4 or 8 query heads per KV head): dim 256,
-# 4 heads over 2 KV heads (head_dim 64), ffn 512, the same 2 layers, block 8,
-# vocab 128 and f32, the smallest the kernels take. The CPU runs it too, so
-# both devices replay one model.
+# The trace leg's engine model, the JAX package's: dim 64, 4 heads over 2 KV
+# heads (head_dim 16), ffn 128, 2 layers, block 8, vocab 128, f32.
 TRACE_MODEL = dict(
-    vocab=128, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
-    ffn_dim=512, block_tokens=8, dtype=torch.float32,
+    vocab=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    ffn_dim=128, block_tokens=8, dtype=torch.float32,
 )
 
 

@@ -19,7 +19,9 @@ same way ``gather_blocks`` / ``scatter_blocks`` count every launch of K1 /
 K2, and ``gather_blocks_bulk`` / ``scatter_blocks_bulk`` the ones that
 took the TMA bulk ring rather than the vector kernel.
 
-The paged decode kernels (K3, K5-K8) split each row's pages across CTAs
+The attention kernels (K3-K8) take head_dim 16, 32, 64 or 128
+(``HEAD_DIMS``), and the paged decode ones (K3, K5-K8) any number of query
+heads a KV head. The paged decode kernels split each row's pages across CTAs
 (``csrc/decode_fold.cuh``). Their wrappers size the split scratch from
 shapes alone, with the library's own split count for the table width
 (``decode_splits``: ``its_decode_splits``, asked once per width), and take
@@ -48,6 +50,8 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # dtype codes of csrc/common.cuh (its::DType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The head_dims the attention kernels (K3-K8) are instantiated for.
+HEAD_DIMS = (16, 32, 64, 128)
 
 LAUNCHES = {
     "gather_blocks": 0,

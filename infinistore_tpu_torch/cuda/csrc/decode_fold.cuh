@@ -10,6 +10,14 @@
 // G = H / KVH query heads of one KV head. (K8, kv_quant.cu, folds int8 pages
 // in a fold of its own and shares this file's split merge.)
 //
+// Shapes taken: head_dim D of 16, 32, 64 or 128, and any group G = H / KVH.
+// A group runs as G / Gc virtual KV heads of Gc query heads each, Gc the
+// largest of 8, 4, 2 and 1 that divides G: the grid's third dimension runs
+// over the G / Gc virtual heads of a KV head, which all read that KV head's
+// pages, and q, the outputs, the scratch and the tickets are indexed by the
+// virtual head. At G = 1, 2, 4 or 8 the third dimension is 1 and a virtual
+// head is the KV head itself.
+//
 // Bound: bytes. The function must read the K and V of every valid token once
 // (a ragged wave: each distinct page once), plus q and the output.
 //
@@ -32,8 +40,8 @@
 //      at once.
 //   2. A lane owns kVec = 8 consecutive elements of a token's head row: one
 //      16-byte load in bf16, two in f32. A token's D elements sit on D / 8
-//      lanes (a token group: 16 lanes at D = 128), and a group folds 2
-//      tokens a stage. Its 2 x G partial dot products are summed by a
+//      lanes (a token group: 16 lanes at D = 128, 2 at D = 16), and a group
+//      folds 2 tokens a stage. Its 2 x G partial dot products are summed by a
 //      transposed butterfly (transpose_sum: each level sends half of the
 //      values left, so a lane ends holding whole sums, one per (token, head)
 //      pair at G = 4), and each lane runs the softmax of the scores it holds
@@ -122,9 +130,13 @@ constexpr int kStages = 5;  // depth of the cp.async ring
 constexpr int kVec = 8;     // consecutive elements of a head row per lane
 
 // How a CTA lays out head dim D: kLanes lanes per token, kGroups token groups,
-// each folding kTokPerGroup tokens of every kStageTok-token stage.
+// each folding kTokPerGroup tokens of every kStageTok-token stage. A stage
+// holds 2 x 1,024 elements at every D (D = 16: 128 tokens, D = 32: 64), and
+// a token's other lane of the pair sits kLanes / 2 lanes away, so at least 2
+// lanes a token.
 template <int D>
 struct Fold {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head_dim 16, 32, 64 or 128");
   static constexpr int kLanes = D / kVec;
   static constexpr int kGroups = kThreads / kLanes;
   static constexpr int kTokPerGroup = 2;
@@ -484,8 +496,8 @@ __device__ __forceinline__ void finish_split(unsigned char* smem, const Epi& epi
 }
 
 // ---------------------------------------------------------------------------
-// One work item: split `split` of query row `row` (KV group `kvh`) over
-// page_list[0 .. ceil(seq_len / bt)).
+// One work item: split `split` of query row `row` (KV head `kvh`; virtual
+// head blockIdx.z of it) over page_list[0 .. ceil(seq_len / bt)).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D, int G, typename KV, typename Epi>
@@ -523,6 +535,10 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   const int ntok = min(seq_len - page0 * bt, spp * bt);
   const int nstages = (ntok + F::kStageTok - 1) / F::kStageTok;
   const int row_stride = KVH * D;  // elements from one token's row to the next
+  // The virtual KV head this CTA folds, and how many the launch has: q, the
+  // outputs, the scratch and the tickets are indexed by them.
+  const int vkvh = kvh * gridDim.z + blockIdx.z;
+  const int vheads = KVH * gridDim.z;
 
   // The producer's copies: copy k of this thread moves 16-byte chunk col_k
   // of ring row r_k, whose token st * kStageTok + r_k sits at offset po[k] of
@@ -581,7 +597,7 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   float qr[G][kVec], acc[G][kVec], m_own[kHeld], l_own[kHeld];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qrow = q + (static_cast<int64_t>(row) * H + kvh * G + g) * D + gl * kVec;
+    const T* qrow = q + (static_cast<int64_t>(row) * H + vkvh * G + g) * D + gl * kVec;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       qr[g][e] = its::to_f32(qrow[e]);
@@ -700,12 +716,13 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
   }
   __syncthreads();
-  finish_split<D, G, F::kGroups>(smem, epi, scratch, tickets, row, kvh, split, nsplit, H, KVH,
-                                 splits);
+  finish_split<D, G, F::kGroups>(smem, epi, scratch, tickets, row, vkvh, split, nsplit, H,
+                                 vheads, splits);
 }
 
-// Rows of a batched block table (K3, K5): grid (splits x KVH, B). Row b
-// attends over tables[b, :], its seq_len clamped to the table's max_blocks * bt.
+// Rows of a batched block table (K3, K5): grid (splits x KVH, B, virtual
+// heads a KV head). Row b attends over tables[b, :], its seq_len clamped to
+// the table's max_blocks * bt.
 // Registers cap the CTAs an SM holds: 3 up to G = 4, 2 at G = 8 (128 floats
 // of q and acc a thread).
 template <typename T, int D, int G, typename KV, typename Epi>
@@ -721,7 +738,8 @@ paged_decode(const T* __restrict__ q, KV kv, const int32_t* __restrict__ tables,
                         bt, num_blocks, splits, scale);
 }
 
-// Rows of a ragged wave (K6, K7): grid (splits x KVH, R). Row r's pages are
+// Rows of a ragged wave (K6, K7): grid (splits x KVH, R, virtual heads a KV
+// head). Row r's pages are
 // pages[page_starts[r] + j], clamped to the pages the row owns in the flat
 // list (up to the next row's start, or P for the last row) and to the
 // launch's table width.
@@ -755,23 +773,25 @@ struct Shape {
   cudaStream_t stream;
 };
 
-// Launches a decode kernel (K3, K5-K8) over (splits x KVH, rows) CTAs of
-// kThreads threads and `smem` bytes of dynamic shared memory.
+// Launches a decode kernel (K3, K5-K8) over (splits x KVH, rows, rep) CTAs of
+// kThreads threads and `smem` bytes of dynamic shared memory, rep the
+// virtual KV heads a KV head: H / KVH / G for the instantiation's group G.
 template <typename... Params, typename... Args>
-int launch_split_kernel(void (*kernel)(Params...), int smem, const Shape& s, Args... args) {
+int launch_split_kernel(void (*kernel)(Params...), int smem, const Shape& s, int rep,
+                        Args... args) {
   if (smem > 40 * 1024) {  // beside the static shared memory
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(s.splits * s.KVH, s.rows), kThreads, smem, s.stream>>>(args...);
+  kernel<<<dim3(s.splits * s.KVH, s.rows, rep), kThreads, smem, s.stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The split scratch of a launch: per (row, KV head, split, query head) an f32
-// partial acc [D], then all the (m, l) pairs: rows * splits * H * (D + 2)
-// floats. `tickets`: rows * KVH * splits int32 zeros, left zero by every
-// launch.
+// The split scratch of a launch: per (row, virtual KV head, split, query
+// head of it) an f32 partial acc [D], then all the (m, l) pairs: rows *
+// splits * H * (D + 2) floats. `tickets`: rows * (H / G) * splits int32
+// zeros, left zero by every launch.
 template <typename T, int D, int G, bool kRagged, typename KV, typename Epi>
 int launch(const T* q, const KV& kv, const int32_t* index, const int32_t* starts,
            const int32_t* seq_lens, const Epi& epi, float* scratch, int* tickets,
@@ -779,14 +799,15 @@ int launch(const T* q, const KV& kv, const int32_t* index, const int32_t* starts
   if (!kv.aligned()) return static_cast<int>(cudaErrorMisalignedAddress);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   constexpr int smem = Smem<D, G, KV>::kBytes;
+  const int rep = s.H / s.KVH / G;
   if constexpr (kRagged) {
-    return launch_split_kernel(paged_decode_ragged<T, D, G, KV, Epi>, smem, s, q, kv, index,
-                               starts, seq_lens, epi, scratch, tickets, s.H, s.KVH, s.bt,
+    return launch_split_kernel(paged_decode_ragged<T, D, G, KV, Epi>, smem, s, rep, q, kv,
+                               index, starts, seq_lens, epi, scratch, tickets, s.H, s.KVH, s.bt,
                                s.num_blocks, s.P, s.width, s.splits, scale);
   } else {
-    return launch_split_kernel(paged_decode<T, D, G, KV, Epi>, smem, s, q, kv, index, seq_lens,
-                               epi, scratch, tickets, s.H, s.KVH, s.bt, s.num_blocks, s.width,
-                               s.splits, scale);
+    return launch_split_kernel(paged_decode<T, D, G, KV, Epi>, smem, s, rep, q, kv, index,
+                               seq_lens, epi, scratch, tickets, s.H, s.KVH, s.bt, s.num_blocks,
+                               s.width, s.splits, scale);
   }
 }
 
@@ -798,41 +819,44 @@ struct Config {
   static constexpr int G = G_;
 };
 
+// The instantiation for a group of G query heads a KV head: Gc, the largest
+// of 8, 4, 2 and 1 that divides G (a group of G runs as G / Gc virtual KV
+// heads of Gc query heads each).
 template <typename T, int D, typename F>
 int by_group(int G, F& f) {
-  switch (G) {
-    case 1: return f(Config<T, D, 1>{});
-    case 2: return f(Config<T, D, 2>{});
-    case 4: return f(Config<T, D, 4>{});
-    case 8: return f(Config<T, D, 8>{});
+  if (G % 8 == 0) return f(Config<T, D, 8>{});
+  if (G % 4 == 0) return f(Config<T, D, 4>{});
+  if (G % 2 == 0) return f(Config<T, D, 2>{});
+  return f(Config<T, D, 1>{});
+}
+
+template <typename T, typename F>
+int by_head_dim(int D, int G, F& f) {
+  switch (D) {
+    case 16: return by_group<T, 16>(G, f);
+    case 32: return by_group<T, 32>(G, f);
+    case 64: return by_group<T, 64>(G, f);
+    case 128: return by_group<T, 128>(G, f);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Validates the shape (the scratch's split count included), then calls
-// f(Config<T, D, G>{}) for the kernels' instantiation; 0 without a launch
+// f(Config<T, D, Gc>{}) for the kernels' instantiation; 0 without a launch
 // when there are no rows.
 template <typename F>
 int dispatch(int dtype, int D, const Shape& s, F f) {
   if (s.rows <= 0) return 0;
   if (s.KVH <= 0 || s.H % s.KVH != 0 || s.bt <= 0 || s.width <= 0 || s.rows > 65535 ||
-      s.splits != grid_splits(s.width) ||
+      s.splits != grid_splits(s.width) || s.H / s.KVH > 65535 ||
       static_cast<int64_t>(s.splits) * s.KVH > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = s.H / s.KVH;
   switch (dtype) {
-    case its::kFloat32:
-      if (D == 64) return by_group<float, 64>(G, f);
-      if (D == 128) return by_group<float, 128>(G, f);
-      break;
-    case its::kBFloat16:
-      if (D == 64) return by_group<__nv_bfloat16, 64>(G, f);
-      if (D == 128) return by_group<__nv_bfloat16, 128>(G, f);
-      break;
-    default:
-      break;
+    case its::kFloat32: return by_head_dim<float>(D, G, f);
+    case its::kBFloat16: return by_head_dim<__nv_bfloat16>(D, G, f);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

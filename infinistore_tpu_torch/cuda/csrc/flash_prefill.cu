@@ -5,8 +5,8 @@
 //
 // Replaces infinistore_tpu/tpu/flash_prefill.py:_flash_prefill_pallas (bodies
 // _flash_kernel and _flash_update) for f32 inputs:
-//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H) -> out [B, S, H, D]
-// in f32. Dots are full-precision f32 FMAs; softmax statistics are f32.
+//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H; D 16, 32, 64 or 128)
+//   -> out [B, S, H, D] in f32. Dots are full-precision f32 FMAs; softmax statistics are f32.
 // Causal masking is by global position and needs S == T (the wrapper checks).
 //
 // Bound: operations. Causal attention does 2 dots of 2*D flops over about
@@ -18,7 +18,7 @@
 // Q, K and V tiles sit in shared memory (Q and K rows padded by one word so
 // that threads reading different rows hit distinct banks); each thread
 // computes a 4 x 4 patch of the 64 x 64 logit tile and a 4 x (D/16) patch
-// of the output accumulator, kept in registers. Key tiles stop at the causal
+// of the output accumulator (4 x 1 at D = 16), kept in registers. Key tiles stop at the causal
 // diagonal, so tiles above it are never read. A ragged last tile is handled
 // by bounds checks, not by a dividing tile size. Heavy (late) query tiles
 // are scheduled first. Left on the table: shared-memory bandwidth (each
@@ -229,6 +229,8 @@ extern "C" int its_flash_prefill(const void* q, const void* k, const void* v, vo
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

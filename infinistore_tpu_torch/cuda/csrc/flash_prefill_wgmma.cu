@@ -2,7 +2,7 @@
 //
 // Replaces infinistore_tpu/tpu/flash_prefill.py:_flash_prefill_pallas (bodies
 // _flash_kernel and _flash_update) for bf16 inputs:
-//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H, D 64 or 128)
+//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H; D 16, 32, 64 or 128)
 //   -> out [B, S, H, D] in bf16.
 // Q.K^T in bf16 with f32 accumulation; logits scaled by 1/sqrt(D) in f32;
 // f32 online-softmax statistics with m starting at -1e30; the probabilities
@@ -49,10 +49,15 @@
 // per 128 x 128 block of work, some 7 TB/s across the card at the
 // tensor-core rate), and the diagonal tile computes its masked half.
 //
-// Layout: every tile is 128-byte swizzled (TMA's CU_TENSOR_MAP_SWIZZLE_128B,
-// wgmma's layout type 1). A 128-byte span holds 64 bf16, so a D = 128 row is
+// Layout: every tile is swizzled at its row's span, min(2 D, 128) bytes: D
+// = 64 and 128 at 128 B (TMA's CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout
+// type 1), D = 32 at 64 B (SWIZZLE_64B, type 2), D = 16 at 32 B
+// (SWIZZLE_32B, type 3). A 128-byte span holds 64 bf16, so a D = 128 row is
 // two 64-column boxes, each a [rows, 128 B] block, and the descriptors step
-// across them. The tensor maps are 4-D over [B, S, H, D] and [B, T, KVH, D],
+// across them; at D <= 64 a row is one box. QK takes D / 16 k-steps of 32
+// bytes (1 at D = 16, 2 at D = 32), and PV is m64nDk16 (n16 and n32 at the
+// small head_dims) with V MN-major through the transpose-B form, each k-step
+// 16 rows of V; O takes D / 2 registers a thread. The tensor maps are 4-D over [B, S, H, D] and [B, T, KVH, D],
 // so TMA fills rows past S or T with zeros inside each batch instead of
 // reading the next batch's rows. Within a query tile, consecutive items are
 // adjacent heads, so the query heads of one KV head read its tiles from L2.
@@ -79,12 +84,16 @@ constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
 // it (at launch all three have 168).
 constexpr int kConsumerRegs = 232;
 constexpr int kProducerRegs = 40;
-constexpr int kSpan = 128;      // bytes of one swizzled row: 64 bf16
-constexpr int kSwizzleAtom = 8 * kSpan;  // 8 rows: the swizzle pattern's period
 
 template <int D>
 struct Smem {
-  static constexpr int kBoxes = D / 64;          // 64-column boxes per row
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head_dim 16, 32, 64 or 128");
+  static constexpr int kSpan = D >= 64 ? 128 : 2 * D;  // bytes of one swizzled box row
+  static constexpr int kBoxCols = kSpan / 2;           // bf16 columns of a box
+  static constexpr int kSwizzleAtom = 8 * kSpan;       // 8 rows: the swizzle pattern's period
+  // wgmma's descriptor layout type for the span: 128 B -> 1, 64 B -> 2, 32 B -> 3.
+  static constexpr uint64_t kLayout = kSpan == 128 ? 1 : kSpan == 64 ? 2 : 3;
+  static constexpr int kBoxes = D / kBoxCols;      // boxes per row
   static constexpr int kQBox = kBQ * kSpan;      // one box of the Q tile
   static constexpr int kKVBox = kBK * kSpan;     // one box of a K or V tile
   static constexpr int kQBytes = kBoxes * kQBox;
@@ -144,12 +153,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor of a swizzled tile (layout type 1, 2 or 3:
+// 128-, 64- or 32-byte swizzle): start address, leading and stride byte
+// offsets, all in 16-byte units.
+template <uint64_t kLayout>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -235,6 +246,25 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n32_tb(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n16_tb(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // Named barriers 1 and 2: a warpgroup's turn to issue its products.
 __device__ __forceinline__ void turn_wait(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
@@ -243,15 +273,18 @@ __device__ __forceinline__ void turn_pass(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
-// S = Q . K^T over D in steps of 16: 32 bytes within a 128-byte box, box kk / 4.
+// S = Q . K^T over D in steps of 16: 32 bytes within a box's span, box kk /
+// (span / 32).
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows, uint32_t k_tile) {
+  using L = Smem<D>;
+  constexpr int kSteps = L::kSpan / 32;  // k-steps a box
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * Smem<D>::kQBox + (kk % 4) * 32;
-    const uint32_t koff = (kk / 4) * Smem<D>::kKVBox + (kk % 4) * 32;
-    wgmma_ss_m64n128(sc, sw128_desc(q_rows + off, 16, kSwizzleAtom),
-                     sw128_desc(k_tile + koff, 16, kSwizzleAtom), kk > 0);
+    const uint32_t off = (kk / kSteps) * L::kQBox + (kk % kSteps) * 32;
+    const uint32_t koff = (kk / kSteps) * L::kKVBox + (kk % kSteps) * 32;
+    wgmma_ss_m64n128(sc, sw_desc<L::kLayout>(q_rows + off, 16, L::kSwizzleAtom),
+                     sw_desc<L::kLayout>(k_tile + koff, 16, L::kSwizzleAtom), kk > 0);
   }
 }
 
@@ -260,14 +293,20 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows, uint3
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[32],
                                          uint32_t v_tile) {
+  using L = Smem<D>;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
     const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-    const uint64_t desc = sw128_desc(v_tile + kk * 16 * kSpan, Smem<D>::kKVBox, kSwizzleAtom);
+    const uint64_t desc =
+        sw_desc<L::kLayout>(v_tile + kk * 16 * L::kSpan, L::kKVBox, L::kSwizzleAtom);
     if constexpr (D == 128) {
       wgmma_rs_m64n128_tb(o, a, desc);
-    } else {
+    } else if constexpr (D == 64) {
       wgmma_rs_m64n64_tb(o, a, desc);
+    } else if constexpr (D == 32) {
+      wgmma_rs_m64n32_tb(o, a, desc);
+    } else {
+      wgmma_rs_m64n16_tb(o, a, desc);
     }
   }
 }
@@ -424,7 +463,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
         for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(base + x * L::kQBox, &q_map, bar_q, 64 * x, it.h, it.q0, it.b);
+          tma_load_4d(base + x * L::kQBox, &q_map, bar_q, L::kBoxCols * x, it.h, it.q0, it.b);
         for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
           const int s = g % kStages;
           if (g >= kStages) mbar_wait(bar_empty + 8 * s, (g / kStages - 1) & 1);
@@ -433,11 +472,13 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
           mbar_expect_tx(bar_k + 8 * s, L::kKVBytes);
 #pragma unroll
           for (int x = 0; x < L::kBoxes; ++x)
-            tma_load_4d(k_dst + x * L::kKVBox, &k_map, bar_k + 8 * s, 64 * x, kvh, kt * kBK, it.b);
+            tma_load_4d(k_dst + x * L::kKVBox, &k_map, bar_k + 8 * s, L::kBoxCols * x, kvh,
+                        kt * kBK, it.b);
           mbar_expect_tx(bar_v + 8 * s, L::kKVBytes);
 #pragma unroll
           for (int x = 0; x < L::kBoxes; ++x)
-            tma_load_4d(v_dst + x * L::kKVBox, &v_map, bar_v + 8 * s, 64 * x, kvh, kt * kBK, it.b);
+            tma_load_4d(v_dst + x * L::kKVBox, &v_map, bar_v + 8 * s, L::kBoxCols * x, kvh,
+                        kt * kBK, it.b);
         }
       }
     }
@@ -452,7 +493,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
   // r0 + 8 * ((i / 2) % 2), column c0 + 8 * (i / 4) + i % 2.
   const int r0 = 64 * cw + 16 * (tid / 32) + lane / 4;  // row within the query tile
   const int c0 = 2 * (lane % 4);
-  const uint32_t q_rows = base + cw * 64 * kSpan;
+  const uint32_t q_rows = base + cw * 64 * L::kSpan;
   const int my_turn = 1 + cw, other_turn = 2 - cw;
   constexpr int kOut = D / 2;  // O registers per thread
   float o[kOut];
@@ -602,19 +643,25 @@ EncodeTiled encoder() {
 }
 
 // A 4-D map over a contiguous bf16 [batch, rows, heads, D] tensor; one box is
-// 64 columns of one head over `box_rows` rows, 128-byte swizzled. Rows past
-// `rows` read as zeros. Returns 0 or the driver's CUresult.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int rows, int heads, int D,
+// Smem<D>::kBoxCols columns of one head over `box_rows` rows, swizzled at
+// its span (128, 64 or 32 bytes). Rows past `rows` read as zeros. Returns 0
+// or the CUresult of cuTensorMapEncodeTiled.
+template <int D>
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int rows, int heads,
            int box_rows) {
+  using L = Smem<D>;
+  constexpr CUtensorMapSwizzle swizzle = L::kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : L::kSpan == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
   const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * rows};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[4] = {L::kBoxCols, 1, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
@@ -624,9 +671,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap q_map, k_map, v_map;
-  int res = encode(fn, &q_map, q, B, S, H, D, kBQ);
-  if (res == 0) res = encode(fn, &k_map, k, B, T, KVH, D, kBK);
-  if (res == 0) res = encode(fn, &v_map, v, B, T, KVH, D, kBK);
+  int res = encode<D>(fn, &q_map, q, B, S, H, kBQ);
+  if (res == 0) res = encode<D>(fn, &k_map, k, B, T, KVH, kBK);
+  if (res == 0) res = encode<D>(fn, &v_map, v, B, T, KVH, kBK);
   if (res != 0) return -res;  // a failed encode: minus the driver's CUresult
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -663,6 +710,8 @@ extern "C" int its_flash_prefill_wgmma(const void* q, const void* k, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

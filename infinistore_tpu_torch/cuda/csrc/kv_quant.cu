@@ -26,9 +26,11 @@
 // each byte with a quarter-rate int-to-float:
 //   1. Loads: a lane owns kVec = 16 int8 elements of a token's head row, one
 //      16-byte read from the ring (8 at G = 8, which keeps q and acc at 128
-//      floats a thread). At D = 128 a token sits on 8 lanes and a warp folds
-//      4 tokens a step; a 32-token stage carries 8 KiB of K and V, as many
-//      bytes as K3's bf16 stage, so a split takes half K3's stages.
+//      floats a thread, and at D = 16, which keeps 2 lanes a token). At D =
+//      128 a token sits on 8 lanes and a warp folds 4 tokens a step; a
+//      32-token stage carries 8 KiB of K and V, as many bytes as K3's bf16
+//      stage, so a split takes half K3's stages. At D = 16 and 32 a stage is
+//      64 to 128 tokens, whose scales take two copies a thread.
 //   2. Conversion: each byte becomes an exact f32 in two full-rate
 //      instructions: the byte, biased by 128, is permuted into the low byte
 //      of 2^23's bits, and one subtraction of 2^23 + 128 leaves its value.
@@ -51,6 +53,8 @@
 // its sharing run as in decode_fold.cuh, through a 4-stage cp.async ring
 // (rows past seq_len and pages outside [0, N) are zero-filled and masked).
 // f32 q stays on f32 FMAs; tensor cores are not used.
+// Shapes taken: those of decode_fold.cuh (head_dim 16, 32, 64 or 128; any
+// group, as virtual KV heads of Gc query heads).
 
 #include "decode_fold.cuh"
 
@@ -62,7 +66,7 @@ namespace {
 // K scales and V scales.
 template <int D, int G>
 struct Q8Fold {
-  static constexpr int kVec = G <= 4 ? 16 : 8;
+  static constexpr int kVec = G <= 4 && D >= 32 ? 16 : 8;
   static constexpr int kLanes = D / kVec;
   static constexpr int kGroups = kThreads / kLanes;
   static constexpr int kTokPerGroup = 2;
@@ -70,6 +74,8 @@ struct Q8Fold {
   static constexpr int kStages = 4;
   static constexpr int kSideBytes = kStageTok * D;
   static constexpr int kStageBytes = 2 * kSideBytes + 2 * kStageTok * 4;
+  // The stage's K and V scales, one f32 copy each, kThreads a round.
+  static constexpr int kScaleCopies = (2 * kStageTok + kThreads - 1) / kThreads;
   static constexpr int kRingBytes = kStages * kStageBytes;
   static constexpr int kMergeBytes = (kGroups * G * (D + 2) + 2 * G) * 4;
   static constexpr int kBytes = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
@@ -117,8 +123,8 @@ __device__ __forceinline__ void widen_s8(const int8_t* p, float (&x)[N]) {
   }
 }
 
-// One work item: split `split` of row `row` (KV head `kvh`) over
-// table[0 .. ceil(seq_len / bt)).
+// One work item: split `split` of row `row` (KV head `kvh`; virtual head
+// blockIdx.z of it) over table[0 .. ceil(seq_len / bt)).
 template <typename T, int D, int G>
 __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8Pages& kv,
                                             const int32_t* __restrict__ table, int seq_len,
@@ -130,8 +136,9 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
   constexpr int kVec = F::kVec;
   constexpr int kChunks = D / 16;  // 16-byte chunks of a head row
   constexpr int kCopies = 2 * F::kStageTok * kChunks / kThreads;
+  constexpr int kAll = kCopies + F::kScaleCopies;
   static_assert(2 * F::kStageTok * kChunks % kThreads == 0, "a stage splits evenly");
-  static_assert(2 * F::kStageTok <= kThreads, "one scale copy per thread");
+  static_assert(F::kLanes >= 2, "a token's pair of lanes");
 
   const int npages = (seq_len + bt - 1) / bt;
   const int spp = split_pages(npages);
@@ -153,16 +160,21 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
   const int ntok = min(seq_len - page0 * bt, spp * bt);
   const int nstages = (ntok + F::kStageTok - 1) / F::kStageTok;
   const int row_stride = KVH * D;  // elements from one token's row to the next
+  // The virtual KV head this CTA folds, and how many the launch has
+  // (decode_fold.cuh: attend_split).
+  const int vkvh = kvh * gridDim.z + blockIdx.z;
+  const int vheads = KVH * gridDim.z;
 
   // The producer's copies: copy k of this thread moves 16-byte chunk col_k of
-  // ring row r_k (copy kCopies: the f32 scale of ring row tid % kStageTok of
-  // side tid / kStageTok), whose token sits at offset po[k] of the split's
-  // page pi[k]; the position advances by a stage without a division.
-  int pi[kCopies + 1], po[kCopies + 1];
+  // ring row r_k (copies kCopies and on: the f32 scale t = tid + (k -
+  // kCopies) x kThreads of the stage, ring row t % kStageTok of side t /
+  // kStageTok), whose token sits at offset po[k] of the split's page pi[k];
+  // the position advances by a stage without a division.
+  int pi[kAll], po[kAll];
 #pragma unroll
-  for (int k = 0; k <= kCopies; ++k) {
+  for (int k = 0; k < kAll; ++k) {
     const int r = k < kCopies ? ((tid + k * kThreads) / kChunks) % F::kStageTok
-                              : tid % F::kStageTok;
+                              : (tid + (k - kCopies) * kThreads) % F::kStageTok;
     pi[k] = r / bt;
     po[k] = r % bt;
   }
@@ -172,10 +184,11 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
     unsigned char* slot = smem + (st % F::kStages) * F::kStageBytes;
     const int tok0 = st * F::kStageTok;
 #pragma unroll
-    for (int k = 0; k <= kCopies; ++k) {
+    for (int k = 0; k < kAll; ++k) {
       const int c = tid + k * kThreads;
-      const int side = k < kCopies ? c / (F::kStageTok * kChunks) : tid / F::kStageTok;
-      const int r = k < kCopies ? (c / kChunks) % F::kStageTok : tid % F::kStageTok;
+      const int t = tid + (k - kCopies) * kThreads;  // a scale copy's index in the stage
+      const int side = k < kCopies ? c / (F::kStageTok * kChunks) : t / F::kStageTok;
+      const int r = k < kCopies ? (c / kChunks) % F::kStageTok : t % F::kStageTok;
       const int64_t base = tok0 + r < ntok ? sm_base[pi[k]] : -1;
       const int64_t at = base + static_cast<int64_t>(po[k]) * row_stride;
       if (k < kCopies) {
@@ -183,9 +196,9 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
         const int8_t* src = base >= 0 ? kv.data(side) + at + col * 16 : kv.data(side);
         cp_async16(slot + side * F::kSideBytes + r * D + col * 16, src, base >= 0);
         if (side == 0 && col == 0) sm_ok[st % F::kStages][r] = base >= 0;
-      } else if (tid < 2 * F::kStageTok) {
+      } else if (t < 2 * F::kStageTok) {
         const float* src = base >= 0 ? kv.scales(side) + at / D : kv.scales(side);
-        cp_async4(slot + 2 * F::kSideBytes + tid * 4, src, base >= 0);
+        cp_async4(slot + 2 * F::kSideBytes + t * 4, src, base >= 0);
       }
       po[k] += F::kStageTok;
       while (po[k] >= bt) {
@@ -214,7 +227,7 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
   float qr[G][kVec], acc[G][kVec], m_own[kHeld], l_own[kHeld];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qrow = q + (static_cast<int64_t>(row) * H + kvh * G + g) * D + gl * kVec;
+    const T* qrow = q + (static_cast<int64_t>(row) * H + vkvh * G + g) * D + gl * kVec;
 #pragma unroll
     for (int c = 0; c < kVec / 8; ++c) {
       float part[8];
@@ -328,12 +341,12 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
     for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
   }
   __syncthreads();
-  finish_split<D, G, F::kGroups>(smem, epi, scratch, tickets, row, kvh, split, nsplit, H, KVH,
-                                 splits);
+  finish_split<D, G, F::kGroups>(smem, epi, scratch, tickets, row, vkvh, split, nsplit, H,
+                                 vheads, splits);
 }
 
-// Grid (splits x KVH, B): row b attends over tables[b, :], its seq_len
-// clamped to the table's max_blocks * bt.
+// Grid (splits x KVH, B, virtual heads a KV head): row b attends over
+// tables[b, :], its seq_len clamped to the table's max_blocks * bt.
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads, Q8Fold<D, G>::kMinBlocks)
 quant_decode(const T* __restrict__ q, Int8Pages kv, const int32_t* __restrict__ tables,
@@ -368,7 +381,7 @@ extern "C" int its_paged_decode_attention_quantized(
     constexpr int kG = decltype(c)::G;
     const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
     return launch_split_kernel(quant_decode<T, kD, kG>, Q8Fold<kD, kG>::kBytes, s,
-                               static_cast<const T*>(q), kv, tables, seq_lens,
+                               s.H / s.KVH / kG, static_cast<const T*>(q), kv, tables, seq_lens,
                                Normalize<T>{static_cast<T*>(out)}, scratch, tickets, s.H, s.KVH,
                                s.bt, s.num_blocks, s.width, s.splits, scale);
   });

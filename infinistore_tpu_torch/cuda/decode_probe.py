@@ -178,7 +178,7 @@ def _host_parts(torch, tm):
     stream = _ext.stream_of(q)
     splits = _ext.decode_splits(width)
     floats = rows * splits * H * (D + 2)
-    scratch, tickets, _ = pa._split_scratch(q, KVH, width, stream)
+    scratch, tickets, _ = pa._split_scratch(q, width, stream)
     out = torch.empty_like(q)
     lib = _ext.kernels()
     parts = {
@@ -189,7 +189,7 @@ def _host_parts(torch, tm):
                            pa._check_table_args("k3", q, tables, lens)),
         "require_aligned": lambda: _ext.require_aligned("k3", k=k, v=v),
         "stream_of": lambda: _ext.stream_of(q),
-        "split_scratch": lambda: pa._split_scratch(q, KVH, width, stream),
+        "split_scratch": lambda: pa._split_scratch(q, width, stream),
         "torch_empty_scratch": lambda: torch.empty(floats, dtype=torch.float32, device="cuda"),
         "empty_like_out": lambda: torch.empty_like(q),
         "entry_call": lambda: lib.its_paged_decode_attention(

@@ -96,7 +96,7 @@ def _quant_decode_cuda(q, k_data, k_scales, v_data, v_scales, block_tables, seq_
     n, bt, kvh, _ = k_data.shape
     width = block_tables.shape[1]
     stream = _ext.stream_of(q)
-    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
+    scratch, tickets, splits = _split_scratch(q, width, stream)
     out = torch.empty_like(q)
     with _ext.on_device(q.device):
         code = _ext.kernels().its_paged_decode_attention_quantized(

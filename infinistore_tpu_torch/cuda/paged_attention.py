@@ -95,7 +95,7 @@ def _normalize(acc, l, dtype):
 
 
 def _check_decode_args(name, q, k_cache, v_cache, same_dtype=True):
-    """The shape contract K3, K5, K6 and K7 share (K8 checks its own)."""
+    """The shape contract K3, K5, K6 and K7 share (K8 adds its own)."""
     _, h, d = q.shape
     _, _, kvh, dk = k_cache.shape
     if tuple(v_cache.shape) != tuple(k_cache.shape) or dk != d:
@@ -103,10 +103,10 @@ def _check_decode_args(name, q, k_cache, v_cache, same_dtype=True):
                          f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
     if same_dtype and (k_cache.dtype != q.dtype or v_cache.dtype != q.dtype):
         raise TypeError(f"{name}: q and caches must share a dtype")
-    if h % kvh or h // kvh not in (1, 2, 4, 8) or d not in (64, 128):
+    if h % kvh or d not in _ext.HEAD_DIMS:
         raise ValueError(
-            f"{name}: kernel takes head_dim 64 or 128 and 1, 2, 4 or 8 query "
-            f"heads per KV head; got head_dim {d}, {h} heads, {kvh} KV heads"
+            f"{name}: kernel takes head_dim 16, 32, 64 or 128 and KV heads dividing "
+            f"the query heads; got head_dim {d}, {h} heads, {kvh} KV heads"
         )
 
 
@@ -139,17 +139,19 @@ def _ragged_width(name, table_width, p: int) -> int:
     return min(int(table_width), p)
 
 
-def _split_scratch(q, kvh: int, width: int, stream: int):
+def _split_scratch(q, width: int, stream: int):
     """(scratch, tickets, splits) of one decode launch over tables ``width``
     pages wide, from shapes alone: the library's split count of the width,
     and the stream's workspace, at least f32 partials for every (row, split,
-    query head), acc [D] and (m, l), and a ticket counter per (row, KV head,
-    split): a row of many splits merges in a tree, one counter per group of
-    splits."""
+    query head), acc [D] and (m, l), and a ticket counter per (row, query
+    head, split): the kernels take one per (row, virtual KV head, split), a
+    virtual KV head being one to eight query heads as the library picks
+    (``csrc/decode_fold.cuh``: ``by_group``), and a row of many splits merges
+    in a tree, one counter per group of splits."""
     rows, h, d = q.shape
     splits = _ext.decode_splits(width)
     scratch, tickets = _ext.split_workspace(q.device, stream, rows * splits * h * (d + 2),
-                                            rows * kvh * splits)
+                                            rows * h * splits)
     return scratch, tickets, splits
 
 
@@ -174,7 +176,7 @@ def _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens):
     n, bt, kvh, _ = k_cache.shape
     width = block_tables.shape[1]
     stream = _ext.stream_of(q)
-    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
+    scratch, tickets, splits = _split_scratch(q, width, stream)
     out = torch.empty_like(q)
     with _ext.on_device(q.device):
         code = _ext.kernels().its_paged_decode_attention(
@@ -354,7 +356,7 @@ def _paged_decode_attention_ragged_cuda(q, k_cache, v_cache, pages, page_rows,
     r, h, d = q.shape
     n, bt, kvh, _ = k_cache.shape
     stream = _ext.stream_of(q)
-    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
+    scratch, tickets, splits = _split_scratch(q, width, stream)
     out = torch.empty_like(q)
     with _ext.on_device(q.device):
         code = _ext.kernels().its_paged_decode_attention_ragged(
@@ -424,7 +426,7 @@ def _decode_attention_stats_cuda(q, k_cache, v_cache, block_tables, seq_lens):
     n, bt, kvh, _ = k_cache.shape
     width = block_tables.shape[1]
     stream = _ext.stream_of(q)
-    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
+    scratch, tickets, splits = _split_scratch(q, width, stream)
     acc, m, l = _stats_outputs(q)
     with _ext.on_device(q.device):
         code = _ext.kernels().its_paged_decode_attention_stats(
@@ -460,7 +462,7 @@ def _decode_attention_stats_ragged_cuda(q, k_cache, v_cache, pages, page_rows, p
     r, h, d = q.shape
     n, bt, kvh, _ = k_cache.shape
     stream = _ext.stream_of(q)
-    scratch, tickets, splits = _split_scratch(q, kvh, width, stream)
+    scratch, tickets, splits = _split_scratch(q, width, stream)
     acc, m, l = _stats_outputs(q)
     with _ext.on_device(q.device):
         code = _ext.kernels().its_paged_decode_attention_ragged_stats(

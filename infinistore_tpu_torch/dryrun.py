@@ -28,11 +28,10 @@ legs in its order, each checked as the dryrun checks it:
    CPU), shard 0 to shard n - 1: exactly 1 launch (one K1, one copy, one K2
    on cards) and the blocks byte-equal.
 
-Where the port departs from the dryrun's shapes: the decode legs (5, 6) use
-head_dim 64, not 16, on every device, because K5 and K7 take head_dim 64 or
-128. Seeds: the dryrun's numpy seeds where it draws with numpy (17, 19), a
-``torch.Generator`` with the dryrun's integer seed where it draws with
-``jax.random`` (0, 1, 3, 4, 5).
+The decode legs (5, 6) run the dryrun's own shapes (head_dim 16, 4 query
+heads over 2 KV heads, 4-token blocks) and its numpy draws (seeds 17 and 19,
+``decode_draws``); elsewhere a ``torch.Generator`` takes the dryrun's
+integer seed where it draws with ``jax.random`` (0, 1, 3, 4, 5).
 
     python -m infinistore_tpu_torch.dryrun --n 8 --device cpu
 
@@ -58,9 +57,9 @@ from .cuda import _ext
 HERE = os.path.dirname(os.path.abspath(__file__))
 RANK_TIMEOUT_S = 600.0
 TOL = 1e-4
-# Decode legs: local blocks a shard, block tokens, KV heads, head_dim (the
-# dryrun's 16 -> 64, which the kernels take), query heads, table width.
-NB_LOCAL, BT, KVH, D, H, N_LOC = 4, 4, 2, 64, 4, 3
+# Decode legs: local blocks a shard, block tokens, KV heads, head_dim, query
+# heads, table width (the dryrun's own).
+NB_LOCAL, BT, KVH, D, H, N_LOC = 4, 4, 2, 16, 4, 3
 RAGGED_ROWS = 3
 
 
@@ -162,11 +161,15 @@ def _attend_f64(q, k, v):
     return np.einsum("ht,thd->hd", p, v)
 
 
-def _decode_legs(rank, n, dev):
-    """The sharded and ragged sharded decode against their float64 oracles;
-    the errors are the worst rank's."""
-    from .cuda import paged_attention as pa
-
+def decode_draws(n: int, empty_last_shard: bool = True) -> dict:
+    """The decode legs' inputs, the dryrun's own numpy draws: the sharded
+    leg's from seed 17 (caches ``spk``/``spv`` [n * NB_LOCAL, BT, KVH, D],
+    ``spq`` [H, D], a table and a length a shard), the ragged leg's from
+    seed 19 (``rgq`` [RAGGED_ROWS, H, D], a table a shard and row, the
+    skewed lengths ``rg_lens`` [n, RAGGED_ROWS]). With ``empty_last_shard``
+    (and n > 1) the last shard's length is 0, the empty shard the dryrun's
+    comment promises; without it the lengths are the draws as they fall, as
+    the dryrun runs them."""
     rng = np.random.default_rng(17)
     spk, spv = (rng.standard_normal((n * NB_LOCAL, BT, KVH, D)).astype(np.float32)
                 for _ in range(2))
@@ -174,21 +177,8 @@ def _decode_legs(rank, n, dev):
     tables = np.stack([rng.permutation(NB_LOCAL)[:N_LOC] for _ in range(n)]).astype(np.int32)
     lens = rng.integers(0, N_LOC * BT + 1, size=n).astype(np.int32)
     lens[0] = max(lens[0], 1)  # at least one token globally
-    if n > 1:
-        lens[-1] = 0  # an empty shard
-    shard = slice(rank * NB_LOCAL, (rank + 1) * NB_LOCAL)
-    k_loc, v_loc = (torch.from_numpy(x[shard].copy()).to(dev) for x in (spk, spv))
-    out = pa.paged_decode_attention_sharded(torch.from_numpy(spq).to(dev), k_loc, v_loc,
-                                            tables[rank], int(lens[rank]))
-
-    def context(cache, row_tables, row_lens):
-        return np.concatenate([cache[p * NB_LOCAL + np.asarray(row_tables[p])]
-                               .reshape(-1, KVH, D)[:row_lens[p]] for p in range(n)])
-
-    want = _attend_f64(spq, context(spk, tables, lens), context(spv, tables, lens))
-    sp_err = _all_max(float(np.abs(out.cpu().double().numpy() - want).max()), dev)
-    if not sp_err < TOL:
-        raise AssertionError(f"sharded decode attention diverged from dense: {sp_err}")
+    if n > 1 and empty_last_shard:
+        lens[-1] = 0
 
     rng = np.random.default_rng(19)
     rgq = rng.standard_normal((RAGGED_ROWS, H, D)).astype(np.float32)
@@ -201,16 +191,52 @@ def _decode_legs(rank, n, dev):
     rg_lens[:, 1] = rng.integers(0, 3, size=n)
     rg_lens[0, 1] = max(rg_lens[0, 1], 1)
     rg_lens[n // 2, 2] = 5
-    pages, rows, starts, slens, width = pa.build_ragged_wave_sharded(rg_tables, rg_lens, BT)
+    return dict(spk=spk, spv=spv, spq=spq, tables=tables, lens=lens, rgq=rgq,
+                rg_tables=rg_tables, rg_lens=rg_lens)
+
+
+def decode_outputs(rank: int, n: int, dev, draws: dict):
+    """This rank's run of the two decode legs on ``draws``: the sharded
+    decode ([H, D]) and the ragged sharded decode ([RAGGED_ROWS, H, D]),
+    both combined over the process group (so the same on every rank), as
+    f32 numpy arrays. The rank holds shard ``rank`` of the caches."""
+    from .cuda import paged_attention as pa
+
+    shard = slice(rank * NB_LOCAL, (rank + 1) * NB_LOCAL)
+    k_loc, v_loc = (torch.from_numpy(draws[x][shard].copy()).to(dev) for x in ("spk", "spv"))
+    out = pa.paged_decode_attention_sharded(torch.from_numpy(draws["spq"]).to(dev), k_loc, v_loc,
+                                            draws["tables"][rank], int(draws["lens"][rank]))
+    pages, rows, starts, slens, width = pa.build_ragged_wave_sharded(draws["rg_tables"],
+                                                                     draws["rg_lens"], BT)
     rg_out = pa.paged_decode_attention_ragged_sharded(
-        torch.from_numpy(rgq).to(dev), k_loc, v_loc, pages[rank], rows[rank], starts[rank],
-        slens[rank], table_width=width).cpu().double().numpy()
+        torch.from_numpy(draws["rgq"]).to(dev), k_loc, v_loc, pages[rank], rows[rank],
+        starts[rank], slens[rank], table_width=width)
+    return out.cpu().numpy(), rg_out.cpu().numpy()
+
+
+def _decode_legs(rank, n, dev):
+    """The sharded and ragged sharded decode against their float64 oracles;
+    the errors are the worst rank's."""
+    draws = decode_draws(n)
+    spk, spv, tables, lens = (draws[x] for x in ("spk", "spv", "tables", "lens"))
+    out, rg_out = decode_outputs(rank, n, dev, draws)
+
+    def context(cache, row_tables, row_lens):
+        return np.concatenate([cache[p * NB_LOCAL + np.asarray(row_tables[p])]
+                               .reshape(-1, KVH, D)[:row_lens[p]] for p in range(n)])
+
+    want = _attend_f64(draws["spq"], context(spk, tables, lens), context(spv, tables, lens))
+    sp_err = _all_max(float(np.abs(out.astype(np.float64) - want).max()), dev)
+    if not sp_err < TOL:
+        raise AssertionError(f"sharded decode attention diverged from dense: {sp_err}")
+
+    rg_tables, rg_lens = draws["rg_tables"], draws["rg_lens"]
     rg_err = 0.0
     for r in range(RAGGED_ROWS):
         row_tables = [rg_tables[p][r] for p in range(n)]
-        want = _attend_f64(rgq[r], context(spk, row_tables, rg_lens[:, r]),
+        want = _attend_f64(draws["rgq"][r], context(spk, row_tables, rg_lens[:, r]),
                            context(spv, row_tables, rg_lens[:, r]))
-        rg_err = max(rg_err, float(np.abs(rg_out[r] - want).max()))
+        rg_err = max(rg_err, float(np.abs(rg_out[r].astype(np.float64) - want).max()))
     rg_err = _all_max(rg_err, dev)
     if not rg_err < TOL:
         raise AssertionError(f"ragged sharded decode diverged from dense: {rg_err}")

@@ -9,7 +9,10 @@ against the port's server CLI, on the CPU.
   positive values.
 - ``--trace skewed --device cpu``: a loadgen trace replays through the
   port's continuous-batching engine with every request verified.
-- The trace leg's engine model takes the kernels' shapes.
+- The trace leg's engine model is the JAX package's, value for value (head
+  dim 16, a shape the kernels take), and on the same weights, carried
+  across with ``params_from_numpy``, one trace request's prefill and 4
+  decode steps give the JAX package's logits within 2e-4.
 """
 
 import json
@@ -117,16 +120,83 @@ def test_benchmark_cli_trace_replay_verified(cli_server):
         assert key in result, key
 
 
+def _jax_trace_model():
+    """The JAX package's trace-leg ``LlamaConfig(...)`` keywords, read from
+    its source (``infinistore_tpu/benchmark.py: _run_trace``): constants as
+    they stand, the dtype by its name."""
+    import ast
+    import inspect
+
+    from infinistore_tpu import benchmark as jbench
+
+    tree = ast.parse(inspect.getsource(jbench._run_trace))
+    call, = [node for node in ast.walk(tree) if isinstance(node, ast.Call)
+             and getattr(node.func, "id", None) == "LlamaConfig"]
+    return {kw.arg: (kw.value.attr if kw.arg == "dtype" else ast.literal_eval(kw.value))
+            for kw in call.keywords}
+
+
 def test_trace_model_takes_the_kernels_shapes():
-    """head_dim 64 and 2 query heads per KV head, shapes K3, K4 and K6 take
-    (the JAX package's trace model, head_dim 16, is one they refuse); the
-    rest of the JAX package's model is kept."""
+    """``TRACE_MODEL`` is the JAX package's trace model, value for value:
+    dim 64, 4 heads over 2 KV heads (head_dim 16, which K3, K4 and K6
+    take), ffn 128, 2 layers, block 8, vocab 128, f32."""
+    import torch
+
+    from infinistore_tpu_torch.cuda import _ext
     from infinistore_tpu_torch.models.llama import LlamaConfig
 
+    want = _jax_trace_model()
+    got = dict(benchmark.TRACE_MODEL)
+    assert got.pop("dtype") is torch.float32 and want.pop("dtype") == "float32"
+    assert got == want
     cfg = LlamaConfig(**benchmark.TRACE_MODEL)
-    assert cfg.head_dim == 64
-    assert cfg.n_heads // cfg.n_kv_heads in (1, 2, 4, 8)
-    assert (cfg.vocab, cfg.n_layers, cfg.block_tokens) == (128, 2, 8)
+    assert cfg.head_dim == 16 and cfg.head_dim in _ext.HEAD_DIMS
+
+
+def test_trace_model_logits_match_jax_on_carried_weights():
+    """The trace leg's model in both packages on the JAX package's
+    ``init_params(PRNGKey(0))`` weights, carried across with
+    ``params_from_numpy``: the first request of the skewed trace that fits
+    its table with 4 tokens to spare is prefilled, then decoded 4 greedy
+    steps, on the trace leg's 96-block cache and 8-block table. Logits agree
+    within 2e-4 (f32, the tolerance of tests/test_torch_llama.py)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from infinistore_tpu.models import llama as jl
+    from infinistore_tpu_torch import loadgen
+    from infinistore_tpu_torch.models import llama as tl
+
+    tol, steps, num_blocks, max_blocks = 2e-4, 4, 96, 8
+    shape = {k: v for k, v in benchmark.TRACE_MODEL.items() if k != "dtype"}
+    jcfg = jl.LlamaConfig(dtype=jnp.float32, **shape)
+    tcfg = tl.LlamaConfig(**benchmark.TRACE_MODEL)
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = tl.params_from_numpy({k: np.asarray(v) for k, v in jparams.items()}, tcfg,
+                                   device="cpu")
+    trace = loadgen.preset("skewed", seed=0, duration_s=0.4)
+    bt = tcfg.block_tokens
+    prompts = trace.prompts(bt, vocab=tcfg.vocab, max_blocks=max_blocks)
+    prompt = next(p for p in prompts if len(p) + steps <= max_blocks * bt)
+    table = np.arange(max_blocks, dtype=np.int32) * 11 % num_blocks  # 0, 11, 22, ...
+    n = -(-len(prompt) // bt)
+    tokens = np.asarray(prompt, np.int32)
+    jc = jcfg.kv_spec(num_blocks).make_caches()
+    tc = tcfg.kv_spec(num_blocks).make_caches(device="cpu")
+    jlog, jc = jl.prefill(jparams, jnp.asarray(tokens), jc, jnp.asarray(table[:n]), jcfg)
+    tlog, tc = tl.prefill(tparams, tokens, tc, table[:n], tcfg)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=tol, atol=tol)
+    tok = int(jnp.argmax(jlog))
+    for step in range(steps):
+        pos = len(prompt) + step
+        jlog, jc = jl.decode_step(jparams, jnp.int32(tok), jnp.int32(pos), jc,
+                                  jnp.asarray(table), jcfg, max_blocks)
+        tlog, tc = tl.decode_step(tparams, tok, pos, tc, table, tcfg, max_blocks)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=tol, atol=tol,
+                                   err_msg=f"decode step {step}")
+        tok = int(jnp.argmax(jlog))
 
 
 def test_chip_smoke_serving_cli_path_rehearsal_on_cpu():
@@ -149,6 +219,7 @@ def test_chip_smoke_serving_cli_path_rehearsal_on_cpu():
     assert summary["benchmark_store"]["verified"] is True
     assert summary["benchmark_store"]["decode_wave"]["wave_decode_requests"] == 4
     assert summary["benchmark_trace"]["verified"] is True
+    assert summary["trace_model"]["dim"] == "64"  # the JAX package's
     assert summary["fleet_verify"]["reads"] == 2
     assert summary["fleet_verify"]["wrong"] == 0
     assert summary["fleet_verify"]["misses"] == 0

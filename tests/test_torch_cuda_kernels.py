@@ -2,7 +2,8 @@
 over the edge cases the main path does not reach: unaligned blocks and
 out-of-range ids on both routes, and blocks at the TMA bulk ring's chunk
 and stage edges, over one cache and many (K1/K2), every supported
-head_dim and GQA group, padded and over-long tables, zero-length rows
+head_dim (16, 32, 64, 128) and GQA group (1, 2, 4, 8, and 3 and 7), the JAX
+package's own kernel cases, padded and over-long tables, zero-length rows
 (K3, and K6 over a ragged wave with pad pages, held bitwise against K3 row by row), ragged query tiles, full
 attention over a longer context and batch > 1 (K4: its bf16 tensor-core
 kernel at every 128-row tile edge, GQA group 1 and 4, and on inputs where
@@ -57,6 +58,12 @@ def _err(a, b):
 
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Query heads a KV head: 1, 2, 4 and 8 (the kernels' own groups), 3 and 7
+# (folded as 3 and 7 virtual KV heads of one query head each), over 4 and
+# over 2 KV heads.
+GROUP_IDS = ["g1", "g2", "g4", "g8", "g3", "g7"]
+GROUPS4 = [(4 * g, 4) for g in (1, 2, 4, 8, 3, 7)]
+GROUPS2 = [(2 * g, 2) for g in (1, 2, 4, 8, 3, 7)]
 
 
 @pytest.mark.parametrize("shape", [(40, 16, 8, 128), (33, 3, 1, 5)], ids=["vec16", "bytes"])
@@ -207,8 +214,8 @@ def test_out_of_range_ids_are_left_unwritten_on_both_routes(dev, route):
                               "scatter_blocks": 1, "scatter_blocks_bulk": bulk}
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 4), (16, 4), (32, 4)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS4, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_matches_plain(dev, d, h, kvh, dtype):
     from infinistore_tpu_torch.cuda import paged_attention as pa
@@ -249,7 +256,7 @@ def test_paged_decode_ignores_padding_and_rejects_shapes(dev):
 
 
 @pytest.mark.parametrize("s", [1, 37, 64, 100, 200])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_prefill_causal_matches_plain(dev, s, d, dtype):
     from infinistore_tpu_torch.cuda import flash_prefill as fp
@@ -290,7 +297,7 @@ def _k4_launch(fp, q, k, v, causal):
 @pytest.mark.parametrize("s", [1, 63, 64, 127, 128, 129, 1000, 1024, 2048])
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("group", [1, 4], ids=["g1", "g4"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_prefill_wgmma_causal_matches_plain(dev, s, b, group, d):
     from infinistore_tpu_torch.cuda import flash_prefill as fp
 
@@ -303,7 +310,7 @@ def test_flash_prefill_wgmma_causal_matches_plain(dev, s, b, group, d):
 
 
 @pytest.mark.parametrize("s,t", [(1, 300), (70, 150), (129, 1000), (300, 2100)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_prefill_wgmma_full_attention_matches_plain(dev, s, t, d):
     from infinistore_tpu_torch.cuda import flash_prefill as fp
 
@@ -341,7 +348,7 @@ def _rising_keys(b, s, t, h, kvh, d, dev):
 @pytest.mark.parametrize("s,t,causal", [(127, 127, True), (129, 129, True), (1000, 1000, True),
                                         (2048, 2048, True), (129, 1000, False),
                                         (300, 2100, False)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_prefill_wgmma_mask_is_exact(dev, s, t, causal, d):
     """Every query row against the key it must end on: the diagonal (causal)
     or the last key T - 1 (full attention over a ragged tail), across every
@@ -429,8 +436,8 @@ def test_layerwise_roundtrip_through_pinned_staging(dev, enable_shm):
         srv.stop()
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 4), (16, 4), (32, 4)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS4, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ragged_decode_matches_plain_and_k3_bitwise(dev, d, h, kvh, dtype):
     """K6 over a wave of zero, partial, full and over-long rows (an
@@ -575,8 +582,8 @@ def _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, tables, lens, got, plain_tabl
         assert torch.equal(solo[0], got[r]), r
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 4), (16, 4), (32, 4)], ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS4, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_decode_matches_plain_and_k3_over_the_dequantised_cache(dev, d, h, kvh,
                                                                            dtype):
@@ -604,7 +611,7 @@ def test_quantized_decode_matches_plain_and_k3_over_the_dequantised_cache(dev, d
     assert torch.all(got[0] == 0)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_stats_match_plain_and_combine_to_k3_k6_bitwise(dev, d, dtype):
     """K5 and K7 against their plain statistics (the empty row: acc 0, l 0,
@@ -725,9 +732,8 @@ def _split_case(dtype, d, h, kvh, dev, seed):
     return q, k, v, good.to(dev, torch.int32), bad.to(dev, torch.int32), lens_t
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
-                         ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_decode_k3_k6_at_split_edges(dev, d, h, kvh, dtype):
     """K3 and K6 against their plain versions around every split edge;
@@ -791,9 +797,8 @@ def test_split_rows_equal_their_solo_launch(dev, dtype):
         assert torch.equal(k3[0], wave[r]), r
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
-                         ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
     """K5 and K7 at the split edges: within tolerance of their plain
@@ -826,9 +831,8 @@ def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
-                         ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_quantized_decode_is_k3_over_the_dequantised_cache(dev, d, h, kvh, dtype):
     """K8 at K3's split edges, over tables padded with out-of-range ids:
@@ -887,8 +891,7 @@ def test_split_count_covers_every_row_of_the_width(dev):
         assert lib.its_decode_splits(width) == want, width
 
 
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
-                         ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_merge_past_one_chunk_of_splits(dev, h, kvh, dtype):
     """Long rows, merged in the tree: 512 / G splits of 16 pages (the most
@@ -953,9 +956,8 @@ Q8_EDGE_LENS = [0, 1, SPLIT_BT, 4 * SPLIT_BT - 1, 4 * SPLIT_BT, 4 * SPLIT_BT + 1
                 256 * SPLIT_BT, 257 * SPLIT_BT, 512 * SPLIT_BT + 7]
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
-                         ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_decode_at_its_own_split_edges(dev, d, h, kvh, dtype):
     """K8 on rows either side of its split edges, a one-page and a
@@ -1119,9 +1121,8 @@ LAUNCH_SPLIT_WIDTHS = [4, 8, 20, 28, 32, 144, 208, 256, 272, 520]
 
 
 @pytest.mark.parametrize("width", LAUNCH_SPLIT_WIDTHS)
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,kvh", [(2, 2), (4, 2), (8, 2), (16, 2)],
-                         ids=["g1", "g2", "g4", "g8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_family_at_every_launch_split_count(dev, width, d, h, kvh, dtype):
     """K3, K5, K6, K7 and K8 at every launch split count: two launches
@@ -1362,3 +1363,118 @@ def test_v1_layer_wait_orders_the_runners_stream_after_the_load(dev, monkeypatch
         kv.close()
         conn.close()
         srv.stop()
+
+
+# The JAX package's own kernel cases, on the card against the plain
+# versions: tests/test_paged_attention.py:34-40 (num_blocks, block_tokens,
+# kv_heads, head_dim, q_heads, table_len), tests/test_flash_prefill.py:36-41
+# (B, S, H, KVH, D; its block sizes have no counterpart here) and
+# tests/test_kv_quant.py:24 (16 blocks of 8 tokens, 2 KV heads, head_dim 32),
+# and the groups 3 and 7 beside them.
+REFERENCE_DECODE_CASES = [(16, 8, 4, 16, 8, 8), (32, 16, 2, 32, 8, 16), (8, 8, 8, 16, 8, 4),
+                          (16, 8, 1, 64, 4, 16), (16, 8, 2, 16, 6, 8), (16, 8, 2, 32, 14, 8)]
+REFERENCE_PREFILL_CASES = [(1, 32, 4, 2, 16), (2, 64, 8, 8, 32), (1, 16, 4, 1, 64),
+                           (1, 48, 2, 2, 16), (1, 40, 6, 2, 16), (2, 70, 14, 2, 32)]
+
+
+@pytest.mark.parametrize("case", REFERENCE_DECODE_CASES,
+                         ids=["gqa2-d16", "gqa4-d32", "mha-d16", "mqa-d64", "g3-d16", "g7-d32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reference_decode_cases_k3_k5_k6_k7(dev, case, dtype):
+    """K3 at the reference's sequence lengths (one token, a partial block, a
+    block boundary, mid-table, the full table) and a zero-length row, within
+    tolerance of its plain version; two launches bitwise equal; each row
+    bitwise its solo launch; the table's entries past a row's sequence
+    (out-of-range ids here) change nothing; K6 bitwise K3 per row; K5's and
+    K7's one-shard combines bitwise K3 and K6."""
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    n, bt, kvh, d, h, ntbl = case
+    g = torch.Generator().manual_seed(200)
+    kc = _randn(201, (n, bt, kvh, d), dtype, dev)
+    vc = _randn(202, (n, bt, kvh, d), dtype, dev)
+    lens = [1, bt - 1, bt, ntbl * bt // 2 + 3, ntbl * bt, 0]
+    rows = len(lens)
+    q = _randn(203, (rows, h, d), dtype, dev)
+    tables_np = [torch.randperm(n, generator=g)[:ntbl].numpy().astype(np.int32)
+                 for _ in range(rows)]
+    tables = torch.from_numpy(np.stack(tables_np)).to(dev)
+    masked = tables.clone()
+    for r, length in enumerate(lens):
+        masked[r, -(-length // bt):] = -1
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = pa.paged_decode_attention_batched(q, kc, vc, tables, seq)
+    again = pa.paged_decode_attention_batched(q, kc, vc, tables, seq)
+    on_masked = pa.paged_decode_attention_batched(q, kc, vc, masked, seq)
+    want = pa.paged_decode_attention_plain_batched(q, kc, vc, tables, seq)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[dtype]
+    assert torch.equal(got, again) and torch.equal(got, on_masked)
+    assert torch.all(got[-1] == 0)
+    for r in range(rows):
+        solo = pa.paged_decode_attention_batched(q[r:r + 1].contiguous(), kc, vc,
+                                                 tables[r:r + 1].contiguous(),
+                                                 seq[r:r + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(solo[0], got[r]), r
+    ident = lambda t: t  # noqa: E731
+    assert torch.equal(pa.combine_stats(*pa._decode_attention_stats(q, kc, vc, tables, seq),
+                                        dtype, ident, ident), got)
+    m = pa.build_ragged_wave(tables_np, lens, bt, pad_to_pow2=True)
+    meta = [torch.from_numpy(x).to(dev) for x in (m.pages, m.page_rows, m.page_starts,
+                                                    m.seq_lens)]
+    k6 = pa.paged_decode_attention_ragged(q, kc, vc, *meta, table_width=ntbl)
+    k6_plain = pa.paged_decode_attention_ragged_plain(q, kc, vc, meta[0], meta[2], meta[3], ntbl)
+    rstats = pa._decode_attention_stats_ragged(q, kc, vc, *meta, table_width=ntbl)
+    torch.cuda.synchronize()
+    assert _err(k6, k6_plain) <= TOL[dtype]
+    assert torch.equal(k6, got)
+    assert torch.equal(pa.combine_stats(*rstats, dtype, ident, ident), k6)
+
+
+@pytest.mark.parametrize("case", REFERENCE_PREFILL_CASES,
+                         ids=["gqa2-d16", "mha-d32", "mqa-d64", "d16", "g3-d16", "g7-d32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reference_prefill_cases_k4(dev, case, causal, dtype):
+    """K4 at the reference's prefill cases, causal and full, bf16 on its
+    tensor-core kernel and f32 on its CUDA-core one (each launch counted by
+    its kernel's counter), within tolerance of the plain version."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    b, s, h, kvh, d = case
+    q = _randn(210, (b, s, h, d), dtype, dev)
+    k = _randn(211, (b, s, kvh, d), dtype, dev)
+    v = _randn(212, (b, s, kvh, d), dtype, dev)
+    before = dict(_ext.LAUNCHES)
+    got = fp.flash_prefill_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["flash_prefill"] == before["flash_prefill"] + 1
+    assert _ext.LAUNCHES["flash_prefill_wgmma"] == (before["flash_prefill_wgmma"]
+                                                    + int(dtype is torch.bfloat16))
+    assert _err(got, fp.flash_prefill_plain(q, k, v, causal=causal)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("h,d", [(4, 32), (8, 32), (4, 16), (6, 32), (14, 16)],
+                         ids=["g2-d32", "g4-d32", "g2-d16", "g3-d32", "g7-d16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reference_int8_geometry_k8(dev, h, d, dtype):
+    """K8 at tests/test_kv_quant.py's geometry (16 blocks of 8 tokens, 2 KV
+    heads, head_dim 32) and at head_dim 16, groups 2, 4, 3 and 7: its
+    contract (plain version, K3 over the dequantised cache, two launches and
+    solo rows bitwise), a zero-length row zeros."""
+    from infinistore_tpu_torch.cuda import kv_quant as kq
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    n, bt, kvh, ntbl = 16, 8, 2, 4
+    q = _randn(220, (5, h, d), dtype, dev)
+    kd, ks = kq.quantize_kv(_randn(221, (n, bt, kvh, d), torch.float32, dev) * 3)
+    vd, vs = kq.quantize_kv(_randn(222, (n, bt, kvh, d), torch.float32, dev))
+    g = torch.Generator().manual_seed(223)
+    tables = torch.stack([torch.randperm(n, generator=g)[:ntbl] for _ in range(5)])
+    tables = tables.to(device=dev, dtype=torch.int32)
+    lens = torch.tensor([0, 1, bt, 2 * bt + 3, ntbl * bt], dtype=torch.int32, device=dev)
+    got = kq.paged_decode_attention_quantized(q, kd, ks, vd, vs, tables, lens)
+    _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, tables, lens, got)
+    assert torch.all(got[0] == 0)

@@ -10,9 +10,13 @@ ragged wave), and the ticket counters (one per row, KV head and split), both
 from the stream's workspace, in the order of ``_ext.ARGTYPES``; read no
 device value on the call; move its launch counter once per launch; raise on
 a non-zero code with no fallback to the plain version; and raise on a bad
-shape or dtype before any launch. The fold's split policy, read from its
-source's constants, sizes K8's scratch as the kernel folds. The kernels
-themselves run only on the card (``tests/test_torch_cuda_kernels.py``)."""
+shape or dtype before any launch. The kernels take head_dim 16, 32, 64 and
+128 and any group of query heads a KV head: each launch hands the library
+its (dtype, head_dim, heads, KV heads), and the ticket counters cover
+the virtual KV heads a group folds as (H / Gc, Gc the largest of 8, 4, 2
+and 1 dividing the group: one counter per row, query head and split). The fold's split policy, read from its source's
+constants, sizes K8's scratch as the kernel folds. The kernels themselves
+run only on the card (``tests/test_torch_cuda_kernels.py``)."""
 
 import os
 import re
@@ -98,8 +102,8 @@ def fake_lib(monkeypatch):
     scratch = []
 
     def recording(real):
-        def split_scratch(q, kvh, width, stream):
-            got = real(q, kvh, width, stream)
+        def split_scratch(q, width, stream):
+            got = real(q, width, stream)
             scratch.append(got)
             return got
         return split_scratch
@@ -128,9 +132,10 @@ def _f(seed, shape, dtype=torch.bfloat16):
     return torch.from_numpy(_rng(seed).standard_normal(shape).astype(np.float32)).to(dtype)
 
 
-def _table_inputs(rows=3, width=37, dtype=torch.bfloat16, lens=None, table_seed=4):
-    q = _f(1, (rows, H, D), dtype)
-    k, v = _f(2, (N, BT, KVH, D), dtype), _f(3, (N, BT, KVH, D), dtype)
+def _table_inputs(rows=3, width=37, dtype=torch.bfloat16, lens=None, table_seed=4, h=H, kvh=KVH,
+                  d=D):
+    q = _f(1, (rows, h, d), dtype)
+    k, v = _f(2, (N, BT, kvh, d), dtype), _f(3, (N, BT, kvh, d), dtype)
     tables = torch.from_numpy(
         _rng(table_seed).integers(0, N, (rows, width)).astype(np.int32))
     lens = torch.tensor(lens if lens is not None else [0, 5, width * BT][:rows],
@@ -138,18 +143,19 @@ def _table_inputs(rows=3, width=37, dtype=torch.bfloat16, lens=None, table_seed=
     return q, k, v, tables, lens
 
 
-def _ragged_inputs(lens=(0, 5, 70), table_width=18, dtype=torch.bfloat16):
+def _ragged_inputs(lens=(0, 5, 70), table_width=18, dtype=torch.bfloat16, h=H, kvh=KVH, d=D):
     rows = len(lens)
-    q = _f(1, (rows, H, D), dtype)
-    k, v = _f(2, (N, BT, KVH, D), dtype), _f(3, (N, BT, KVH, D), dtype)
+    q = _f(1, (rows, h, d), dtype)
+    k, v = _f(2, (N, BT, kvh, d), dtype), _f(3, (N, BT, kvh, d), dtype)
     tables = [_rng(10 + r).permutation(N)[:table_width] for r in range(rows)]
     m = pa.build_ragged_wave(tables, list(lens), BT, pad_to_pow2=True)
     meta = [torch.from_numpy(x) for x in (m.pages, m.page_rows, m.page_starts, m.seq_lens)]
     return q, k, v, meta, table_width
 
 
-def _quant_inputs(rows=3, width=37, dtype=torch.bfloat16, lens=None, table_seed=4):
-    q, k, v, tables, lens = _table_inputs(rows, width, dtype, lens, table_seed)
+def _quant_inputs(rows=3, width=37, dtype=torch.bfloat16, lens=None, table_seed=4, h=H, kvh=KVH,
+                  d=D):
+    q, k, v, tables, lens = _table_inputs(rows, width, dtype, lens, table_seed, h, kvh, d)
     (kd, ks), (vd, vs) = kq.quantize_kv(k.float()), kq.quantize_kv(v.float())
     return q, kd, ks, vd, vs, tables, lens
 
@@ -353,9 +359,9 @@ def _bad_cases():
     cases += [
         ("K3", "head_dim 96", lambda: (lambda: pa._paged_decode_attention_cuda(
             _f(1, (3, H, 96)), _f(2, (N, BT, KVH, 96)), _f(3, (N, BT, KVH, 96)), tables, lens)),
-         ValueError, "head_dim 64 or 128"),
-        ("K3", "group 3", lambda: (lambda: pa._paged_decode_attention_cuda(
-            _f(1, (3, 6, D)), k, v, tables, lens)), ValueError, "query heads per KV head"),
+         ValueError, "head_dim 16, 32, 64 or 128"),
+        ("K3", "7 heads over 2 KV heads", lambda: (lambda: pa._paged_decode_attention_cuda(
+            _f(1, (3, 7, D)), k, v, tables, lens)), ValueError, "KV heads dividing"),
         ("K3", "int64 tables", lambda: (lambda: pa._paged_decode_attention_cuda(
             q, k, v, tables.long(), lens)), ValueError, "block_tables"),
         ("K3", "empty tables", lambda: (lambda: pa._paged_decode_attention_cuda(
@@ -396,6 +402,54 @@ def _bad_cases():
 
 
 BAD = _bad_cases()
+
+
+# (query heads, KV heads) -> the virtual KV heads the launch folds as: the
+# group G runs as G / Gc heads of Gc query heads, Gc the largest of 8, 4, 2
+# and 1 dividing G (Qwen2-1.5B's 12 over 2 and Qwen2.5-7B's 28 over 4 among
+# them).
+GROUPS = {(2, 2): 2, (4, 2): 2, (6, 2): 6, (8, 2): 2, (12, 2): 6, (14, 2): 14, (16, 2): 2,
+          (28, 4): 28, (32, 2): 4}
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kvh", list(GROUPS), ids=[f"h{h}-kvh{k}" for h, k in GROUPS])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_every_head_dim_and_group_launches(fake_lib, kernel, h, kvh, d):
+    """head_dim 16, 32, 64 and 128 and any group launch, with no device
+    value read: the entry gets the call's (dtype, rows, H, KVH, D), the
+    scratch is sized from them, and the tickets count a (row, virtual KV
+    head, split) each."""
+    build, entry, counter, n_out, ragged = KERNELS[kernel]
+    call, q, inputs, width = build(torch.float32, h=h, kvh=kvh, d=d)
+    with _NoDeviceReads():
+        out = call()
+    (name, args), = fake_lib.calls
+    assert name == entry and _ext.LAUNCHES[counter] == 1
+    (scratch, tickets, splits), = fake_lib.scratch
+    rows = q.shape[0]
+    n_in = len(inputs)
+    assert args[n_in + n_out + 2:n_in + n_out + 7] == (_ext.DTYPE_CODES[torch.float32], rows, h,
+                                                       kvh, d)
+    assert scratch.numel() == rows * splits * h * (d + 2)
+    assert tickets.numel() >= rows * GROUPS[(h, kvh)] * splits and not tickets.any()
+    first = out[0] if isinstance(out, tuple) else out
+    assert tuple(first.shape) == (rows, h, d)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_group_3_launches_as_three_virtual_heads(fake_lib, kernel):
+    """Three query heads a KV head (6 over 2): one launch with H 6 and KVH
+    2, and ticket counters for 6 virtual KV heads of one query head each."""
+    build, entry, _, n_out, _ = KERNELS[kernel]
+    call, q, inputs, _ = build(h=6, kvh=2)
+    call()
+    (name, args), = fake_lib.calls
+    n_in = len(inputs)
+    assert name == entry
+    assert args[n_in + n_out + 4:n_in + n_out + 7] == (6, 2, D)
+    (_, tickets, splits), = fake_lib.scratch
+    assert tickets.numel() >= q.shape[0] * 6 * splits
 
 
 @pytest.mark.parametrize("case", range(len(BAD)),

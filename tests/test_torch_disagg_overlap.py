@@ -751,3 +751,25 @@ def test_chip_smoke_disagg_phase_rehearsal_on_cpu(store):
     assert k3["max_abs_err"] == 0.0 and k3["table_blocks"] == 4 + 1
     assert k3["seq_lens"] == [64 + 1 + step for step in range(chip_smoke.DISAGG_GEN_TOKENS)]
     assert all(launches[name] == 0 for name in chip_smoke.PATH_KERNELS["disagg"])  # no kernels
+
+
+def test_chip_smoke_disagg_demo_phase_rehearsal_on_cpu():
+    """``chip_smoke.py``'s disagg leg at ``demo_config()``'s defaults (head
+    dim 16, the demo weights, a store of its own) on the CPU: every round's
+    checks, and K3 held at the path's inputs (the plain version against
+    itself here)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    summary, launches = chip_smoke._run_disagg_demo(torch, "cpu")
+    assert summary["head_dim"] == 16
+    assert summary["prompt_tokens"] == chip_smoke.DISAGG_DEMO_PROMPT_TOKENS
+    assert len(summary["rounds"]) == chip_smoke.DISAGG_ROUNDS
+    for rnd in summary["rounds"]:
+        assert rnd["counters"]["disagg_wrong_bytes"] == 0
+        assert rnd["counters"]["disagg_fallback_recomputes"] == 1
+    assert summary["k3_at_path_inputs"]["max_abs_err"] == 0.0
+    assert all(launches[name] == 0 for name in chip_smoke.PATH_KERNELS["disagg_demo"])

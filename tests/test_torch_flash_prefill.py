@@ -4,8 +4,9 @@ Pallas kernel in interpret mode and its XLA reference, on the same numpy
 inputs. On the CPU the port runs the plain version of kernel K4.
 
 Also the CUDA path's dispatch, against a fake kernel library on CPU
-tensors: bf16 to the tensor-core entry, f32 to the CUDA-core one, anything
-else raised before a launch, and the two launch counters.
+tensors: bf16 to the tensor-core entry, f32 to the CUDA-core one, both at
+head_dim 16, 32, 64 and 128; any other dtype or head_dim raised before a
+launch; and the two launch counters.
 
 Tolerances: f32 2e-5 (float32 rounding, another summation order); bf16 2e-2
 (the TPU kernel rounds the probabilities to bf16 before the PV product, the
@@ -119,7 +120,7 @@ def _torch_inputs(dtype, b=2, s=24, t=24, h=8, kvh=2, d=64):
     )
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_bf16_reaches_the_tensor_core_entry(fake_lib, d, causal):
     t = 24 if causal else 40
@@ -134,7 +135,7 @@ def test_bf16_reaches_the_tensor_core_entry(fake_lib, d, causal):
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 1
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_f32_reaches_the_cuda_core_entry(fake_lib, d):
     q, k, v = _torch_inputs(torch.float32, d=d)
     out = fp._flash_prefill_cuda(q, k, v, causal=True)
@@ -143,6 +144,17 @@ def test_f32_reaches_the_cuda_core_entry(fake_lib, d):
         _STREAM))]
     assert _ext.LAUNCHES["flash_prefill"] == 1
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 0
+
+
+def test_bf16_d32_launches_the_tensor_core_entry_with_d32(fake_lib):
+    """head_dim 32 in bf16, once refused, takes the tensor-core kernel:
+    the route is by dtype alone, at every head_dim."""
+    q, k, v = _torch_inputs(torch.bfloat16, d=32)
+    out = fp._flash_prefill_cuda(q, k, v, causal=True)
+    (name, args), = fake_lib.calls
+    assert name == "its_flash_prefill_wgmma" and args[9] == 32
+    assert out.shape == q.shape
+    assert _ext.LAUNCHES["flash_prefill_wgmma"] == 1
 
 
 def test_counters_add_up_over_mixed_calls(fake_lib):
@@ -157,10 +169,10 @@ def test_counters_add_up_over_mixed_calls(fake_lib):
 @pytest.mark.parametrize("dtype,d,error,match", [
     (torch.float16, 64, TypeError, "unsupported dtype"),
     (torch.float64, 128, TypeError, "unsupported dtype"),
-    (torch.bfloat16, 32, ValueError, "head_dim 64 or 128"),
-    (torch.bfloat16, 96, ValueError, "head_dim 64 or 128"),
-    (torch.float32, 256, ValueError, "head_dim 64 or 128"),
-], ids=["f16", "f64", "bf16-d32", "bf16-d96", "f32-d256"])
+    (torch.bfloat16, 80, ValueError, "head_dim 16, 32, 64 or 128"),
+    (torch.bfloat16, 96, ValueError, "head_dim 16, 32, 64 or 128"),
+    (torch.float32, 256, ValueError, "head_dim 16, 32, 64 or 128"),
+], ids=["f16", "f64", "bf16-d80", "bf16-d96", "f32-d256"])
 def test_unsupported_dtype_or_head_dim_raises_before_any_launch(fake_lib, dtype, d, error,
                                                                 match):
     with pytest.raises(error, match=match):
