@@ -69,6 +69,17 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    launch the TMA bulk ring.
 3. A small f32 model through the same round trip twice, on the card (the
    kernels) and on the CPU (the plain versions): logits agree to 2e-4.
+3b. The round trip of phase 2 at other widths, each on a store of its own
+   (``ROUND_TRIPS``): Phi-3-mini's at full depth (32 layers, 32 heads over
+   32 KV heads, head_dim 96; 3 GiB of KV each way, 96 KiB blocks in 32 KiB
+   units on a 4 GiB store), and Phi-2's (head_dim 80, 80 KiB blocks in 16
+   KiB units) and Gemma-2B's (8 heads over 1 KV head, head_dim 256, 8 KiB
+   blocks in 8 KiB units) attention widths in a Llama block cut to 2
+   layers: loaded blocks byte-equal, decode logits bitwise equal across the
+   engines, each block taking whole store units; K1-K4 must launch on each,
+   every K4 on the tensor cores and every K1/K2 on the bulk ring. Each
+   one's prefill ms a prompt, save and load GB/s, decode ms a step and
+   store bytes a key are logged beside the Llama-3-8B round trip's.
 4. int8 round trip at Llama-3-8B width: engine A's 4 x 2,048-token bf16
    prefixes are quantised (``quantize_kv``) and saved through
    ``QuantizedKVConnector`` to a fresh store (2 GiB in 16 KiB units, see
@@ -231,9 +242,14 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    The kernel phase ends with the shapes beyond the main path's
    (``SHAPES_TAKEN``, at the round trip's wave of 4 x 2,048 tokens): head
    dim 16 (the trace model's 4 heads over 2, f32, block 8), head_dim 32 (8
-   over 2, bf16) and 7 query heads a KV head (Qwen2.5-7B's 28 over 4, head
-   dim 128, bf16). K3, K5, K6, K7 and K8 at each, K4 in f32 and bf16 at
-   head_dim 16 and 32 and in bf16 at the 7-head group, each against its
+   over 2, bf16), 7 query heads a KV head (Qwen2.5-7B's 28 over 4, head
+   dim 128, bf16), head_dim 8 (the JAX model tests' 4 heads over 2, f32,
+   block 8), and Phi-2's, Phi-3-mini's and Gemma-2B's heads (head_dim 80,
+   32 over 32; 96, 32 over 32; 256, 8 over 1; bf16), beside Llama-2-7B's
+   (head_dim 128, 32 over 32, bf16: the same CTAs as 80 and 96 with every
+   lane of a token busy). K3, K5, K6, K7 and K8 at each, K4 in f32 and
+   bf16 at every new head_dim and in bf16 at the 7-head group and
+   Llama-2-7B's heads, each against its
    plain version with the tolerances above (K6 bitwise K3, K5 / K7's
    combines bitwise K3 / K6, K8 held to its contract) and timed beside its
    plain version and its bound (``shapes_taken`` on the ``kernels`` line,
@@ -366,6 +382,39 @@ LLAMA3_8B = dict(
 PROMPTS = 4
 PROMPT_TOKENS = 2048
 DECODE_STEPS = 16
+# The round trip at head_dim 96: microsoft/Phi-3-mini-4k-instruct's
+# config.json (hidden 3072, 32 layers, 32 heads and 32 KV heads, intermediate
+# 8192, vocab 32064, rope_theta 10000), a Llama block (RMSNorm, RoPE,
+# SwiGLU) at full depth; a token's KV is 384 KiB, three times Llama-3-8B's.
+PHI3_MINI = dict(
+    vocab=32064, dim=3072, n_layers=32, n_heads=32, n_kv_heads=32,
+    ffn_dim=8192, block_tokens=16, rope_theta=10000.0,
+)
+# Two shorter round trips at other models' attention and KV widths in a Llama
+# block, cut to 2 layers (neither model is a Llama block): Phi-2's
+# (microsoft/phi-2 config.json: hidden 2560, 32 heads and KV heads, head_dim
+# 80, intermediate 10240, vocab 51200) and Gemma-2B's (google/gemma-2b
+# config.json: hidden 2048, 8 heads over 1 KV head, head_dim 256,
+# intermediate 16384, vocab 256000).
+PHI2_ATTENTION = dict(
+    vocab=51200, dim=2560, n_layers=2, n_heads=32, n_kv_heads=32,
+    ffn_dim=10240, block_tokens=16, rope_theta=10000.0,
+)
+GEMMA_2B_ATTENTION = dict(
+    vocab=256000, dim=2048, n_layers=2, n_heads=8, n_kv_heads=1,
+    ffn_dim=16384, block_tokens=16, rope_theta=10000.0,
+)
+# Each runs the main path (prefill -> save -> lookup/load -> 16 decode steps
+# on two engines) on a store of its own: (path, geometry, model id, store
+# bytes, store unit). Phi-3's 4 x 2,048-token prompts hold 3 GiB of KV in
+# 96 KiB blocks (3 units a key), Phi-2's 2-layer ones 160 MiB in 80 KiB
+# blocks (5 units), Gemma-2B's 16 MiB in 8 KiB blocks (1 unit).
+ROUND_TRIPS = (
+    ("prefill_store_decode_phi3", PHI3_MINI, "phi-3-mini", 4 << 30, 32 << 10),
+    ("prefill_store_decode_phi2", PHI2_ATTENTION, "phi-2-attention", 512 << 20, 16 << 10),
+    ("prefill_store_decode_gemma2b", GEMMA_2B_ATTENTION, "gemma-2b-attention", 256 << 20,
+     8 << 10),
+)
 
 # Engine phase: round 1 prompts of SHARED + TAIL tokens (a SPAN-token stretch
 # of the tail occurs twice, so the n-gram drafter proposes), round 2 keeps
@@ -411,11 +460,11 @@ TPU_KERNELS = {
     "flash_prefill": ("infinistore_tpu/tpu/flash_prefill.py:152", "flash_prefill_wgmma.cu",
                       "flash_prefill.cu"),
     "paged_decode_attention_ragged": ("infinistore_tpu/tpu/paged_attention.py:555",
-                                      "paged_attention.cu"),
+                                      "paged_attention_ragged.cu"),
     "paged_decode_attention_stats": ("infinistore_tpu/tpu/paged_attention.py:250",
                                      "paged_attention_stats.cu"),
     "paged_decode_attention_ragged_stats": ("infinistore_tpu/tpu/paged_attention.py:575",
-                                            "paged_attention_stats.cu"),
+                                            "paged_attention_ragged_stats.cu"),
     "paged_decode_attention_quantized": ("infinistore_tpu/tpu/kv_quant.py:107", "kv_quant.cu"),
 }
 ENGINE_KERNELS = ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill",
@@ -424,6 +473,9 @@ ENGINE_KERNELS = ("gather_blocks", "scatter_blocks", "paged_decode_attention", "
 PATH_KERNELS = {
     "prefill_store_decode": ("gather_blocks", "scatter_blocks", "paged_decode_attention",
                              "flash_prefill"),
+    # The round trip at head_dim 96, 80 and 256 (``ROUND_TRIPS``).
+    **{path: ("gather_blocks", "scatter_blocks", "paged_decode_attention", "flash_prefill")
+       for path, *_ in ROUND_TRIPS},
     "int8_round_trip": ("gather_blocks", "scatter_blocks", "paged_decode_attention_quantized"),
     "engine": ENGINE_KERNELS,
     "int8_engine": ENGINE_KERNELS,
@@ -451,11 +503,12 @@ PATH_KERNELS = {
 }
 # Paths whose every K4 launch is bf16, so must take the tensor-core kernel.
 BF16_K4_PATHS = ("prefill_store_decode", "engine", "int8_engine", "disagg", "cluster", "vllm_v1",
-                 "ici_handoff", "moe_spec")
+                 "ici_handoff", "moe_spec", *(path for path, *_ in ROUND_TRIPS))
 # Paths whose every K1/K2 launch moves 16-byte aligned blocks, so must take
 # the TMA bulk ring.
 BULK_COPY_PATHS = ("prefill_store_decode", "int8_round_trip", "engine", "int8_engine", "disagg",
-                   "cluster", "vllm_v1", "ici_handoff", "long_context", "moe_spec")
+                   "cluster", "vllm_v1", "ici_handoff", "long_context", "moe_spec",
+                   *(path for path, *_ in ROUND_TRIPS))
 # The disagg path: greedy tokens a leg, the fallback leg's retry deadline, and
 # rounds of its five legs (the first pays every first use: pinned staging,
 # the prefetch arena's page locking, the store pool's first touch).
@@ -783,8 +836,9 @@ def kernel_phase(torch, timer, nomerge):
         torch, timer, g, tables, (full, ragged), n_cache)
     results["paged_decode_attention_stats"] = _stats_kernel_check(
         torch, timer, g, tables, (full, ragged), n_cache, nomerge)
-    # The shapes beyond the main path's: head_dim 16 and 32, 7 query heads a
-    # KV head. Each kernel's row lists the head_dims and groups it ran here.
+    # The shapes beyond the main path's: head_dim 8, 16, 32, 80, 96 and 256,
+    # 7 query heads a KV head. Each kernel's row lists the head_dims and
+    # groups it ran here.
     taken = _shapes_taken_check(torch, timer, g)
     for name, row in results.items():
         if name not in taken:
@@ -1341,16 +1395,30 @@ def _stats_err(torch, stats, plain):
 # block tokens). d16: the JAX package's trace model's heads (4 over 2, head
 # dim 16, f32, block 8); d32: tests/test_paged_attention.py's second case's
 # heads (8 over 2, head_dim 32), bf16; g7: Qwen2.5-7B's published heads (28
-# over 4 KV heads, head_dim 128: 7 query heads a KV head), bf16.
+# over 4 KV heads, head_dim 128: 7 query heads a KV head), bf16; d8: the JAX
+# package's model tests' config (LlamaConfig(dim=32, n_heads=4,
+# n_kv_heads=2): head_dim 8, f32, block 8); d80, d96 and d256: Phi-2's (32
+# over 32), Phi-3-mini's (32 over 32) and Gemma-2B's (8 over 1) heads, bf16
+# (``ROUND_TRIPS``; d96 is the Phi-3 round trip's decode step); mha128:
+# Llama-2-7B's heads (32 over 32, head_dim 128), bf16, whose tokens fill
+# the 16 lanes that d80 and d96 fill 10 and 12 of at the same CTA count:
+# the yardstick of their idle lanes.
 SHAPES_TAKEN = {
     "d16": ("float32", 4, 2, 16, 8),
     "d32": ("bfloat16", 8, 2, 32, 16),
     "g7": ("bfloat16", 28, 4, 128, 16),
+    "d8": ("float32", 4, 2, 8, 8),
+    "d80": ("bfloat16", 32, 32, 80, 16),
+    "d96": ("bfloat16", 32, 32, 96, 16),
+    "d256": ("bfloat16", 8, 1, 256, 16),
+    "mha128": ("bfloat16", 32, 32, 128, 16),
 }
-# K4 at those shapes in both dtypes where its head_dim is new (d16, d32),
-# in bf16 at g7.
+# K4 at those shapes in both dtypes where its head_dim is new, in bf16 at
+# g7 and mha128.
 SHAPES_TAKEN_K4 = {"d16": ("float32", "bfloat16"), "d32": ("float32", "bfloat16"),
-                   "g7": ("bfloat16",)}
+                   "g7": ("bfloat16",), "d8": ("float32", "bfloat16"),
+                   "d80": ("float32", "bfloat16"), "d96": ("float32", "bfloat16"),
+                   "d256": ("float32", "bfloat16"), "mha128": ("bfloat16",)}
 
 
 def _shapes_taken_check(torch, timer, g):
@@ -1721,9 +1789,10 @@ def _decode_wave(torch, llama, params, cfg, caches, tables, first_tokens, max_bl
 
 
 def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
-              prompt_tokens=PROMPT_TOKENS):
+              prompt_tokens=PROMPT_TOKENS, model_id="llama-3-8b", profile=True):
     """The main path on ``device`` (a CPU rehearsal passes a small
-    ``geometry`` and ``device="cpu"``)."""
+    ``geometry`` and ``device="cpu"``); on a card, ``profile`` also profiles
+    one prefill and one decode step."""
     import numpy as np
 
     from infinistore_tpu_torch import config as config_mod
@@ -1753,8 +1822,8 @@ def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
 
     conn_a = _client(lib_mod, config_mod, server_port)
     conn_b = _client(lib_mod, config_mod, server_port)
-    kv_a = KVConnector(conn_a, spec, "llama-3-8b", max_blocks=nb, device=device)
-    kv_b = KVConnector(conn_b, spec, "llama-3-8b", max_blocks=nb, device=device)
+    kv_a = KVConnector(conn_a, spec, model_id, max_blocks=nb, device=device)
+    kv_b = KVConnector(conn_b, spec, model_id, max_blocks=nb, device=device)
     try:
         caches_a = spec.make_caches(device)
         caches_b = spec.make_caches(device)
@@ -1819,7 +1888,7 @@ def main_path(torch, server_port, device="cuda", geometry=LLAMA3_8B,
         log(f"decode: engines A and B agree bitwise over {DECODE_STEPS} steps")
         launches = dict(_ext.LAUNCHES)  # the main path's own launches, read here
 
-        if torch.device(device).type == "cuda":
+        if profile and torch.device(device).type == "cuda":
             profiles = {
                 "prefill": _profile(torch, lambda: llama.prefill(
                     params, prompts[0], caches_a, tables_a[0, :nb], cfg)),
@@ -1917,6 +1986,59 @@ def _profile_summary(prof, wall_ms):
 # ---------------------------------------------------------------------------
 # Phase 3: a small f32 model, kernels (card) against plain versions (CPU)
 # ---------------------------------------------------------------------------
+
+
+def _run_round_trip(torch, geometry, model_id, store_bytes, store_unit, device="cuda",
+                    prompt_tokens=PROMPT_TOKENS):
+    """``main_path`` at ``geometry`` (bf16, seed-0 weights, made and dropped
+    here) on a store of its own (``store_bytes`` in ``store_unit`` units),
+    its launch counts zeroed just before it: (metrics, launches). Each saved
+    block must take whole units: ``store_bytes_per_key`` is the block's
+    bytes rounded up to the unit."""
+    from infinistore_tpu_torch import lib
+    from infinistore_tpu_torch.cuda import _ext
+
+    server = lib.start_local_server(prealloc_bytes=store_bytes, block_bytes=store_unit,
+                                    pin_memory=False)
+    try:
+        _ext.reset_launches()
+        metrics, launches, params, state = main_path(
+            torch, server.port, device=device, geometry=geometry, prompt_tokens=prompt_tokens,
+            model_id=model_id, profile=False)
+    finally:
+        server.stop()
+    block = state["spec"].block_nbytes
+    del params, state
+    units = -(-block // store_unit)
+    if metrics["store_bytes_per_key"] != units * store_unit:
+        raise AssertionError(f"{model_id}: {metrics['store_bytes_per_key']} store bytes a key, "
+                             f"expected {units} units of {store_unit} for a {block}-byte block")
+    cfg = dict(geometry, head_dim=geometry["dim"] // geometry["n_heads"], block_bytes=block,
+               units_per_key=units)
+    return dict(metrics, model_id=model_id, geometry=cfg), launches
+
+
+def round_trips_phase(torch, smi, llama_metrics):
+    """The round trip at ``ROUND_TRIPS``' widths: Phi-3-mini at full depth
+    (head_dim 96), Phi-2's and Gemma-2B's attention widths at 2 layers
+    (head_dim 80 and 256). Each path must launch K1-K4 (checked in main);
+    every K4 launch is bf16 on the tensor cores and every K1/K2 launch on
+    the bulk ring. Logs each path's metrics beside the Llama-3-8B round
+    trip's. Returns {path: launches}."""
+    paths, rows = {}, {"prefill_store_decode": dict(llama_metrics, model_id="llama-3-8b")}
+    for path, geometry, model_id, store_bytes, store_unit in ROUND_TRIPS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rows[path], paths[path] = _run_round_trip(torch, geometry, model_id, store_bytes,
+                                                  store_unit)
+        rows[path]["wall_s"] = time.perf_counter() - t0
+        log(f"{path}: {json.dumps(rows[path])}")
+        log(f"{path} launches: {json.dumps(paths[path])}")
+    keys = ("prefill_ms_per_prompt", "save_GBps", "load_GBps", "decode_ms_per_step",
+            "store_bytes_per_key")
+    log(f"round trips on {smi}: " + json.dumps(
+        {path: {k: row[k] for k in keys} for path, row in rows.items()}))
+    return paths
 
 
 def small_model_phase(torch, server_port):
@@ -4865,7 +4987,7 @@ def _build_all(torch):
             errors.append(exc)
 
     t0 = time.perf_counter()
-    nomerge = decode_probe.build("nomerge", ("paged_attention.cu", "paged_attention_stats.cu"),
+    nomerge = decode_probe.build("nomerge", decode_probe.DECODE_SOURCES,
                                  defines=(decode_probe.NOMERGE,))
     worker = threading.Thread(target=build_kernels)
     worker.start()
@@ -4940,6 +5062,11 @@ def main() -> int:
     finally:
         server.stop()
     del state
+
+    # The round trip at Phi-3-mini's widths (head_dim 96), and at Phi-2's and
+    # Gemma-2B's attention widths (80, 256) cut to 2 layers, each on a store
+    # of its own.
+    paths.update(round_trips_phase(torch, smi, metrics))
 
     # Each engine phase gets a fresh store; the main path's caches are gone,
     # its weights are reused.

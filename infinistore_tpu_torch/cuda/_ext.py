@@ -19,8 +19,8 @@ same way ``gather_blocks`` / ``scatter_blocks`` count every launch of K1 /
 K2, and ``gather_blocks_bulk`` / ``scatter_blocks_bulk`` the ones that
 took the TMA bulk ring rather than the vector kernel.
 
-The attention kernels (K3-K8) take head_dim 16, 32, 64 or 128
-(``HEAD_DIMS``), and the paged decode ones (K3, K5-K8) any number of query
+The attention kernels (K3-K8) take head_dim 8, 16, 32, 64, 80, 96, 128 or
+256 (``HEAD_DIMS``), and the paged decode ones (K3, K5-K8) any number of query
 heads a KV head. The paged decode kernels split each row's pages across CTAs
 (``csrc/decode_fold.cuh``). Their wrappers size the split scratch from
 shapes alone, with the library's own split count for the table width
@@ -42,7 +42,8 @@ from .._build import BUILD_DIR, build_once
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = (
-    "paged_copy.cu", "paged_attention.cu", "paged_attention_stats.cu", "kv_quant.cu",
+    "paged_copy.cu", "paged_attention.cu", "paged_attention_ragged.cu",
+    "paged_attention_stats.cu", "paged_attention_ragged_stats.cu", "kv_quant.cu",
     "flash_prefill.cu", "flash_prefill_wgmma.cu",
 )
 LIB_PATH = os.path.join(BUILD_DIR, "libits_kernels.so")
@@ -50,8 +51,11 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # dtype codes of csrc/common.cuh (its::DType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The head_dims the attention kernels (K3-K8) are instantiated for.
-HEAD_DIMS = (16, 32, 64, 128)
+# The head_dims the attention kernels (K3-K8) are instantiated for, and the
+# words the wrappers refuse any other with.
+HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128, 256)
+HEAD_DIMS_TEXT = ", ".join(map(str, HEAD_DIMS[:-1])) + f" or {HEAD_DIMS[-1]}"
+
 
 LAUNCHES = {
     "gather_blocks": 0,

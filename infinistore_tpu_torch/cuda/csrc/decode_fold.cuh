@@ -1,16 +1,20 @@
 // The paged decode fold that K3, K5, K6 and K7 share: a split-KV
 // (flash-decoding) fold for Hopper, and the split merge K8 shares with it.
 //
-// Replaces, through the entries of paged_attention.cu and
-// paged_attention_stats.cu, the fold of infinistore_tpu/tpu/paged_attention.py
-// (_attn_block_update / _attn_block_fold / _ragged_fold) that the TPU kernels
+// Replaces, through the entries of paged_attention.cu,
+// paged_attention_ragged.cu, paged_attention_stats.cu and
+// paged_attention_ragged_stats.cu (one translation unit an entry, so their
+// instantiations compile in parallel), the fold of
+// infinistore_tpu/tpu/paged_attention.py (_attn_block_update /
+// _attn_block_fold / _ragged_fold) that the TPU kernels
 // _paged_decode_attention_pallas_batched, _pallas_stats, _pallas_ragged and
 // _pallas_ragged_stats run. One query row (a request, or a flat row of a
 // ragged wave) attends over the cache pages its page list names, for the
 // G = H / KVH query heads of one KV head. (K8, kv_quant.cu, folds int8 pages
 // in a fold of its own and shares this file's split merge.)
 //
-// Shapes taken: head_dim D of 16, 32, 64 or 128, and any group G = H / KVH.
+// Shapes taken: head_dim D of 8, 16, 32, 64, 80, 96, 128 or 256, and any
+// group G = H / KVH.
 // A group runs as G / Gc virtual KV heads of Gc query heads each, Gc the
 // largest of 8, 4, 2 and 1 that divides G: the grid's third dimension runs
 // over the G / Gc virtual heads of a KV head, which all read that KV head's
@@ -39,9 +43,13 @@
 //      one KV head on adjacent CTAs; a CTA past its row's split count exits
 //      at once.
 //   2. A lane owns kVec = 8 consecutive elements of a token's head row: one
-//      16-byte load in bf16, two in f32. A token's D elements sit on D / 8
-//      lanes (a token group: 16 lanes at D = 128, 2 at D = 16), and a group
-//      folds 2 tokens a stage. Its 2 x G partial dot products are summed by a
+//      16-byte load in bf16, two in f32 (kVec = 4 at D = 8: 8 and 16 bytes).
+//      A token's D elements sit on D / kVec lanes, rounded up to a power of
+//      two (a token group: 32 lanes at D = 256, 16 at D = 80, 96 and 128, 2
+//      at D = 8 and 16); at D = 80 and 96 the lanes past D / 8 (6 and 4 of
+//      16) are idle: they read nothing, hold zeros in q and K, and write no
+//      output. A group folds 2 tokens a stage. Its 2 x G partial dot
+//      products are summed by a
 //      transposed butterfly (transpose_sum: each level sends half of the
 //      values left, so a lane ends holding whole sums, one per (token, head)
 //      pair at G = 4), and each lane runs the softmax of the scores it holds
@@ -127,17 +135,29 @@ __host__ __device__ constexpr int grid_splits(int width) {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 5;  // depth of the cp.async ring
-constexpr int kVec = 8;     // consecutive elements of a head row per lane
 
-// How a CTA lays out head dim D: kLanes lanes per token, kGroups token groups,
-// each folding kTokPerGroup tokens of every kStageTok-token stage. A stage
-// holds 2 x 1,024 elements at every D (D = 16: 128 tokens, D = 32: 64), and
-// a token's other lane of the pair sits kLanes / 2 lanes away, so at least 2
-// lanes a token.
+// The lanes a token's `active` lanes of elements take: the next power of two,
+// at least 2 (the transposed butterfly and the token pair need one).
+__host__ __device__ constexpr int pow2_lanes(int active) {
+  return active <= 2 ? 2 : active <= 4 ? 4 : active <= 8 ? 8 : active <= 16 ? 16 : 32;
+}
+
+// How a CTA lays out head dim D: kVec consecutive elements of a head row a
+// lane, kLanes lanes per token of which the first kActive hold elements,
+// kGroups token groups, each folding kTokPerGroup tokens of every
+// kStageTok-token stage. A stage holds 2 x 1,024 elements at D = 8 (128
+// tokens) and from D = 16 to 128 (D = 16: 128 tokens, D = 32: 64), 2 x
+// 1,280 and 2 x 1,536 at D = 80 and 96 (16 tokens), 2 x 2,048 at D = 256 (8
+// tokens); a token's other lane of the pair sits kLanes / 2 lanes away, so
+// at least 2 lanes a token.
 template <int D>
 struct Fold {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head_dim 16, 32, 64 or 128");
-  static constexpr int kLanes = D / kVec;
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128 ||
+                    D == 256,
+                "head_dim 8, 16, 32, 64, 80, 96, 128 or 256");
+  static constexpr int kVec = D == 8 ? 4 : 8;
+  static constexpr int kActive = D / kVec;
+  static constexpr int kLanes = pow2_lanes(kActive);
   static constexpr int kGroups = kThreads / kLanes;
   static constexpr int kTokPerGroup = 2;
   static constexpr int kStageTok = kGroups * kTokPerGroup;
@@ -152,6 +172,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 8 : 0)
                : "memory");
 }
 
@@ -213,8 +240,8 @@ __device__ __forceinline__ void transpose_sum(float (&v)[N], int gl) {
 
 // ---------------------------------------------------------------------------
 // The KV loader: the K and V arrays (side 0 and 1) whose (token, KV head)
-// rows the ring gathers, and how kVec elements of a row are widened to f32
-// from the ring.
+// rows the ring gathers, and how 4 or 8 elements of a row are widened to
+// f32 from the ring.
 // ---------------------------------------------------------------------------
 
 template <typename C>
@@ -229,18 +256,33 @@ struct FloatKV {
   }
 };
 
-__device__ __forceinline__ void widen(const float* p, float (&x)[kVec]) {
+__device__ __forceinline__ void widen(const float* p, float (&x)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-__device__ __forceinline__ void widen(const __nv_bfloat16* p, float (&x)[kVec]) {
+__device__ __forceinline__ void widen(const float* p, float (&x)[4]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+}
+
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float (&x)[8]) {
   const uint4 w = *reinterpret_cast<const uint4*>(p);
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // element 2i in the low half (bf16 -> f32 is exact)
+    x[2 * i] = __uint_as_float(u[i] << 16);
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const uint32_t u[2] = {w.x, w.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     x[2 * i] = __uint_as_float(u[i] << 16);
     x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
@@ -511,9 +553,13 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   using F = Fold<D>;
   using S = Smem<D, G, KV>;
   using E = typename KV::Elem;
+  constexpr int kVec = F::kVec;
   constexpr int kChunks = S::kRowBytes / 16;  // 16-byte chunks of a head row
-  constexpr int kCopies = 2 * F::kStageTok * kChunks / kThreads;
-  static_assert(2 * F::kStageTok * kChunks % kThreads == 0, "a stage splits evenly");
+  // A stage's chunks, kThreads a round; the last round is partial only at
+  // D = 80 in bf16 (320 chunks).
+  constexpr int kStageChunks = 2 * F::kStageTok * kChunks;
+  constexpr int kCopies = (kStageChunks + kThreads - 1) / kThreads;
+  constexpr bool kEven = kStageChunks % kThreads == 0;
 
   const int npages = (seq_len + bt - 1) / bt;
   const int spp = split_pages(npages);
@@ -561,6 +607,7 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
 #pragma unroll
     for (int k = 0; k < kCopies; ++k) {
       const int c = tid + k * kThreads;
+      if (!kEven && c >= kStageChunks) break;  // the same k for every stage
       const int side = c / (F::kStageTok * kChunks);
       const int r = (c / kChunks) % F::kStageTok;
       const int64_t base = tok0 + r < ntok ? sm_base[pi[k]] : -1;
@@ -579,8 +626,11 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
   };
 
   const int grp = tid / F::kLanes;  // token group (aligned lanes of one warp)
-  const int gl = tid % F::kLanes;   // lane in the group: elements gl*8 .. gl*8+7
+  const int gl = tid % F::kLanes;   // lane in the group: elements gl*kVec ..
   const int lane0 = (tid & 31) - gl;  // the group's first lane in the warp
+  // A lane past the row's elements (D = 80, 96) reads nothing and holds
+  // zeros; it still sums, holds scores and runs their softmax.
+  const bool active = F::kActive == F::kLanes || gl < F::kActive;
 
   // The group's kNV scores of a stage, score u * G + g for token u and query
   // head g, are shared out by transpose_sum: this lane holds scores idx0 + j,
@@ -600,7 +650,7 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     const T* qrow = q + (static_cast<int64_t>(row) * H + vkvh * G + g) * D + gl * kVec;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
-      qr[g][e] = its::to_f32(qrow[e]);
+      qr[g][e] = active ? its::to_f32(qrow[e]) : 0.f;
       acc[g][e] = 0.f;
     }
   }
@@ -641,7 +691,12 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
     for (int u = 0; u < F::kTokPerGroup; ++u) {
       const int r = grp + F::kGroups * u;
       ok[u] = sm_ok[st % kStages][r];
-      widen(ks + r * D + gl * kVec, x[u]);
+      if (active) {
+        widen(ks + r * D + gl * kVec, x[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) x[u][e] = 0.f;
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
@@ -654,7 +709,12 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
 #pragma unroll
     for (int u = 0; u < F::kTokPerGroup; ++u) {
       const int r = grp + F::kGroups * u;
-      widen(vs + r * D + gl * kVec, x[u]);
+      if (active) {
+        widen(vs + r * D + gl * kVec, x[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) x[u][e] = 0.f;
+      }
     }
     // The online softmax of the held heads: both tokens' scores, in token
     // order, from this lane and its partner.
@@ -710,10 +770,12 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
       sm_ml[(grp * G + idx0 + j) * 2 + 1] = l_own[j];
     }
   }
+  if (active) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
+      for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
+    }
   }
   __syncthreads();
   finish_split<D, G, F::kGroups>(smem, epi, scratch, tickets, row, vkvh, split, nsplit, H,
@@ -832,13 +894,24 @@ int by_group(int G, F& f) {
 
 template <typename T, typename F>
 int by_head_dim(int D, int G, F& f) {
+#ifdef ITS_DECODE_HEAD_DIM
+  // A timing build (cuda/decode_probe.py, chip_smoke.py's fold_ms): the one
+  // head_dim its shapes use, so it compiles an eighth of the kernels.
+  if (D == ITS_DECODE_HEAD_DIM) return by_group<T, ITS_DECODE_HEAD_DIM>(G, f);
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
   switch (D) {
+    case 8: return by_group<T, 8>(G, f);
     case 16: return by_group<T, 16>(G, f);
     case 32: return by_group<T, 32>(G, f);
     case 64: return by_group<T, 64>(G, f);
+    case 80: return by_group<T, 80>(G, f);
+    case 96: return by_group<T, 96>(G, f);
     case 128: return by_group<T, 128>(G, f);
+    case 256: return by_group<T, 256>(G, f);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
 
 // Validates the shape (the scratch's split count included), then calls

@@ -5,7 +5,8 @@
 //
 // Replaces infinistore_tpu/tpu/flash_prefill.py:_flash_prefill_pallas (bodies
 // _flash_kernel and _flash_update) for f32 inputs:
-//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H; D 16, 32, 64 or 128)
+//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H; D 8, 16, 32, 64, 80,
+//   96, 128 or 256)
 //   -> out [B, S, H, D] in f32. Dots are full-precision f32 FMAs; softmax statistics are f32.
 // Causal masking is by global position and needs S == T (the wrapper checks).
 //
@@ -17,8 +18,11 @@
 // Design: one CTA of 256 threads per (query tile of 64 rows, batch x head).
 // Q, K and V tiles sit in shared memory (Q and K rows padded by one word so
 // that threads reading different rows hit distinct banks); each thread
-// computes a 4 x 4 patch of the 64 x 64 logit tile and a 4 x (D/16) patch
-// of the output accumulator (4 x 1 at D = 16), kept in registers. Key tiles stop at the causal
+// computes a 4 x 4 patch of the 64 x 64 logit tile and a 4 x ceil(D/16) patch
+// of the output accumulator (4 x 1 at D = 16; at D = 8 the threads of
+// columns 8-15 of the patch hold none and idle through PV), kept in
+// registers. At D = 256 the tiles take 214,528 bytes of shared memory, one
+// CTA an SM. Key tiles stop at the causal
 // diagonal, so tiles above it are never read. A ragged last tile is handled
 // by bounds checks, not by a dividing tile size. Heavy (late) query tiles
 // are scheduled first. Left on the table: shared-memory bandwidth (each
@@ -60,7 +64,7 @@ flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
   float* row_a = row_l + kBQ;
   constexpr int KS = D + 1;  // Q and K row stride
   constexpr int PS = kBK + 1;
-  constexpr int DJ = D / 16;
+  constexpr int DJ = (D + 15) / 16;  // output columns tx + 16 j of this thread
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -181,7 +185,8 @@ flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty + 16 * i) * PS + c];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * D + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j)
+        vv[j] = D % 16 == 0 || tx + 16 * j < D ? Vs[c * D + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -198,7 +203,7 @@ flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
     const float l = fmaxf(row_l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[(q0 + r) * q_row + tx + 16 * j] = acc[i][j] / l;
+      if (D % 16 == 0 || tx + 16 * j < D) ob[(q0 + r) * q_row + tx + 16 * j] = acc[i][j] / l;
   }
 }
 
@@ -229,10 +234,14 @@ extern "C" int its_flash_prefill(const void* q, const void* k, const void* v, vo
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 8: return launch<8>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 80: return launch<80>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 96: return launch<96>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 256: return launch<256>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

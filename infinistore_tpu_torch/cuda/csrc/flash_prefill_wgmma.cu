@@ -2,7 +2,8 @@
 //
 // Replaces infinistore_tpu/tpu/flash_prefill.py:_flash_prefill_pallas (bodies
 // _flash_kernel and _flash_update) for bf16 inputs:
-//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H; D 16, 32, 64 or 128)
+//   q [B, S, H, D], k/v [B, T, KVH, D] (KVH divides H; D 8, 16, 32, 64, 80,
+//   96, 128 or 256)
 //   -> out [B, S, H, D] in bf16.
 // Q.K^T in bf16 with f32 accumulation; logits scaled by 1/sqrt(D) in f32;
 // f32 online-softmax statistics with m starting at -1e30; the probabilities
@@ -49,15 +50,26 @@
 // per 128 x 128 block of work, some 7 TB/s across the card at the
 // tensor-core rate), and the diagonal tile computes its masked half.
 //
-// Layout: every tile is swizzled at its row's span, min(2 D, 128) bytes: D
-// = 64 and 128 at 128 B (TMA's CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout
-// type 1), D = 32 at 64 B (SWIZZLE_64B, type 2), D = 16 at 32 B
-// (SWIZZLE_32B, type 3). A 128-byte span holds 64 bf16, so a D = 128 row is
-// two 64-column boxes, each a [rows, 128 B] block, and the descriptors step
-// across them; at D <= 64 a row is one box. QK takes D / 16 k-steps of 32
-// bytes (1 at D = 16, 2 at D = 32), and PV is m64nDk16 (n16 and n32 at the
-// small head_dims) with V MN-major through the transpose-B form, each k-step
-// 16 rows of V; O takes D / 2 registers a thread. The tensor maps are 4-D over [B, S, H, D] and [B, T, KVH, D],
+// Layout: every tile is swizzled at its row's span, the largest of 128, 64
+// and 32 bytes that divides the row's 2 D bytes: D = 64, 128 and 256 at 128
+// B (TMA's CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout type 1), D = 32 and 96
+// at 64 B (SWIZZLE_64B, type 2), D = 16 and 80 at 32 B (SWIZZLE_32B, type
+// 3). A row is D / (span / 2) boxes, each a [rows, span] block (D = 256:
+// four of 64 columns, D = 96: three of 32, D = 80: five of 16), and the
+// descriptors step across them. QK takes D / 16 k-steps of 32 bytes, and PV
+// is m64nDk16 (n16 to n256) with V MN-major through the transpose-B form,
+// each k-step 16 rows of V; O takes D / 2 registers a thread. D = 8, below
+// wgmma's k16, runs as D = 16 with columns 8-15 of every tile zero: each
+// box is 16 columns wide over an 8-column tensor, so TMA fills them with
+// zeros (its out-of-bounds fill, which costs no bytes read), they add
+// exact zeros to S, PV writes zeros into O's columns 8-15, and the
+// epilogue stores columns 0-7; the scale is 1/sqrt(8). That doubles the
+// tensor-core work of a head_dim whose prefill is launch-bound anyway
+// (PERF.md), where a CUDA-core instantiation would be a second kernel.
+// D = 256: O takes 128 registers a thread, so the key tile is 64 keys
+// (S and P 32 and 16 registers, beside O's 128, under kConsumerRegs) and the
+// ring 2 stages deep: Q 64 KiB + 2 x 2 x 32 KiB of K and V = 192 KiB.
+// The tensor maps are 4-D over [B, S, H, D] and [B, T, KVH, D],
 // so TMA fills rows past S or T with zeros inside each batch instead of
 // reading the next batch's rows. Within a query tile, consecutive items are
 // adjacent heads, so the query heads of one KV head read its tiles from L2.
@@ -75,8 +87,6 @@
 namespace {
 
 constexpr int kBQ = 128;        // query rows per work item: two warpgroups of 64
-constexpr int kBK = 128;        // keys per tile
-constexpr int kStages = 3;      // K/V ring depth
 constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
 // Registers per thread after setmaxnreg: each quarter of the register file
@@ -87,13 +97,20 @@ constexpr int kProducerRegs = 40;
 
 template <int D>
 struct Smem {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head_dim 16, 32, 64 or 128");
-  static constexpr int kSpan = D >= 64 ? 128 : 2 * D;  // bytes of one swizzled box row
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128 ||
+                    D == 256,
+                "head_dim 8, 16, 32, 64, 80, 96, 128 or 256");
+  static constexpr int kDP = D < 16 ? 16 : D;  // columns of a tile (D = 8: 8 zero columns)
+  static constexpr int kBK = D == 256 ? 64 : 128;    // keys per tile
+  static constexpr int kStages = D == 256 ? 2 : 3;  // K/V ring depth
+  static constexpr int kN = kBK / 2;                // S registers a thread
+  // Bytes of one swizzled box row: the largest of 128, 64, 32 dividing a row.
+  static constexpr int kSpan = 2 * kDP % 128 == 0 ? 128 : 2 * kDP % 64 == 0 ? 64 : 32;
   static constexpr int kBoxCols = kSpan / 2;           // bf16 columns of a box
   static constexpr int kSwizzleAtom = 8 * kSpan;       // 8 rows: the swizzle pattern's period
   // wgmma's descriptor layout type for the span: 128 B -> 1, 64 B -> 2, 32 B -> 3.
   static constexpr uint64_t kLayout = kSpan == 128 ? 1 : kSpan == 64 ? 2 : 3;
-  static constexpr int kBoxes = D / kBoxCols;      // boxes per row
+  static constexpr int kBoxes = kDP / kBoxCols;    // boxes per row
   static constexpr int kQBox = kBQ * kSpan;      // one box of the Q tile
   static constexpr int kKVBox = kBK * kSpan;     // one box of a K or V tile
   static constexpr int kQBytes = kBoxes * kQBox;
@@ -217,7 +234,44 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// S[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T: the 64-key tile of D = 256.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // O[64 x N] += P[64 x 16] (registers) . V[16 x N], V MN-major (transpose-B).
+__device__ __forceinline__ void wgmma_rs_m64n256_tb(float (&d)[128], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64], const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
   asm volatile(
@@ -231,6 +285,33 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64], const uint32
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n96_tb(float (&d)[48], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n80_tb(float (&d)[40], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -273,37 +354,51 @@ __device__ __forceinline__ void turn_pass(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
-// S = Q . K^T over D in steps of 16: 32 bytes within a box's span, box kk /
-// (span / 32).
+// S = Q . K^T over the tile's columns in steps of 16: 32 bytes within a
+// box's span, box kk / (span / 32).
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows, uint32_t k_tile) {
+__device__ __forceinline__ void issue_qk(float (&sc)[Smem<D>::kN], uint32_t q_rows,
+                                         uint32_t k_tile) {
   using L = Smem<D>;
   constexpr int kSteps = L::kSpan / 32;  // k-steps a box
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < L::kDP / 16; ++kk) {
     const uint32_t off = (kk / kSteps) * L::kQBox + (kk % kSteps) * 32;
     const uint32_t koff = (kk / kSteps) * L::kKVBox + (kk % kSteps) * 32;
-    wgmma_ss_m64n128(sc, sw_desc<L::kLayout>(q_rows + off, 16, L::kSwizzleAtom),
-                     sw_desc<L::kLayout>(k_tile + koff, 16, L::kSwizzleAtom), kk > 0);
+    const uint64_t da = sw_desc<L::kLayout>(q_rows + off, 16, L::kSwizzleAtom);
+    const uint64_t db = sw_desc<L::kLayout>(k_tile + koff, 16, L::kSwizzleAtom);
+    if constexpr (L::kBK == 128) {
+      wgmma_ss_m64n128(sc, da, db, kk > 0);
+    } else {
+      wgmma_ss_m64n64(sc, da, db, kk > 0);
+    }
   }
 }
 
-// O += P . V over the tile's keys in steps of 16 (16 rows of V each); for
-// D = 128 the descriptor's leading offset steps to V's second 64-column box.
+// O += P . V over the tile's keys in steps of 16 (16 rows of V each); where a
+// row is several boxes, the descriptor's leading offset steps across V's
+// boxes.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[32],
+__device__ __forceinline__ void issue_pv(float (&o)[Smem<D>::kDP / 2],
+                                         const uint32_t (&p)[Smem<D>::kBK / 4],
                                          uint32_t v_tile) {
   using L = Smem<D>;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
+  for (int kk = 0; kk < L::kBK / 16; ++kk) {
     const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
     const uint64_t desc =
         sw_desc<L::kLayout>(v_tile + kk * 16 * L::kSpan, L::kKVBox, L::kSwizzleAtom);
-    if constexpr (D == 128) {
+    if constexpr (L::kDP == 256) {
+      wgmma_rs_m64n256_tb(o, a, desc);
+    } else if constexpr (L::kDP == 128) {
       wgmma_rs_m64n128_tb(o, a, desc);
-    } else if constexpr (D == 64) {
+    } else if constexpr (L::kDP == 96) {
+      wgmma_rs_m64n96_tb(o, a, desc);
+    } else if constexpr (L::kDP == 80) {
+      wgmma_rs_m64n80_tb(o, a, desc);
+    } else if constexpr (L::kDP == 64) {
       wgmma_rs_m64n64_tb(o, a, desc);
-    } else if constexpr (D == 32) {
+    } else if constexpr (L::kDP == 32) {
       wgmma_rs_m64n32_tb(o, a, desc);
     } else {
       wgmma_rs_m64n16_tb(o, a, desc);
@@ -311,14 +406,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[
   }
 }
 
-// Online softmax of one S tile on the two rows this thread holds (row0 and
-// row0 + 8; its columns start at col0): replaces S by the tile's
-// probabilities (f32) and updates m, l and the factors alpha that rescale O.
-// A masked entry (key at or past T, or above the diagonal) counts as -inf in
-// the max and as 0 in P; the accumulator is only read, so a product still in
-// flight on other registers goes on.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], float (&l)[2],
+// Online softmax of one S tile (kN registers: 128 keys, or 64 at D = 256)
+// on the two rows this thread holds (row0 and row0 + 8; its columns start at
+// col0): replaces S by the tile's probabilities (f32) and updates m, l and
+// the factors alpha that rescale O. A masked entry (key at or past T, or
+// above the diagonal) counts as -inf in the max and as 0 in P; the
+// accumulator is only read, so a product still in flight on other registers
+// goes on.
+template <bool kMask, int kN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kN], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float scale_log2, int row0,
                                              int col0, int T, bool causal) {
   // Entry i of row j is valid when its column offset within the thread's
@@ -331,7 +427,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
   // max instructions would leave the issue slots idle).
   float part[2][8];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < kN; ++i) {
     const int j = (i / 2) % 2, u = (i / 4) % 4 * 2 + i % 2;
     if (kMask && 8 * (i / 4) + (i % 2) >= lim[j]) sc[i] = -INFINITY;
     part[j][u] = i < 16 ? sc[i] : fmaxf(part[j][u], sc[i]);  // i < 16: first of each
@@ -356,7 +452,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
   }
   float rs[2][4];  // row sums, 4 partials per row; they take p unrounded
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < kN; i += 2) {
     const int j = (i / 2) % 2, u = (i / 4) % 4;
     const float p0 = exp2_ftz(fmaf(sc[i], scale_log2, neg[j]));
     const float p1 = exp2_ftz(fmaf(sc[i + 1], scale_log2, neg[j]));
@@ -369,7 +465,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
     l[j] = alpha[j] * l[j] + ((rs[j][0] + rs[j][1]) + (rs[j][2] + rs[j][3]));
 }
 
-__device__ __forceinline__ void softmax(float (&sc)[64], float (&m)[2], float (&l)[2],
+template <int kN>
+__device__ __forceinline__ void softmax(float (&sc)[kN], float (&m)[2], float (&l)[2],
                                         float (&alpha)[2], float scale_log2, bool mask,
                                         int row0, int col0, int T, bool causal) {
   if (mask) {
@@ -390,9 +487,10 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) 
 
 // P rounded to bf16, in wgmma's register-A layout: consecutive accumulator
 // pairs of the m64nN layout.
-__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&p)[32]) {
+template <int kN>
+__device__ __forceinline__ void pack_p(const float (&sc)[kN], uint32_t (&p)[kN / 2]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  for (int i = 0; i < kN / 2; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 }
 
 // Work item i of n (heavy, late query tiles first; within a tile, adjacent
@@ -401,6 +499,7 @@ struct Item {
   int b, h, q0, n_kt;
 };
 
+template <int kBK>
 __device__ __forceinline__ Item item_at(int i, int S, int T, int H, int BH, int causal) {
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - i / BH;
@@ -426,6 +525,8 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
                     int S, int T, int H, int KVH, int BH, int causal, float scale_log2) {
   using L = Smem<D>;
+  constexpr int kBK = L::kBK;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzled tiles: 1 KiB aligned
   const uint32_t bar_q = base + L::kBars;
@@ -457,7 +558,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == kConsumers) {
       int g = 0;
       for (int r = 0, i; (i = round_item(r, n_items)) < n_items; ++r) {
-        const Item it = item_at(i, S, T, H, BH, causal);
+        const Item it = item_at<kBK>(i, S, T, H, BH, causal);
         const int kvh = it.h / group;
         if (r > 0) mbar_wait(bar_q_empty, (r - 1) & 1);
         mbar_expect_tx(bar_q, L::kQBytes);
@@ -495,15 +596,15 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int c0 = 2 * (lane % 4);
   const uint32_t q_rows = base + cw * 64 * L::kSpan;
   const int my_turn = 1 + cw, other_turn = 2 - cw;
-  constexpr int kOut = D / 2;  // O registers per thread
+  constexpr int kOut = L::kDP / 2;  // O registers per thread
   float o[kOut];
-  float sc[64];
-  uint32_t p[32];
+  float sc[L::kN];
+  uint32_t p[L::kN / 2];
   float m[2], l[2], alpha[2];
 
   int g0 = 0;  // the CTA's K/V tile stream: tile kt of this item is g0 + kt
   for (int r = 0, i; (i = round_item(r, n_items)) < n_items; ++r) {
-    const Item it = item_at(i, S, T, H, BH, causal);
+    const Item it = item_at<kBK>(i, S, T, H, BH, causal);
     const int n_kt = it.n_kt, q0 = it.q0, row0 = q0 + r0;
     auto k_tile = [&](int kt) { return base + L::kK + ((g0 + kt) % kStages) * L::kKVBytes; };
     auto v_tile = [&](int kt) { return base + L::kV + ((g0 + kt) % kStages) * L::kKVBytes; };
@@ -644,7 +745,8 @@ EncodeTiled encoder() {
 
 // A 4-D map over a contiguous bf16 [batch, rows, heads, D] tensor; one box is
 // Smem<D>::kBoxCols columns of one head over `box_rows` rows, swizzled at
-// its span (128, 64 or 32 bytes). Rows past `rows` read as zeros. Returns 0
+// its span (128, 64 or 32 bytes). Rows past `rows`, and at D = 8 the box's
+// columns 8-15, read as zeros. Returns 0
 // or the CUresult of cuTensorMapEncodeTiled.
 template <int D>
 int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int rows, int heads,
@@ -672,8 +774,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap q_map, k_map, v_map;
   int res = encode<D>(fn, &q_map, q, B, S, H, kBQ);
-  if (res == 0) res = encode<D>(fn, &k_map, k, B, T, KVH, kBK);
-  if (res == 0) res = encode<D>(fn, &v_map, v, B, T, KVH, kBK);
+  if (res == 0) res = encode<D>(fn, &k_map, k, B, T, KVH, Smem<D>::kBK);
+  if (res == 0) res = encode<D>(fn, &v_map, v, B, T, KVH, Smem<D>::kBK);
   if (res != 0) return -res;  // a failed encode: minus the driver's CUresult
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -710,10 +812,14 @@ extern "C" int its_flash_prefill_wgmma(const void* q, const void* k, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 8: return launch<8>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 80: return launch<80>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 96: return launch<96>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 256: return launch<256>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -26,11 +26,16 @@
 // each byte with a quarter-rate int-to-float:
 //   1. Loads: a lane owns kVec = 16 int8 elements of a token's head row, one
 //      16-byte read from the ring (8 at G = 8, which keeps q and acc at 128
-//      floats a thread, and at D = 16, which keeps 2 lanes a token). At D =
-//      128 a token sits on 8 lanes and a warp folds 4 tokens a step; a
-//      32-token stage carries 8 KiB of K and V, as many bytes as K3's bf16
-//      stage, so a split takes half K3's stages. At D = 16 and 32 a stage is
-//      64 to 128 tokens, whose scales take two copies a thread.
+//      floats a thread, at D = 16, which keeps 2 lanes a token, and at D =
+//      80 and 96; 4 at D = 8, one 4-byte read). At D = 128 a token sits on 8
+//      lanes and a warp folds 4 tokens a step; a 32-token stage carries 8 KiB
+//      of K and V, as many bytes as K3's bf16 stage, so a split takes half
+//      K3's stages. At D = 8, 16 and 32 a stage is 64 to 128 tokens, whose
+//      scales take two copies a thread. A token's lanes are a power of two:
+//      at D = 80 and 96 the 10 and 12 lanes of elements take 16, and the
+//      other 6 and 4 are idle (they read nothing and hold zeros, as in
+//      decode_fold.cuh). The ring copies 16-byte chunks of a row (8-byte
+//      ones at D = 8, whose rows are 8 bytes).
 //   2. Conversion: each byte becomes an exact f32 in two full-rate
 //      instructions: the byte, biased by 128, is permuted into the low byte
 //      of 2^23's bits, and one subtraction of 2^23 + 128 leaves its value.
@@ -53,8 +58,8 @@
 // its sharing run as in decode_fold.cuh, through a 4-stage cp.async ring
 // (rows past seq_len and pages outside [0, N) are zero-filled and masked).
 // f32 q stays on f32 FMAs; tensor cores are not used.
-// Shapes taken: those of decode_fold.cuh (head_dim 16, 32, 64 or 128; any
-// group, as virtual KV heads of Gc query heads).
+// Shapes taken: those of decode_fold.cuh (head_dim 8, 16, 32, 64, 80, 96,
+// 128 or 256; any group, as virtual KV heads of Gc query heads).
 
 #include "decode_fold.cuh"
 
@@ -66,12 +71,14 @@ namespace {
 // K scales and V scales.
 template <int D, int G>
 struct Q8Fold {
-  static constexpr int kVec = G <= 4 && D >= 32 ? 16 : 8;
-  static constexpr int kLanes = D / kVec;
+  static constexpr int kVec = D == 8 ? 4 : D == 80 || D == 96 ? 8 : G <= 4 && D >= 32 ? 16 : 8;
+  static constexpr int kActive = D / kVec;
+  static constexpr int kLanes = pow2_lanes(kActive);
   static constexpr int kGroups = kThreads / kLanes;
   static constexpr int kTokPerGroup = 2;
   static constexpr int kStageTok = kGroups * kTokPerGroup;
   static constexpr int kStages = 4;
+  static constexpr int kChunk = D < 16 ? D : 16;  // bytes of a ring copy of a row
   static constexpr int kSideBytes = kStageTok * D;
   static constexpr int kStageBytes = 2 * kSideBytes + 2 * kStageTok * 4;
   // The stage's K and V scales, one f32 copy each, kThreads a round.
@@ -104,14 +111,16 @@ struct Int8Pages {
 // 0x4B0000xx = 2^23 + b + 128, and one subtraction leaves b.
 template <int N>
 __device__ __forceinline__ void widen_s8(const int8_t* p, float (&x)[N]) {
-  static_assert(N == 8 || N == 16, "one 8- or 16-byte read");
+  static_assert(N == 4 || N == 8 || N == 16, "one 4-, 8- or 16-byte read");
   uint32_t w[N / 4];
   if constexpr (N == 16) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else {
+  } else if constexpr (N == 8) {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
@@ -134,10 +143,13 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
                                             int splits, float scale) {
   using F = Q8Fold<D, G>;
   constexpr int kVec = F::kVec;
-  constexpr int kChunks = D / 16;  // 16-byte chunks of a head row
-  constexpr int kCopies = 2 * F::kStageTok * kChunks / kThreads;
+  constexpr int kChunks = D / F::kChunk;  // ring copies of a head row
+  // A stage's row copies, kThreads a round; the last round is partial at D =
+  // 80 and 96 (160 and 192 copies).
+  constexpr int kStageChunks = 2 * F::kStageTok * kChunks;
+  constexpr int kCopies = (kStageChunks + kThreads - 1) / kThreads;
+  constexpr bool kEven = kStageChunks % kThreads == 0;
   constexpr int kAll = kCopies + F::kScaleCopies;
-  static_assert(2 * F::kStageTok * kChunks % kThreads == 0, "a stage splits evenly");
   static_assert(F::kLanes >= 2, "a token's pair of lanes");
 
   const int npages = (seq_len + bt - 1) / bt;
@@ -192,10 +204,17 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
       const int64_t base = tok0 + r < ntok ? sm_base[pi[k]] : -1;
       const int64_t at = base + static_cast<int64_t>(po[k]) * row_stride;
       if (k < kCopies) {
-        const int col = c % kChunks;
-        const int8_t* src = base >= 0 ? kv.data(side) + at + col * 16 : kv.data(side);
-        cp_async16(slot + side * F::kSideBytes + r * D + col * 16, src, base >= 0);
-        if (side == 0 && col == 0) sm_ok[st % F::kStages][r] = base >= 0;
+        if (kEven || c < kStageChunks) {
+          const int col = c % kChunks;
+          const int8_t* src = base >= 0 ? kv.data(side) + at + col * F::kChunk : kv.data(side);
+          void* dst = slot + side * F::kSideBytes + r * D + col * F::kChunk;
+          if constexpr (F::kChunk == 16) {
+            cp_async16(dst, src, base >= 0);
+          } else {
+            cp_async8(dst, src, base >= 0);
+          }
+          if (side == 0 && col == 0) sm_ok[st % F::kStages][r] = base >= 0;
+        }
       } else if (t < 2 * F::kStageTok) {
         const float* src = base >= 0 ? kv.scales(side) + at / D : kv.scales(side);
         cp_async4(slot + 2 * F::kSideBytes + t * 4, src, base >= 0);
@@ -211,6 +230,8 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
   const int grp = tid / F::kLanes;  // token group (aligned lanes of one warp)
   const int gl = tid % F::kLanes;   // lane in the group: elements gl*kVec ..
   const int lane0 = (tid & 31) - gl;
+  // A lane past the row's elements (D = 80, 96) reads nothing and holds zeros.
+  const bool active = F::kActive == F::kLanes || gl < F::kActive;
 
   // As in decode_fold.cuh: score u * G + g (token u, query head g) of a
   // stage; this lane holds scores idx0 + j, j < kHeld, all of token u_own,
@@ -222,18 +243,24 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
   constexpr int kTokLanes = F::kLanes / F::kTokPerGroup;  // lanes from a token's scores to the next's
   auto holder = [](int idx) { return kNV > F::kLanes ? idx / kHeld : idx * F::kLanes / kNV; };
 
-  // q in 16-byte loads (the wrapper checks q's alignment), widened as the
-  // fold widens a float cache's rows.
+  // q in 16-byte loads (8-byte ones in bf16 at D = 8; the wrapper checks q's
+  // alignment), widened as the fold widens a float cache's rows.
+  constexpr int kQVec = kVec < 8 ? kVec : 8;
   float qr[G][kVec], acc[G][kVec], m_own[kHeld], l_own[kHeld];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const T* qrow = q + (static_cast<int64_t>(row) * H + vkvh * G + g) * D + gl * kVec;
 #pragma unroll
-    for (int c = 0; c < kVec / 8; ++c) {
-      float part[8];
-      widen(qrow + 8 * c, part);
+    for (int c = 0; c < kVec / kQVec; ++c) {
+      float part[kQVec];
+      if (active) {
+        widen(qrow + kQVec * c, part);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qr[g][8 * c + e] = part[e];
+        for (int e = 0; e < kQVec; ++e) part[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < kQVec; ++e) qr[g][kQVec * c + e] = part[e];
     }
 #pragma unroll
     for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
@@ -263,7 +290,12 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
     float sv[kNV];  // this lane's partial dot products, then its held sums
 #pragma unroll
     for (int u = 0; u < F::kTokPerGroup; ++u) {
-      widen_s8(ks + (grp + F::kGroups * u) * D + gl * kVec, x);
+      if (active) {
+        widen_s8(ks + (grp + F::kGroups * u) * D + gl * kVec, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) x[e] = 0.f;
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
@@ -315,7 +347,12 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
     }
 #pragma unroll
     for (int u = 0; u < F::kTokPerGroup; ++u) {
-      widen_s8(vs + (grp + F::kGroups * u) * D + gl * kVec, x);
+      if (active) {
+        widen_s8(vs + (grp + F::kGroups * u) * D + gl * kVec, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) x[e] = 0.f;
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -335,10 +372,12 @@ __device__ __forceinline__ void quant_split(const T* __restrict__ q, const Int8P
       sm_ml[(grp * G + idx0 + j) * 2 + 1] = l_own[j];
     }
   }
+  if (active) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
+      for (int e = 0; e < kVec; ++e) sm_acc[(grp * G + g) * D + gl * kVec + e] = acc[g][e];
+    }
   }
   __syncthreads();
   finish_split<D, G, F::kGroups>(smem, epi, scratch, tickets, row, vkvh, split, nsplit, H,

@@ -1,4 +1,5 @@
-// K3: batched paged decode attention, and K6: its ragged form.
+// K3: batched paged decode attention, and K6: its ragged form (K6's entry
+// is in paged_attention_ragged.cu).
 //
 // K3 replaces infinistore_tpu/tpu/paged_attention.py:
 // _paged_decode_attention_pallas_batched (body _decode_attn_kernel, through
@@ -73,22 +74,5 @@ extern "C" int its_paged_decode_attention(const void* q, const void* k_cache,
         static_cast<const T*>(q),
         FloatKV<T>{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)}, tables,
         nullptr, seq_lens, Normalize<T>{static_cast<T*>(out)}, scratch, tickets, s);
-  });
-}
-
-extern "C" int its_paged_decode_attention_ragged(
-    const void* q, const void* k_cache, const void* v_cache, const int32_t* pages,
-    const int32_t* page_starts, const int32_t* seq_lens, void* out, float* scratch,
-    int* tickets, int dtype, int R, int H, int KVH, int D, int bt, int num_blocks, int P,
-    int width, int splits, void* stream) {
-  if (P <= 0 || width > P) return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{R, H, KVH, bt, num_blocks, width, P, splits,
-                static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, D, s, [&](auto c) {
-    using T = typename decltype(c)::T;
-    return launch<T, decltype(c)::D, decltype(c)::G, true>(
-        static_cast<const T*>(q),
-        FloatKV<T>{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)}, pages,
-        page_starts, seq_lens, Normalize<T>{static_cast<T*>(out)}, scratch, tickets, s);
   });
 }

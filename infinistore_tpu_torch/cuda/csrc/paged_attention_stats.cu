@@ -1,5 +1,6 @@
 // K5: paged decode attention's raw statistics, and K7: their ragged form,
-// the shard-local halves of sharded decode.
+// the shard-local halves of sharded decode (K7's entry is in
+// paged_attention_ragged_stats.cu).
 //
 // K5 replaces infinistore_tpu/tpu/paged_attention.py:
 // _paged_decode_attention_pallas_stats (body _decode_attn_stats_kernel):
@@ -49,22 +50,5 @@ extern "C" int its_paged_decode_attention_stats(
         static_cast<const T*>(q),
         FloatKV<T>{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)}, tables,
         nullptr, seq_lens, RawStats{acc, m, l}, scratch, tickets, s);
-  });
-}
-
-extern "C" int its_paged_decode_attention_ragged_stats(
-    const void* q, const void* k_cache, const void* v_cache, const int32_t* pages,
-    const int32_t* page_starts, const int32_t* seq_lens, float* acc, float* m, float* l,
-    float* scratch, int* tickets, int dtype, int R, int H, int KVH, int D, int bt,
-    int num_blocks, int P, int width, int splits, void* stream) {
-  if (P <= 0 || width > P) return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{R, H, KVH, bt, num_blocks, width, P, splits,
-                static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, D, s, [&](auto c) {
-    using T = typename decltype(c)::T;
-    return launch<T, decltype(c)::D, decltype(c)::G, true>(
-        static_cast<const T*>(q),
-        FloatKV<T>{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)}, pages,
-        page_starts, seq_lens, RawStats{acc, m, l}, scratch, tickets, s);
   });
 }

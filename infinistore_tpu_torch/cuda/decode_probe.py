@@ -16,11 +16,12 @@ compare the wrappers of two trees. For this checkout it also
 times the pieces of K3's wrapper one by one (``parts_us``).
 
 ``splits``: the decode fold's split policy. Builds ``paged_attention.cu``
-twice into ``_build/probe``: as it is (``adaptive``: a row of n pages in
-about 8 splits of 4 to 16 pages) and with every split 16 pages
-(``fixed16``: ``kMinSplitPages = 16``). Each library is held against the
-plain version at every shape, then both are timed through the wrappers
-(``timing.Timer``) in the order adaptive, fixed16, fixed16, adaptive.
+and ``paged_attention_ragged.cu`` (K3 and K6) twice into ``_build/probe``:
+as it is (``adaptive``: a row of n pages in about 8 splits of 4 to 16 pages)
+and with every split 16 pages (``fixed16``: ``kMinSplitPages = 16``). Each
+library is held against the plain version at every shape, then both are
+timed through the wrappers (``timing.Timer``) in the order adaptive,
+fixed16, fixed16, adaptive.
 
 ``k8``: K8 at the int8 round trip's wave (4 rows of 2,048 tokens, bf16 and
 f32 q). ``k5``: K5 at the sharded decode's 32,768-token request (bf16), and
@@ -48,8 +49,9 @@ merge) and with ``-DITS_DECODE_PROLOGUE`` (each CTA stops after its row's
 metadata, its page ids and q), and with ``--root`` the root's, beside an
 empty launch: the chain split into launch, prologue, stages and merge, with
 the CTAs launched and folding and the CTAs an SM holds. With ``--root``,
-every decode kernel at every path shape above and below is then held
-bitwise between this tree and the root and timed through both.
+every decode kernel at every path shape above and below, and K4 (bf16, on
+the tensor cores) at the round trip's prefill, are then held bitwise
+between this tree and the root and timed through both.
 
 Shapes (bf16, Llama-3-8B widths, 16-token blocks): K3 at the round trip's
 decode step (4 rows of 2,048 tokens), at ``prefill_continue`` (256 rows at
@@ -57,7 +59,8 @@ contexts 769-1,024 over one 72-block table) and at the sharded decode's
 32,768-token request; K6 on ``chip_smoke.py``'s skewed wave
 (``skewed_wave``) and at the engine's wave (4 x 8-token chunks at 1,024
 tokens); ``k7`` adds K5 at 32,768 tokens, K7 at the skewed wave and its
-quarter-shard and K8 at the int8 wave (``_path_cases``). Prints one JSON
+quarter-shard, K8 at the int8 wave and K4 at one 2,048-token prompt
+(32 heads over 8, bf16, causal) (``_path_cases``). Prints one JSON
 line per measurement.
 """
 
@@ -77,6 +80,14 @@ PROBE_DIR = os.path.join(HERE, os.pardir, "_build", "probe")
 BT, H, KVH, D = 16, 32, 8, 128
 SHARDED_CONTEXT = 32768  # tokens of the sharded decode's one request
 NOMERGE = "-DITS_DECODE_NOMERGE"
+# Every probe build instantiates the decode kernels at the head_dim its
+# shapes use alone (decode_fold.cuh: by_head_dim): an eighth of the compile.
+ONE_HEAD_DIM = f"-DITS_DECODE_HEAD_DIM={D}"
+K4_SOURCES = ("flash_prefill.cu", "flash_prefill_wgmma.cu")
+# The sources of K3, K6, K5 and K7 (an older tree has only the first and
+# the third, which hold all four entries).
+DECODE_SOURCES = ("paged_attention.cu", "paged_attention_ragged.cu", "paged_attention_stats.cu",
+                  "paged_attention_ragged_stats.cu")
 
 
 def _timing():
@@ -218,7 +229,9 @@ def _build_variant(nvcc, name, patches):
         f.write(src)
     lib = os.path.join(out, "lib.so")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xcompiler", "-fPIC", "-shared", os.path.join(out, "paged_attention.cu"), "-o", lib]
+           "-Xcompiler", "-fPIC", ONE_HEAD_DIM, "-shared",
+           *(os.path.join(out, src) for src in ("paged_attention.cu", "paged_attention_ragged.cu")),
+           "-o", lib]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
@@ -296,8 +309,10 @@ extern "C" int probe_occupancy(int which, int* blocks) {
 
 def build(name, sources, csrc=None, defines=()):
     """Starts ``nvcc`` on ``sources`` (files of ``csrc``, default this
-    tree's) with ``defines`` into ``_build/probe/name/lib.so``, all started
-    together. Returns a pending build for ``load``."""
+    tree's; those the tree does not have are skipped) with ``defines`` and
+    ``ONE_HEAD_DIM`` (which a tree without it ignores) into
+    ``_build/probe/name/lib.so``, all started together. Returns a pending
+    build for ``load``."""
     from infinistore_tpu_torch.cuda import _ext
 
     out = os.path.abspath(os.path.join(PROBE_DIR, name))
@@ -305,11 +320,12 @@ def build(name, sources, csrc=None, defines=()):
     os.makedirs(out)
     csrc = csrc or os.path.join(HERE, "csrc")
     objs, procs = [], []
-    for src in sources:
+    for src in (s for s in sources if os.path.exists(os.path.join(csrc, s))):
         obj = os.path.join(out, os.path.splitext(os.path.basename(src))[0] + ".o")
         objs.append(obj)
         procs.append(subprocess.Popen(
             [_ext._nvcc(), *_ext.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", *defines,
+             ONE_HEAD_DIM,
              "-I", csrc, "-c", os.path.join(csrc, src), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     return name, out, objs, procs
@@ -339,14 +355,15 @@ def load(pending):
     return lib
 
 
-def _libs(args, sources, extra=()):
+def _libs(args, sources, extra=(), root_extra=()):
     """name -> library: ``this`` (the package's), ``nomerge``, each (name,
-    -D flags) of ``extra`` and, with ``--root``, ``root`` (``sources`` and
-    ``paged_attention.cu``, whose split count the wrappers ask), built at
-    once; and this tree's occupancy query."""
+    -D flags) of ``extra`` and, with ``--root``, ``root`` (``sources``,
+    ``DECODE_SOURCES``, whose ``paged_attention.cu`` answers the wrappers'
+    split count, and ``root_extra``), built at once; and this tree's
+    occupancy query."""
     from infinistore_tpu_torch.cuda import _ext
 
-    sources = tuple(dict.fromkeys(("paged_attention.cu",) + sources))
+    sources = tuple(dict.fromkeys(DECODE_SOURCES + sources))
     occ = os.path.abspath(os.path.join(PROBE_DIR, "occupancy.cu"))
     os.makedirs(os.path.dirname(occ), exist_ok=True)
     with open(occ, "w") as f:
@@ -354,7 +371,7 @@ def _libs(args, sources, extra=()):
     pending = {"nomerge": build("nomerge", sources, defines=(NOMERGE,)),
                "occupancy": build("occupancy", (occ,))}
     if args.root:
-        pending["root"] = build("root", sources, csrc=os.path.join(
+        pending["root"] = build("root", sources + tuple(root_extra), csrc=os.path.join(
             os.path.abspath(args.root), "infinistore_tpu_torch", "cuda", "csrc"))
     for name, defines in extra:
         pending[name] = build(name, sources, defines=defines)
@@ -569,7 +586,9 @@ def _path_cases(torch, np, pa, kq):
     """Every decode kernel at every path shape this probe knows, as calls of
     the wrappers: K3 and K6 (``_shapes``), K5 at 32,768 tokens, K7 at the
     skewed wave and its quarter-shard, K8 at the int8 wave in both q
-    dtypes."""
+    dtypes; and K4 (bf16) at the round trip's 2,048-token prompt."""
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
     cases = {name: run for name, (run, _) in _shapes(torch, np, pa).items()}
     g = torch.Generator(device="cuda").manual_seed(77)
     a5 = _k5_inputs(torch, g)
@@ -579,6 +598,9 @@ def _path_cases(torch, np, pa, kq):
         cases[name] = lambda a=a7: pa._decode_attention_stats_ragged(*a)
     for name, a8 in _k8_inputs(torch, kq, g)[0].items():
         cases[f"k8_{name}"] = lambda a=a8: kq.paged_decode_attention_quantized(*a)
+    qkv = [torch.randn((1, 2048, heads, D), generator=g, device="cuda").to(torch.bfloat16)
+           for heads in (H, KVH, KVH)]
+    cases["k4_round_trip"] = lambda: fp.flash_prefill_attention(*qkv, causal=True)
     return cases
 
 
@@ -609,7 +631,7 @@ def k7(args):
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
     libs = _libs(args, ("paged_attention_stats.cu", "kv_quant.cu"),
-                 extra=(("prologue", (PROLOGUE,)),))
+                 extra=(("prologue", (PROLOGUE,)),), root_extra=K4_SOURCES)
     g = torch.Generator(device="cuda").manual_seed(7)
     shapes = {name: _k7_inputs(torch, pa, g, quarter)
               for name, quarter in (("k7_skewed", False), ("k7_quarter", True))}

@@ -44,8 +44,8 @@ def _flash_prefill_cuda(q, k, v, *, causal):
     """K4 on CUDA tensors. The kernel is chosen by dtype, and nothing else:
     bf16 goes to ``its_flash_prefill_wgmma`` (tensor cores), f32 to
     ``its_flash_prefill`` (CUDA cores: the f32 contract is HIGHEST-precision
-    dots, which wgmma has no form for), at head_dim 16, 32, 64 or 128 in
-    both; any other dtype or head_dim raises. There is no fallback: a failed build, tensor-map
+    dots, which wgmma has no form for), at every head_dim of
+    ``_ext.HEAD_DIMS`` in both; any other dtype or head_dim raises. There is no fallback: a failed build, tensor-map
     encode or launch raises. ``LAUNCHES["flash_prefill"]`` counts both;
     ``LAUNCHES["flash_prefill_wgmma"]`` the bf16 launches alone."""
     name = "flash_prefill_attention"
@@ -61,7 +61,7 @@ def _flash_prefill_cuda(q, k, v, *, causal):
         raise TypeError(f"{name}: unsupported dtype {q.dtype} (bfloat16 or float32)")
     if h % kvh or d not in _ext.HEAD_DIMS:
         raise ValueError(
-            f"{name}: kernel takes head_dim 16, 32, 64 or 128 and KV heads dividing "
+            f"{name}: kernel takes head_dim {_ext.HEAD_DIMS_TEXT} and KV heads dividing "
             f"the query heads; got head_dim {d}, {h} heads, {kvh} KV heads"
         )
     out = torch.empty_like(q)

@@ -105,7 +105,7 @@ def _check_decode_args(name, q, k_cache, v_cache, same_dtype=True):
         raise TypeError(f"{name}: q and caches must share a dtype")
     if h % kvh or d not in _ext.HEAD_DIMS:
         raise ValueError(
-            f"{name}: kernel takes head_dim 16, 32, 64 or 128 and KV heads dividing "
+            f"{name}: kernel takes head_dim {_ext.HEAD_DIMS_TEXT} and KV heads dividing "
             f"the query heads; got head_dim {d}, {h} heads, {kvh} KV heads"
         )
 

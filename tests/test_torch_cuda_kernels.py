@@ -2,8 +2,9 @@
 over the edge cases the main path does not reach: unaligned blocks and
 out-of-range ids on both routes, and blocks at the TMA bulk ring's chunk
 and stage edges, over one cache and many (K1/K2), every supported
-head_dim (16, 32, 64, 128) and GQA group (1, 2, 4, 8, and 3 and 7), the JAX
-package's own kernel cases, padded and over-long tables, zero-length rows
+head_dim (8, 16, 32, 64, 80, 96, 128, 256) and GQA group (1, 2, 4, 8, and 3
+and 7), the JAX package's own kernel cases (the model tests' head_dim 8
+among them), padded and over-long tables, zero-length rows
 (K3, and K6 over a ragged wave with pad pages, held bitwise against K3 row by row), ragged query tiles, full
 attention over a longer context and batch > 1 (K4: its bf16 tensor-core
 kernel at every 128-row tile edge, GQA group 1 and 4, and on inputs where
@@ -61,6 +62,9 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # Query heads a KV head: 1, 2, 4 and 8 (the kernels' own groups), 3 and 7
 # (folded as 3 and 7 virtual KV heads of one query head each), over 4 and
 # over 2 KV heads.
+# Every head_dim the attention kernels take (``_ext.HEAD_DIMS``, written out:
+# the module decides its tests without importing the package).
+HEAD_DIMS = [8, 16, 32, 64, 80, 96, 128, 256]
 GROUP_IDS = ["g1", "g2", "g4", "g8", "g3", "g7"]
 GROUPS4 = [(4 * g, 4) for g in (1, 2, 4, 8, 3, 7)]
 GROUPS2 = [(2 * g, 2) for g in (1, 2, 4, 8, 3, 7)]
@@ -214,7 +218,7 @@ def test_out_of_range_ids_are_left_unwritten_on_both_routes(dev, route):
                               "scatter_blocks": 1, "scatter_blocks_bulk": bulk}
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS4, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_matches_plain(dev, d, h, kvh, dtype):
@@ -246,9 +250,10 @@ def test_paged_decode_ignores_padding_and_rejects_shapes(dev):
     a = pa.paged_decode_attention_batched(q, kc, vc, torch.tensor([[2, 5, 0, 0]], dtype=torch.int32, device=dev), lens)
     b = pa.paged_decode_attention_batched(q, kc, vc, torch.tensor([[2, 5, 7, 1]], dtype=torch.int32, device=dev), lens)
     assert torch.equal(a, b)
+    # A head_dim outside _ext.HEAD_DIMS is refused.
     with pytest.raises(ValueError, match="head_dim"):
-        pa.paged_decode_attention_batched(q[..., :96].contiguous(), kc[..., :96].contiguous(),
-                                          vc[..., :96].contiguous(),
+        pa.paged_decode_attention_batched(q[..., :72].contiguous(), kc[..., :72].contiguous(),
+                                          vc[..., :72].contiguous(),
                                           torch.zeros((1, 2), dtype=torch.int32, device=dev), lens)
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_decode_attention_batched(q.transpose(1, 2).contiguous().transpose(1, 2), kc, vc,
@@ -256,7 +261,7 @@ def test_paged_decode_ignores_padding_and_rejects_shapes(dev):
 
 
 @pytest.mark.parametrize("s", [1, 37, 64, 100, 200])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_prefill_causal_matches_plain(dev, s, d, dtype):
     from infinistore_tpu_torch.cuda import flash_prefill as fp
@@ -297,7 +302,7 @@ def _k4_launch(fp, q, k, v, causal):
 @pytest.mark.parametrize("s", [1, 63, 64, 127, 128, 129, 1000, 1024, 2048])
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("group", [1, 4], ids=["g1", "g4"])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_prefill_wgmma_causal_matches_plain(dev, s, b, group, d):
     from infinistore_tpu_torch.cuda import flash_prefill as fp
 
@@ -310,7 +315,7 @@ def test_flash_prefill_wgmma_causal_matches_plain(dev, s, b, group, d):
 
 
 @pytest.mark.parametrize("s,t", [(1, 300), (70, 150), (129, 1000), (300, 2100)])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_prefill_wgmma_full_attention_matches_plain(dev, s, t, d):
     from infinistore_tpu_torch.cuda import flash_prefill as fp
 
@@ -348,7 +353,7 @@ def _rising_keys(b, s, t, h, kvh, d, dev):
 @pytest.mark.parametrize("s,t,causal", [(127, 127, True), (129, 129, True), (1000, 1000, True),
                                         (2048, 2048, True), (129, 1000, False),
                                         (300, 2100, False)])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_prefill_wgmma_mask_is_exact(dev, s, t, causal, d):
     """Every query row against the key it must end on: the diagonal (causal)
     or the last key T - 1 (full attention over a ragged tail), across every
@@ -436,7 +441,7 @@ def test_layerwise_roundtrip_through_pinned_staging(dev, enable_shm):
         srv.stop()
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS4, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ragged_decode_matches_plain_and_k3_bitwise(dev, d, h, kvh, dtype):
@@ -582,7 +587,7 @@ def _assert_k8_contract(kq, pa, q, kd, ks, vd, vs, tables, lens, got, plain_tabl
         assert torch.equal(solo[0], got[r]), r
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS4, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_decode_matches_plain_and_k3_over_the_dequantised_cache(dev, d, h, kvh,
@@ -611,7 +616,7 @@ def test_quantized_decode_matches_plain_and_k3_over_the_dequantised_cache(dev, d
     assert torch.all(got[0] == 0)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_stats_match_plain_and_combine_to_k3_k6_bitwise(dev, d, dtype):
     """K5 and K7 against their plain statistics (the empty row: acc 0, l 0,
@@ -732,7 +737,7 @@ def _split_case(dtype, d, h, kvh, dev, seed):
     return q, k, v, good.to(dev, torch.int32), bad.to(dev, torch.int32), lens_t
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_decode_k3_k6_at_split_edges(dev, d, h, kvh, dtype):
@@ -797,7 +802,7 @@ def test_split_rows_equal_their_solo_launch(dev, dtype):
         assert torch.equal(k3[0], wave[r]), r
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
@@ -831,7 +836,7 @@ def test_split_stats_combine_to_k3_k6_bitwise(dev, d, h, kvh, dtype):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_quantized_decode_is_k3_over_the_dequantised_cache(dev, d, h, kvh, dtype):
@@ -956,7 +961,7 @@ Q8_EDGE_LENS = [0, 1, SPLIT_BT, 4 * SPLIT_BT - 1, 4 * SPLIT_BT, 4 * SPLIT_BT + 1
                 256 * SPLIT_BT, 257 * SPLIT_BT, 512 * SPLIT_BT + 7]
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_decode_at_its_own_split_edges(dev, d, h, kvh, dtype):
@@ -1121,7 +1126,7 @@ LAUNCH_SPLIT_WIDTHS = [4, 8, 20, 28, 32, 144, 208, 256, 272, 520]
 
 
 @pytest.mark.parametrize("width", LAUNCH_SPLIT_WIDTHS)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", GROUPS2, ids=GROUP_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_family_at_every_launch_split_count(dev, width, d, h, kvh, dtype):
@@ -1370,15 +1375,21 @@ def test_v1_layer_wait_orders_the_runners_stream_after_the_load(dev, monkeypatch
 # kv_heads, head_dim, q_heads, table_len), tests/test_flash_prefill.py:36-41
 # (B, S, H, KVH, D; its block sizes have no counterpart here) and
 # tests/test_kv_quant.py:24 (16 blocks of 8 tokens, 2 KV heads, head_dim 32),
-# and the groups 3 and 7 beside them.
+# the groups 3 and 7 beside them, and the model tests' config
+# (tests/test_flash_prefill.py:107, tests/test_paged_attention.py:137 and
+# :557: LlamaConfig(dim=32, n_heads=4, n_kv_heads=2), head_dim 8, block 8, 8
+# cache blocks, tables of 4, prompts of 16 and 24 tokens).
 REFERENCE_DECODE_CASES = [(16, 8, 4, 16, 8, 8), (32, 16, 2, 32, 8, 16), (8, 8, 8, 16, 8, 4),
-                          (16, 8, 1, 64, 4, 16), (16, 8, 2, 16, 6, 8), (16, 8, 2, 32, 14, 8)]
+                          (16, 8, 1, 64, 4, 16), (16, 8, 2, 16, 6, 8), (16, 8, 2, 32, 14, 8),
+                          (8, 8, 2, 8, 4, 4)]
 REFERENCE_PREFILL_CASES = [(1, 32, 4, 2, 16), (2, 64, 8, 8, 32), (1, 16, 4, 1, 64),
-                           (1, 48, 2, 2, 16), (1, 40, 6, 2, 16), (2, 70, 14, 2, 32)]
+                           (1, 48, 2, 2, 16), (1, 40, 6, 2, 16), (2, 70, 14, 2, 32),
+                           (1, 24, 4, 2, 8)]
 
 
 @pytest.mark.parametrize("case", REFERENCE_DECODE_CASES,
-                         ids=["gqa2-d16", "gqa4-d32", "mha-d16", "mqa-d64", "g3-d16", "g7-d32"])
+                         ids=["gqa2-d16", "gqa4-d32", "mha-d16", "mqa-d64", "g3-d16", "g7-d32",
+                              "model-d8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_reference_decode_cases_k3_k5_k6_k7(dev, case, dtype):
     """K3 at the reference's sequence lengths (one token, a partial block, a
@@ -1433,7 +1444,8 @@ def test_reference_decode_cases_k3_k5_k6_k7(dev, case, dtype):
 
 
 @pytest.mark.parametrize("case", REFERENCE_PREFILL_CASES,
-                         ids=["gqa2-d16", "mha-d32", "mqa-d64", "d16", "g3-d16", "g7-d32"])
+                         ids=["gqa2-d16", "mha-d32", "mqa-d64", "d16", "g3-d16", "g7-d32",
+                              "model-d8"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_reference_prefill_cases_k4(dev, case, causal, dtype):
@@ -1456,8 +1468,8 @@ def test_reference_prefill_cases_k4(dev, case, causal, dtype):
     assert _err(got, fp.flash_prefill_plain(q, k, v, causal=causal)) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("h,d", [(4, 32), (8, 32), (4, 16), (6, 32), (14, 16)],
-                         ids=["g2-d32", "g4-d32", "g2-d16", "g3-d32", "g7-d16"])
+@pytest.mark.parametrize("h,d", [(4, 32), (8, 32), (4, 16), (6, 32), (14, 16), (4, 8)],
+                         ids=["g2-d32", "g4-d32", "g2-d16", "g3-d32", "g7-d16", "g2-d8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_reference_int8_geometry_k8(dev, h, d, dtype):
     """K8 at tests/test_kv_quant.py's geometry (16 blocks of 8 tokens, 2 KV

@@ -10,8 +10,8 @@ ragged wave), and the ticket counters (one per row, KV head and split), both
 from the stream's workspace, in the order of ``_ext.ARGTYPES``; read no
 device value on the call; move its launch counter once per launch; raise on
 a non-zero code with no fallback to the plain version; and raise on a bad
-shape or dtype before any launch. The kernels take head_dim 16, 32, 64 and
-128 and any group of query heads a KV head: each launch hands the library
+shape or dtype before any launch. The kernels take head_dim 8, 16, 32, 64,
+80, 96, 128 and 256 and any group of query heads a KV head: each launch hands the library
 its (dtype, head_dim, heads, KV heads), and the ticket counters cover
 the virtual KV heads a group folds as (H / Gc, Gc the largest of 8, 4, 2
 and 1 dividing the group: one counter per row, query head and split). The fold's split policy, read from its source's
@@ -356,10 +356,12 @@ def _bad_cases():
     q, k, v, tables, lens = _table_inputs()
     misaligned = torch.empty(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
     misaligned.copy_(k)
+    # The case keeps its name, "head_dim 96", from when 96 was refused; it
+    # holds 72, which is.
     cases += [
         ("K3", "head_dim 96", lambda: (lambda: pa._paged_decode_attention_cuda(
-            _f(1, (3, H, 96)), _f(2, (N, BT, KVH, 96)), _f(3, (N, BT, KVH, 96)), tables, lens)),
-         ValueError, "head_dim 16, 32, 64 or 128"),
+            _f(1, (3, H, 72)), _f(2, (N, BT, KVH, 72)), _f(3, (N, BT, KVH, 72)), tables, lens)),
+         ValueError, "head_dim 8, 16, 32, 64, 80, 96, 128 or 256"),
         ("K3", "7 heads over 2 KV heads", lambda: (lambda: pa._paged_decode_attention_cuda(
             _f(1, (3, 7, D)), k, v, tables, lens)), ValueError, "KV heads dividing"),
         ("K3", "int64 tables", lambda: (lambda: pa._paged_decode_attention_cuda(
@@ -412,11 +414,11 @@ GROUPS = {(2, 2): 2, (4, 2): 2, (6, 2): 6, (8, 2): 2, (12, 2): 6, (14, 2): 14, (
           (28, 4): 28, (32, 2): 4}
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", _ext.HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", list(GROUPS), ids=[f"h{h}-kvh{k}" for h, k in GROUPS])
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_every_head_dim_and_group_launches(fake_lib, kernel, h, kvh, d):
-    """head_dim 16, 32, 64 and 128 and any group launch, with no device
+    """Every head_dim of ``_ext.HEAD_DIMS`` and any group launch, with no device
     value read: the entry gets the call's (dtype, rows, H, KVH, D), the
     scratch is sized from them, and the tickets count a (row, virtual KV
     head, split) each."""

@@ -5,8 +5,9 @@ inputs. On the CPU the port runs the plain version of kernel K4.
 
 Also the CUDA path's dispatch, against a fake kernel library on CPU
 tensors: bf16 to the tensor-core entry, f32 to the CUDA-core one, both at
-head_dim 16, 32, 64 and 128; any other dtype or head_dim raised before a
-launch; and the two launch counters.
+every head_dim of ``_ext.HEAD_DIMS`` (8, 16, 32, 64, 80, 96, 128, 256); any
+other dtype or head_dim raised before a launch; and the two launch
+counters.
 
 Tolerances: f32 2e-5 (float32 rounding, another summation order); bf16 2e-2
 (the TPU kernel rounds the probabilities to bf16 before the PV product, the
@@ -120,7 +121,7 @@ def _torch_inputs(dtype, b=2, s=24, t=24, h=8, kvh=2, d=64):
     )
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", _ext.HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_bf16_reaches_the_tensor_core_entry(fake_lib, d, causal):
     t = 24 if causal else 40
@@ -135,7 +136,7 @@ def test_bf16_reaches_the_tensor_core_entry(fake_lib, d, causal):
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 1
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", _ext.HEAD_DIMS)
 def test_f32_reaches_the_cuda_core_entry(fake_lib, d):
     q, k, v = _torch_inputs(torch.float32, d=d)
     out = fp._flash_prefill_cuda(q, k, v, causal=True)
@@ -166,12 +167,14 @@ def test_counters_add_up_over_mixed_calls(fake_lib):
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 2
 
 
+# The ids keep their names from when 80, 96 and 256 were refused; the cases
+# hold 72, 112 and 512, which are.
 @pytest.mark.parametrize("dtype,d,error,match", [
     (torch.float16, 64, TypeError, "unsupported dtype"),
     (torch.float64, 128, TypeError, "unsupported dtype"),
-    (torch.bfloat16, 80, ValueError, "head_dim 16, 32, 64 or 128"),
-    (torch.bfloat16, 96, ValueError, "head_dim 16, 32, 64 or 128"),
-    (torch.float32, 256, ValueError, "head_dim 16, 32, 64 or 128"),
+    (torch.bfloat16, 72, ValueError, "head_dim 8, 16, 32, 64, 80, 96, 128 or 256"),
+    (torch.bfloat16, 112, ValueError, "head_dim 8, 16, 32, 64, 80, 96, 128 or 256"),
+    (torch.float32, 512, ValueError, "head_dim 8, 16, 32, 64, 80, 96, 128 or 256"),
 ], ids=["f16", "f64", "bf16-d80", "bf16-d96", "f32-d256"])
 def test_unsupported_dtype_or_head_dim_raises_before_any_launch(fake_lib, dtype, d, error,
                                                                 match):
