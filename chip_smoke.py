@@ -247,13 +247,18 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    block 8), and Phi-2's, Phi-3-mini's and Gemma-2B's heads (head_dim 80,
    32 over 32; 96, 32 over 32; 256, 8 over 1; bf16), beside Llama-2-7B's
    (head_dim 128, 32 over 32, bf16: the same CTAs as 80 and 96 with every
-   lane of a token busy). K3, K5, K6, K7 and K8 at each, K4 in f32 and
-   bf16 at every new head_dim and in bf16 at the 7-head group and
-   Llama-2-7B's heads, each against its
+   lane of a token busy), and the main path's heads at head_dim 64 (32
+   over 8, f32). K3, K5, K6, K7 and K8 at each, K4 in f32 and bf16 at
+   every one (so every head_dim has an f32 and a bf16 row), and in bf16 at
+   Gemma-2B's heads also over 4 prompts (each prompt bitwise its solo
+   launch), each against its
    plain version with the tolerances above (K6 bitwise K3, K5 / K7's
    combines bitwise K3 / K6, K8 held to its contract) and timed beside its
-   plain version and its bound (``shapes_taken`` on the ``kernels`` line,
-   which also lists each kernel's ``head_dims`` and ``groups``).
+   plain version and its bound, K4 also beside one SDPA call whose CUDA
+   kernels (``torch.profiler``) are logged, its backend and longest kernel
+   on the row (``library_backend``, ``library_kernel``; ``shapes_taken``
+   on the ``kernels`` line, which
+   also lists each kernel's ``head_dims`` and ``groups``).
 
 13-15 run after phase 11, on the main path's weights, before phase 12:
 13. The same-mesh block handoff (``cuda/ici.py``) at Llama-3-8B width
@@ -836,9 +841,9 @@ def kernel_phase(torch, timer, nomerge):
         torch, timer, g, tables, (full, ragged), n_cache)
     results["paged_decode_attention_stats"] = _stats_kernel_check(
         torch, timer, g, tables, (full, ragged), n_cache, nomerge)
-    # The shapes beyond the main path's: head_dim 8, 16, 32, 80, 96 and 256,
-    # 7 query heads a KV head. Each kernel's row lists the head_dims and
-    # groups it ran here.
+    # The shapes beyond the main path's: head_dim 8, 16, 32, 64, 80, 96 and
+    # 256, 7 query heads a KV head. Each kernel's row lists the head_dims
+    # and groups it ran here.
     taken = _shapes_taken_check(torch, timer, g)
     for name, row in results.items():
         if name not in taken:
@@ -1402,7 +1407,8 @@ def _stats_err(torch, stats, plain):
 # (``ROUND_TRIPS``; d96 is the Phi-3 round trip's decode step); mha128:
 # Llama-2-7B's heads (32 over 32, head_dim 128), bf16, whose tokens fill
 # the 16 lanes that d80 and d96 fill 10 and 12 of at the same CTA count:
-# the yardstick of their idle lanes.
+# the yardstick of their idle lanes; d64: the main path's heads (32 over 8)
+# at head_dim 64, f32.
 SHAPES_TAKEN = {
     "d16": ("float32", 4, 2, 16, 8),
     "d32": ("bfloat16", 8, 2, 32, 16),
@@ -1412,13 +1418,90 @@ SHAPES_TAKEN = {
     "d96": ("bfloat16", 32, 32, 96, 16),
     "d256": ("bfloat16", 8, 1, 256, 16),
     "mha128": ("bfloat16", 32, 32, 128, 16),
+    "d64": ("float32", 32, 8, 64, 16),
 }
-# K4 at those shapes in both dtypes where its head_dim is new, in bf16 at
-# g7 and mha128.
-SHAPES_TAKEN_K4 = {"d16": ("float32", "bfloat16"), "d32": ("float32", "bfloat16"),
-                   "g7": ("bfloat16",), "d8": ("float32", "bfloat16"),
-                   "d80": ("float32", "bfloat16"), "d96": ("float32", "bfloat16"),
-                   "d256": ("float32", "bfloat16"), "mha128": ("bfloat16",)}
+# K4 at every one of those shapes in both dtypes (so every head_dim has an
+# f32 and a bf16 row beside SDPA); at d256 in bf16 also at ``PROMPTS``
+# prompts (K4_BATCHED), where a prompt's output must be bitwise its solo
+# launch's.
+SHAPES_TAKEN_K4 = {label: ("float32", "bfloat16") for label in SHAPES_TAKEN}
+K4_BATCHED = ("d256", "bfloat16")
+
+
+def _sdpa_backend(torch, fn):
+    """Which SDPA backend one call of ``fn`` ran, from the CUDA kernels
+    ``torch.profiler`` saw: (backend, its longest kernel's name cut to 120
+    characters, the three longest kernels' names so cut)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {evt.key: getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0))
+             for evt in prof.key_averages()}
+    names = sorted((name for name, us in times.items() if us > 0), key=times.get, reverse=True)
+    joined = " ".join(names)
+    backend = ("cudnn" if "cudnn" in joined else "flash" if "flash_fwd" in joined else
+               "efficient" if "fmha_cutlass" in joined else "math")
+    return backend, (names[0] if names else "")[:120], [name[:120] for name in names[:3]]
+
+
+def _k4_shape_row(torch, timer, g, label, h, kvh, d, dname, prompts):
+    """K4 at one ``SHAPES_TAKEN`` shape: ``prompts`` prompts of
+    ``PROMPT_TOKENS`` tokens, held against its plain version (1e-5 f32,
+    2e-2 bf16) on its dtype's kernel; at several prompts each prompt bitwise
+    its solo launch. Timed beside its plain version, its bound (operations)
+    and one SDPA call (causal, GQA), whose backend and kernels are logged
+    (``_sdpa_backend``)."""
+    import torch.nn.functional as F
+
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    dtype = getattr(torch, dname)
+    tol = 1e-5 if dtype is torch.float32 else 2e-2
+    s_len = PROMPT_TOKENS
+    qp = torch.randn((prompts, s_len, h, d), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((prompts, s_len, kvh, d), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((prompts, s_len, kvh, d), generator=g, device="cuda").to(dtype)
+    what = f"flash_prefill {dname} at {label} x {prompts}"
+    before = dict(_ext.LAUNCHES)
+    got = fp.flash_prefill_attention(qp, kp, vp, causal=True)
+    wgmma = _ext.LAUNCHES["flash_prefill_wgmma"] - before["flash_prefill_wgmma"]
+    if _ext.LAUNCHES["flash_prefill"] - before["flash_prefill"] != 1 or \
+            wgmma != int(dtype is torch.bfloat16):
+        raise AssertionError(f"{what}: took the wrong kernel")
+    err = max_err(got, fp.flash_prefill_plain(qp, kp, vp, causal=True))
+    if prompts > 1 and not all(torch.equal(
+            fp.flash_prefill_attention(qp[i:i + 1], kp[i:i + 1], vp[i:i + 1], causal=True),
+            got[i:i + 1]) for i in range(prompts)):
+        raise AssertionError(f"{what}: a prompt differs from its solo launch")
+    torch.cuda.synchronize()
+    if not err <= tol:
+        raise AssertionError(f"{what}: max abs err {err} > {tol}")
+    pairs = s_len * (s_len + 1) // 2
+    bms, by = bound_ms((2 * s_len * h * d + 2 * s_len * kvh * d) * prompts * qp.element_size(),
+                       4.0 * d * h * pairs * prompts, dname)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qp, kp, vp))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    backend, top, names = _sdpa_backend(torch, sdpa)
+    log(f"SDPA at {label} ({dname}, {prompts} x {s_len} tokens): {backend} backend, kernels "
+        f"{names}")
+    row = dict(dtype=dname, heads=h, kv_heads=kvh, head_dim=d, group=h // kvh, prompts=prompts,
+               tokens=s_len, max_abs_err=err,
+               ms=timer.ms(lambda: fp.flash_prefill_attention(qp, kp, vp, causal=True)),
+               plain_ms=timer.ms(lambda: fp.flash_prefill_plain(qp, kp, vp, causal=True),
+                                 iters=3),
+               bound_ms=bms, bound_by=by, library_ms=timer.ms(sdpa), library_backend=backend,
+               library_kernel=top)
+    log(f"K4 {dname} at {label} ({prompts} x S={s_len}, {h} heads over {kvh}, head_dim {d}): "
+        f"{json.dumps(row)}; {bms / row['ms']:.3f} of its bound")
+    return row
 
 
 def _shapes_taken_check(torch, timer, g):
@@ -1429,12 +1512,8 @@ def _shapes_taken_check(torch, timer, g):
     K5's and K7's one-shard combines bitwise K3 and K6; K4 (f32 and bf16)
     against its plain version, each launch on its dtype's kernel. Each timed
     beside its plain version and its bound (the decode kernels by their
-    bytes, K4 by its operations), K4 also beside SDPA. Returns {kernel:
-    {shape: row}}."""
-    import torch.nn.functional as F
-
-    from infinistore_tpu_torch.cuda import _ext
-    from infinistore_tpu_torch.cuda import flash_prefill as fp
+    bytes, K4 by its operations), K4 also beside SDPA (``_k4_shape_row``).
+    Returns {kernel: {shape: row}}."""
     from infinistore_tpu_torch.cuda import kv_quant as kq
     from infinistore_tpu_torch.cuda import paged_attention as pa
 
@@ -1553,40 +1632,11 @@ def _shapes_taken_check(torch, timer, g):
         del kc, vc, kd, vd, k32, v32
 
         for k4_dtype_name in SHAPES_TAKEN_K4[label]:
-            k4_dtype = getattr(torch, k4_dtype_name)
-            k4_tol = 1e-5 if k4_dtype is torch.float32 else 2e-2
-            s_len = PROMPT_TOKENS
-            qp = torch.randn((1, s_len, h, d), generator=g, device="cuda").to(k4_dtype)
-            kp = torch.randn((1, s_len, kvh, d), generator=g, device="cuda").to(k4_dtype)
-            vp = torch.randn((1, s_len, kvh, d), generator=g, device="cuda").to(k4_dtype)
-            before = dict(_ext.LAUNCHES)
-            got = fp.flash_prefill_attention(qp, kp, vp, causal=True)
-            wgmma = _ext.LAUNCHES["flash_prefill_wgmma"] - before["flash_prefill_wgmma"]
-            if _ext.LAUNCHES["flash_prefill"] - before["flash_prefill"] != 1 or \
-                    wgmma != int(k4_dtype is torch.bfloat16):
-                raise AssertionError(f"flash_prefill {k4_dtype} at {label}: took the wrong "
-                                     "kernel")
-            err = max_err(got, fp.flash_prefill_plain(qp, kp, vp, causal=True))
-            torch.cuda.synchronize()
-            if not err <= k4_tol:
-                raise AssertionError(f"flash_prefill {k4_dtype} at {label}: max abs err {err} > "
-                                     f"{k4_tol}")
-            pairs = s_len * (s_len + 1) // 2
-            bms, by = bound_ms((2 * s_len * h * d + 2 * s_len * kvh * d) * qp.element_size(),
-                               4.0 * d * h * pairs, k4_dtype_name)
-            qt, kt, vt = (x.transpose(1, 2) for x in (qp, kp, vp))
-            row = dict(dtype=k4_dtype_name, heads=h, kv_heads=kvh, head_dim=d, group=h // kvh,
-                       tokens=s_len, max_abs_err=err,
-                       ms=timer.ms(lambda: fp.flash_prefill_attention(qp, kp, vp, causal=True)),
-                       plain_ms=timer.ms(lambda: fp.flash_prefill_plain(qp, kp, vp, causal=True),
-                                         iters=3),
-                       bound_ms=bms, bound_by=by,
-                       library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, is_causal=True, enable_gqa=True)))
-            out["flash_prefill"][f"{label}_{k4_dtype_name}"] = row
-            log(f"K4 {k4_dtype_name} at {label} (S={s_len}, {h} heads over {kvh}, head_dim {d}): "
-                f"{json.dumps(row)}; {bms / row['ms']:.3f} of its bound")
-            del qp, kp, vp, qt, kt, vt
+            out["flash_prefill"][f"{label}_{k4_dtype_name}"] = _k4_shape_row(
+                torch, timer, g, label, h, kvh, d, k4_dtype_name, 1)
+            if (label, k4_dtype_name) == K4_BATCHED:
+                out["flash_prefill"][f"{label}_{k4_dtype_name}_x{PROMPTS}"] = _k4_shape_row(
+                    torch, timer, g, label, h, kvh, d, k4_dtype_name, PROMPTS)
         torch.cuda.empty_cache()
     return out
 

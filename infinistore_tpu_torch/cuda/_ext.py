@@ -148,7 +148,9 @@ ARGTYPES = {
     "its_paged_decode_attention_ragged": [_P] * 9 + [_I] * 10 + [_P],
     # q, k, v, out, B, S, T, H, KVH, D, causal, stream
     "its_flash_prefill": [_P] * 4 + [_I] * 7 + [_P],
-    "its_flash_prefill_wgmma": [_P] * 4 + [_I] * 7 + [_P],
+    # q, k, v, out, scratch, tickets, B, S, T, H, KVH, D, causal, slots,
+    # stream (scratch and tickets: head_dim 256's merge, else null)
+    "its_flash_prefill_wgmma": [_P] * 6 + [_I] * 8 + [_P],
     # K3's, with acc, m, l in place of out
     "its_paged_decode_attention_stats": [_P] * 10 + [_I] * 9 + [_P],
     # K6's, with acc, m, l in place of out
@@ -202,13 +204,15 @@ def decode_splits(width: int) -> int:
 
 
 def split_workspace(device: torch.device, stream: int, floats: int, tickets: int):
-    """(scratch, tickets) of a decode launch on ``stream``: at least
+    """(scratch, tickets) of a split launch on ``stream`` (the decode
+    kernels' splits, bf16 K4's key split at head_dim 256): at least
     ``floats`` f32 of split scratch and at least ``tickets`` int32 ticket
     counters, zeros. Both are allocated once per (device, stream), on that
     stream, and grown when a launch needs more. Launches on one stream run in
     order, so they share them: a launch reads only the partials it wrote
-    itself, and leaves the tickets zero (the last split of a row resets its
-    counter). A stream of its own gets its own."""
+    itself, and leaves the tickets zero (the last split of a row, or the
+    second part of a split query tile, resets its counter). A stream of its
+    own gets its own."""
     key = (device, stream)
     with _workspace_lock:
         ws = _WORKSPACE.get(key)

@@ -66,9 +66,23 @@
 // epilogue stores columns 0-7; the scale is 1/sqrt(8). That doubles the
 // tensor-core work of a head_dim whose prefill is launch-bound anyway
 // (PERF.md), where a CUDA-core instantiation would be a second kernel.
-// D = 256: O takes 128 registers a thread, so the key tile is 64 keys
-// (S and P 32 and 16 registers, beside O's 128, under kConsumerRegs) and the
-// ring 2 stages deep: Q 64 KiB + 2 x 2 x 32 KiB of K and V = 192 KiB.
+// D = 256: O takes 128 registers a thread, so the key tile is 80 keys (S
+// and P 40 and 20 registers beside O's 128, under kConsumerRegs; wgmma
+// m64n80 for QK, five k-steps of PV) and the ring 2 stages deep: Q 64 KiB +
+// 2 x 2 x 40 KiB of K and V = 224 KiB. A few query heads over one prompt
+// (Gemma-2B: 8 heads, 16 query tiles at 2,048 tokens) give about one item
+// an SM, and the last query tile, which reads every key, would set the time
+// alone; so where a launch's heads have fewer than kSplitBelow query tiles,
+// the work is split over keys (Plan). A query tile that needs more than C =
+// ceil(n_max / 2) + 1 key tiles (n_max: the last tile's) is two items, keys
+// [0, C) and [C, n), and the items are dealt heaviest first. Each
+// warpgroup of the first of the two to finish writes its unnormalised O, m
+// and l (f32) to a scratch slot and publishes it on a ticket; the other
+// reads it and merges the two in the fixed order (keys [0, C) first)
+// before the epilogue, so the result does not depend on which finished
+// first. The plan depends on S, T, H and the causal flag alone, never on B
+// or the SM count: a prompt's output is the same in any batch, and two
+// launches are bitwise equal.
 // The tensor maps are 4-D over [B, S, H, D] and [B, T, KVH, D],
 // so TMA fills rows past S or T with zeros inside each batch instead of
 // reading the next batch's rows. Within a query tile, consecutive items are
@@ -82,7 +96,24 @@
 #include <cuda.h>
 #include <math.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+
+// Probe builds only (cuda/prefill_probe.py --variant): D = 256 without its
+// key split (ITS_K4_D256_NO_SPLIT), or with a split tile's two items each
+// storing its own part as if it were the whole tile, with no merge
+// (ITS_K4_NO_MERGE: wrong output; what the merge costs).
+#ifdef ITS_K4_D256_NO_SPLIT
+constexpr bool kSplit = false;
+#else
+constexpr bool kSplit = true;
+#endif
+#ifdef ITS_K4_NO_MERGE
+constexpr bool kMerge = false;
+#else
+constexpr bool kMerge = true;
+#endif
 
 namespace {
 
@@ -101,7 +132,7 @@ struct Smem {
                     D == 256,
                 "head_dim 8, 16, 32, 64, 80, 96, 128 or 256");
   static constexpr int kDP = D < 16 ? 16 : D;  // columns of a tile (D = 8: 8 zero columns)
-  static constexpr int kBK = D == 256 ? 64 : 128;    // keys per tile
+  static constexpr int kBK = D == 256 ? 80 : 128;    // keys per tile
   static constexpr int kStages = D == 256 ? 2 : 3;  // K/V ring depth
   static constexpr int kN = kBK / 2;                // S registers a thread
   // Bytes of one swizzled box row: the largest of 128, 64, 32 dividing a row.
@@ -117,9 +148,11 @@ struct Smem {
   static constexpr int kKVBytes = kBoxes * kKVBox;
   static constexpr int kK = kQBytes;                      // K stage s at kK + s * kKVBytes
   static constexpr int kV = kK + kStages * kKVBytes;      // V stage s at kV + s * kKVBytes
-  // Barriers: q_full, q_empty, k_full[], v_full[], empty[].
+  // Barriers: q_full, q_empty, k_full[], v_full[], empty[]; then each
+  // warpgroup's ticket word (D = 256's merge).
   static constexpr int kBars = kV + kStages * kKVBytes;
-  static constexpr int kBytes = kBars + 8 * (2 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr int kFlags = kBars + 8 * (2 + 3 * kStages);
+  static constexpr int kBytes = kFlags + 8 + 1024;  // + alignment slack
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -234,16 +267,17 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// S[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T: the 64-key tile of D = 256.
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
+// S[64 x 80] (+)= A[64 x 16] . B[80 x 16]^T: the 80-key tile of D = 256.
+__device__ __forceinline__ void wgmma_ss_m64n80(float (&d)[40], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -370,7 +404,7 @@ __device__ __forceinline__ void issue_qk(float (&sc)[Smem<D>::kN], uint32_t q_ro
     if constexpr (L::kBK == 128) {
       wgmma_ss_m64n128(sc, da, db, kk > 0);
     } else {
-      wgmma_ss_m64n64(sc, da, db, kk > 0);
+      wgmma_ss_m64n80(sc, da, db, kk > 0);
     }
   }
 }
@@ -494,9 +528,12 @@ __device__ __forceinline__ void pack_p(const float (&sc)[kN], uint32_t (&p)[kN /
 }
 
 // Work item i of n (heavy, late query tiles first; within a tile, adjacent
-// heads next to each other) as the query tile and batch x head it covers.
+// heads next to each other) as the query tile and batch x head it covers
+// and its key tiles [kt0, kt1). At D = 256 an item may be one of a split
+// query tile's two (chunk 0: keys [0, C), chunk 1: [C, n)); slot >= 0 then
+// names the merge's scratch slot and ticket.
 struct Item {
-  int b, h, q0, n_kt;
+  int b, h, q0, kt0, kt1, slot, chunk;
 };
 
 template <int kBK>
@@ -504,9 +541,101 @@ __device__ __forceinline__ Item item_at(int i, int S, int T, int H, int BH, int 
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - i / BH;
   const int bh = i % BH;
-  Item it{bh / H, bh % H, qt * kBQ, (T + kBK - 1) / kBK};
-  if (causal) it.n_kt = min(it.n_kt, (min(it.q0 + kBQ, S) - 1) / kBK + 1);
+  Item it{bh / H, bh % H, qt * kBQ, 0, (T + kBK - 1) / kBK, -1, 0};
+  if (causal) it.kt1 = min(it.kt1, (min(it.q0 + kBQ, S) - 1) / kBK + 1);
   return it;
+}
+
+// D = 256's key split, from S, T, H and the causal flag alone (the
+// wrapper's flash_prefill.wgmma_split mirrors it to size the scratch).
+// n_max: key tiles of the last query tile; a tile that needs more than C =
+// ceil(n_max / 2) + 1 is split, which holds for the tiles from q_s on (a
+// tile needs as many keys as the one before it, or more). Only a prompt of
+// few query tiles needs it: no split when its heads have kSplitBelow query
+// tiles or more, or when n_max < 2 * kMinChunk.
+constexpr int kMinChunk = 4;
+constexpr int kSplitBelow = 256;
+
+struct Plan {
+  int n_qt, C, q_s;
+};
+
+__device__ __forceinline__ int key_tiles(int qt, int S, int T, int causal, int kBK) {
+  const int all = (T + kBK - 1) / kBK;
+  return causal ? min(all, (min((qt + 1) * kBQ, S) - 1) / kBK + 1) : all;
+}
+
+__host__ __device__ __forceinline__ Plan make_plan(int S, int T, int causal, int H, int kBK) {
+  Plan p;
+  p.n_qt = (S + kBQ - 1) / kBQ;
+  const int all = (T + kBK - 1) / kBK;
+  const int n_max = causal ? (all < (S - 1) / kBK + 1 ? all : (S - 1) / kBK + 1) : all;
+  const bool split = kSplit && n_max >= 2 * kMinChunk && p.n_qt * H < kSplitBelow;
+  p.C = split ? (n_max + 1) / 2 + 1 : n_max;
+  const int q_s = p.C * kBK / kBQ;
+  p.q_s = !split ? p.n_qt : !causal ? 0 : q_s < p.n_qt ? q_s : p.n_qt;
+  return p;
+}
+
+// Items a batch x head: every query tile, and the split ones twice.
+__host__ __device__ __forceinline__ int plan_items(const Plan& p) { return 2 * p.n_qt - p.q_s; }
+
+// Item i under the split, heaviest first, as the back-and-forth rounds
+// want: per batch x head, the split tiles' first chunks (C key tiles each,
+// the heaviest) from the last query tile back; then the split tiles' second
+// chunks (A, n - C tiles from the last tile back) and the whole tiles (B,
+// from tile q_s - 1 back), two lists that each get lighter, merged by key
+// tiles (A first on a tie) with a merge-path binary search.
+__device__ __forceinline__ Item split_item_at(int i, const Plan& p, int S, int T, int H, int BH,
+                                              int causal, int kBK) {
+  const int v = i / BH, bh = i % BH;
+  const int n_split = p.n_qt - p.q_s;
+  int qt, chunk;  // chunk -1: a whole tile
+  if (v < n_split) {
+    qt = p.n_qt - 1 - v;
+    chunk = 0;
+  } else {
+    const int k = v - n_split;  // the merge's element k: a of A and k - a of B come before it
+    auto a_at = [&](int j) { return key_tiles(p.n_qt - 1 - j, S, T, causal, kBK) - p.C; };
+    auto b_at = [&](int j) { return key_tiles(p.q_s - 1 - j, S, T, causal, kBK); };
+    int lo = max(0, k - p.q_s), hi = min(k, n_split);
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (a_at(mid) >= b_at(k - mid - 1)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (lo < n_split && (k - lo >= p.q_s || a_at(lo) >= b_at(k - lo))) {
+      qt = p.n_qt - 1 - lo;
+      chunk = 1;
+    } else {
+      qt = p.q_s - 1 - (k - lo);
+      chunk = -1;
+    }
+  }
+  Item it{bh / H, bh % H, qt * kBQ, 0, (T + kBK - 1) / kBK, -1, 0};
+  if (causal) it.kt1 = min(it.kt1, (min(it.q0 + kBQ, S) - 1) / kBK + 1);
+  if (chunk >= 0) {
+    it.slot = (qt - p.q_s) * BH + bh;
+    it.chunk = chunk;
+    if (chunk == 0) {
+      it.kt1 = p.C;
+    } else {
+      it.kt0 = p.C;
+    }
+  }
+  return it;
+}
+
+// Floats a consumer thread writes to a merge slot: O, then m and l (float x
+// of thread t at x * 128 + t).
+constexpr int kPart = 128 + 4;
+
+// A warpgroup's own barrier (ids 3 and 4; 1 and 2 are the turns).
+__device__ __forceinline__ void wg_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + cw) : "memory");
 }
 
 // The item a CTA takes in its round r, or n when it has no more: rounds go
@@ -523,7 +652,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-                    int S, int T, int H, int KVH, int BH, int causal, float scale_log2) {
+                    float* __restrict__ scratch, int* __restrict__ tickets, int S, int T, int H,
+                    int KVH, int BH, int causal, float scale_log2) {
   using L = Smem<D>;
   constexpr int kBK = L::kBK;
   constexpr int kStages = L::kStages;
@@ -534,8 +664,16 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
   const uint32_t bar_k = bar_q_empty + 8;           // + 8 * stage
   const uint32_t bar_v = bar_k + 8 * kStages;
   const uint32_t bar_empty = bar_v + 8 * kStages;
-  const int n_items = (S + kBQ - 1) / kBQ * BH;
+  const Plan plan = make_plan(S, T, causal, H, kBK);
+  const int n_items = D == 256 ? plan_items(plan) * BH : (S + kBQ - 1) / kBQ * BH;
   const int group = H / KVH;
+  auto item_of = [&](int i) {
+    if constexpr (D == 256) {
+      return split_item_at(i, plan, S, T, H, BH, causal, kBK);
+    } else {
+      return item_at<kBK>(i, S, T, H, BH, causal);
+    }
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -558,14 +696,14 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == kConsumers) {
       int g = 0;
       for (int r = 0, i; (i = round_item(r, n_items)) < n_items; ++r) {
-        const Item it = item_at<kBK>(i, S, T, H, BH, causal);
+        const Item it = item_of(i);
         const int kvh = it.h / group;
         if (r > 0) mbar_wait(bar_q_empty, (r - 1) & 1);
         mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
         for (int x = 0; x < L::kBoxes; ++x)
           tma_load_4d(base + x * L::kQBox, &q_map, bar_q, L::kBoxCols * x, it.h, it.q0, it.b);
-        for (int kt = 0; kt < it.n_kt; ++kt, ++g) {
+        for (int kt = it.kt0; kt < it.kt1; ++kt, ++g) {
           const int s = g % kStages;
           if (g >= kStages) mbar_wait(bar_empty + 8 * s, (g / kStages - 1) & 1);
           const uint32_t k_dst = base + L::kK + s * L::kKVBytes;
@@ -604,8 +742,9 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   int g0 = 0;  // the CTA's K/V tile stream: tile kt of this item is g0 + kt
   for (int r = 0, i; (i = round_item(r, n_items)) < n_items; ++r) {
-    const Item it = item_at<kBK>(i, S, T, H, BH, causal);
-    const int n_kt = it.n_kt, q0 = it.q0, row0 = q0 + r0;
+    const Item it = item_of(i);
+    // Tile kt of this item is key tile kt0 + kt.
+    const int n_kt = it.kt1 - it.kt0, kt0 = it.kt0, q0 = it.q0, row0 = q0 + r0;
     auto k_tile = [&](int kt) { return base + L::kK + ((g0 + kt) % kStages) * L::kKVBytes; };
     auto v_tile = [&](int kt) { return base + L::kV + ((g0 + kt) % kStages) * L::kKVBytes; };
     auto wait_k = [&](int kt) {
@@ -623,7 +762,8 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
     };
     // Mask only tiles that reach past T or cross this warpgroup's diagonal.
     auto masked = [&](int kt) {
-      return kt * kBK + kBK > T || (causal && kt * kBK + kBK - 1 > q0 + 64 * cw);
+      const int k = (kt0 + kt) * kBK;
+      return k + kBK > T || (causal && k + kBK - 1 > q0 + 64 * cw);
     };
 
 #pragma unroll
@@ -645,7 +785,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
     turn_pass(other_turn);
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax(sc, m, l, alpha, scale_log2, masked(0), row0, c0, T, causal);
+    softmax(sc, m, l, alpha, scale_log2, masked(0), row0, kt0 * kBK + c0, T, causal);
     pack_p(sc, p);
     for (int kt = 0; kt + 1 < n_kt; ++kt) {
       turn_wait(my_turn);
@@ -666,7 +806,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
       // only once that product is done with P.
       wgmma_wait<1>();
       fence_regs(sc);
-      softmax(sc, m, l, alpha, scale_log2, masked(kt + 1), row0, (kt + 1) * kBK + c0, T,
+      softmax(sc, m, l, alpha, scale_log2, masked(kt + 1), row0, (kt0 + kt + 1) * kBK + c0, T,
               causal);
       wgmma_wait<0>();
       fence_regs(o);
@@ -695,6 +835,73 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     g0 += n_kt;
 
+    if constexpr (D == 256 && kMerge) {
+      if (it.slot >= 0) {
+        // One of a split tile's two items. The warpgroup's ticket counts
+        // arrivals (+1 each) and the first one's publication (+2): the first
+        // writes its O, m and l to the slot, the second waits for them and
+        // merges the two in chunk order, then stores as a whole tile does.
+        float* part = scratch + static_cast<int64_t>(it.slot * 2 + cw) * kPart * 128 + tid;
+        int* ticket = tickets + it.slot * 2 + cw;
+        volatile int* flag =
+            reinterpret_cast<volatile int*>(smem_raw + (base - smem_u32(smem_raw)) + L::kFlags) + cw;
+        if (tid == 0) *flag = atomicAdd(ticket, 1);
+        wg_sync(cw);
+        if (*flag == 0) {
+#pragma unroll
+          for (int x = 0; x < kOut; ++x) __stcg(part + x * 128, o[x]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            __stcg(part + (kOut + j) * 128, m[j]);
+            __stcg(part + (kOut + 2 + j) * 128, l[j]);
+          }
+          __threadfence();
+          wg_sync(cw);
+          if (tid == 0) atomicAdd(ticket, 2);
+          continue;
+        }
+        if (tid == 0) {
+          const long long start = clock64();
+          while (atomicAdd(ticket, 0) < 3) {
+            if (clock64() - start > (1ll << 32)) __trap();
+          }
+          __threadfence();
+          atomicExch(ticket, 0);  // the first never reads it again: zero for the next launch
+        }
+        wg_sync(cw);
+        const bool own0 = it.chunk == 0;  // this warpgroup holds keys [0, C)
+        float mt[2], lt[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mt[j] = __ldcg(part + (kOut + j) * 128);
+          lt[j] = __ldcg(part + (kOut + 2 + j) * 128);
+        }
+        float a0[2], a1[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float m0 = own0 ? m[j] : mt[j], m1 = own0 ? mt[j] : m[j];
+          const float l0 = own0 ? l[j] : lt[j], l1 = own0 ? lt[j] : l[j];
+          const float mx = fmaxf(m0, m1);
+          a0[j] = exp2_ftz((m0 - mx) * scale_log2);
+          a1[j] = exp2_ftz((m1 - mx) * scale_log2);
+          l[j] = l0 * a0[j] + l1 * a1[j];
+        }
+        // In quarters of 32 loads, each quarter's all in flight at once.
+#pragma unroll
+        for (int quarter = 0; quarter < 4; ++quarter) {
+          float ot[kOut / 4];
+#pragma unroll
+          for (int x = 0; x < kOut / 4; ++x) ot[x] = __ldcg(part + (quarter * kOut / 4 + x) * 128);
+#pragma unroll
+          for (int x = 0; x < kOut / 4; ++x) {
+            const int r = quarter * kOut / 4 + x;  // register r: row (r / 2) % 2
+            const float o0 = own0 ? o[r] : ot[x], o1 = own0 ? ot[x] : o[r];
+            o[r] = o0 * a0[(r / 2) % 2] + o1 * a1[(r / 2) % 2];
+          }
+        }
+      }
+    }
+
     // Epilogue: the quad's row sums, normalise, round to bf16, store rows < S.
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -718,6 +925,11 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
+}
+
+// D = 256: the plan's items a batch x head, on the host.
+int split_items_per_head(int S, int T, bool causal, int H) {
+  return plan_items(make_plan(S, T, causal ? 1 : 0, H, Smem<256>::kBK));
 }
 
 // cuTensorMapEncodeTiled, fetched once through the runtime (no -lcuda).
@@ -768,8 +980,8 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int row
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T, int H,
-           int KVH, bool causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* scratch, void* tickets,
+           int B, int S, int T, int H, int KVH, bool causal, cudaStream_t stream) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap q_map, k_map, v_map;
@@ -788,10 +1000,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_items = (S + kBQ - 1) / kBQ * B * H;
+  const int n_items = (D == 256 ? split_items_per_head(S, T, causal, H) : (S + kBQ - 1) / kBQ) *
+                      B * H;
   flash_prefill_wgmma<D><<<min(n_items, sms), kThreads, Smem<D>::kBytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), S, T, H, KVH, B * H,
-      causal ? 1 : 0, scale_log2);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(scratch),
+      static_cast<int*>(tickets), S, T, H, KVH, B * H, causal ? 1 : 0, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -799,27 +1012,37 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 
 // bf16 tensors only (f32 goes to its_flash_prefill). Returns 0, a
 // cudaError_t, or minus the CUresult of a failed tensor-map encode. Base
-// addresses must be 16-byte aligned (TMA).
+// addresses must be 16-byte aligned (TMA). At D = 256, `scratch` holds
+// `slots` merge slots (2 * kPart * 128 f32 each) and `tickets` 2 * slots
+// int32 zeros, left zero; a launch needs its split tiles' count times B * H
+// (flash_prefill.wgmma_split), and a smaller `slots` is refused.
 extern "C" int its_flash_prefill_wgmma(const void* q, const void* k, const void* v, void* out,
-                                       int B, int S, int T_len, int H, int KVH, int D,
-                                       int causal, void* stream) {
+                                       void* scratch, void* tickets, int B, int S, int T_len,
+                                       int H, int KVH, int D, int causal, int slots,
+                                       void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KVH <= 0 || H % KVH != 0 || T_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 256) {
+    const int64_t need = static_cast<int64_t>(split_items_per_head(S, T_len, causal != 0, H) -
+                                              (S + kBQ - 1) / kBQ) * B * H;
+    if (need > slots || (need > 0 && (scratch == nullptr || tickets == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   if (ptrs & 15) return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<int64_t>((S + kBQ - 1) / kBQ) * B * H > 0x7fffffff)
+  if (static_cast<int64_t>((S + kBQ - 1) / kBQ) * B * H * 2 > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8: return launch<8>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 80: return launch<80>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 96: return launch<96>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 256: return launch<256>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 8: return launch<8>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 16: return launch<16>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 32: return launch<32>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 64: return launch<64>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 80: return launch<80>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 96: return launch<96>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 128: return launch<128>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 256: return launch<256>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

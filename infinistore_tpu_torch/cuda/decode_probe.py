@@ -355,6 +355,30 @@ def load(pending):
     return lib
 
 
+class _OldK4Entry:
+    """A library whose bf16 K4 entry predates its merge workspace (q, k, v,
+    out, B, S, T, H, KVH, D, causal, stream), called with this tree's
+    arguments: the workspace's three are dropped."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self._k4 = lib.its_flash_prefill_wgmma
+        self._k4.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+    def its_flash_prefill_wgmma(self, q, k, v, out, _scratch, _tickets, *rest):
+        return self._k4(q, k, v, out, *rest[:-2], rest[-1])
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def _old_k4_entry(csrc):
+    """True when the tree at ``csrc`` has a bf16 K4 entry without the merge
+    workspace."""
+    path = os.path.join(csrc, "flash_prefill_wgmma.cu")
+    return os.path.exists(path) and "int slots," not in open(path).read()
+
+
 def _libs(args, sources, extra=(), root_extra=()):
     """name -> library: ``this`` (the package's), ``nomerge``, each (name,
     -D flags) of ``extra`` and, with ``--root``, ``root`` (``sources``,
@@ -370,13 +394,16 @@ def _libs(args, sources, extra=(), root_extra=()):
         f.write(OCCUPANCY_SRC)
     pending = {"nomerge": build("nomerge", sources, defines=(NOMERGE,)),
                "occupancy": build("occupancy", (occ,))}
+    root_csrc = os.path.join(os.path.abspath(args.root or "."), "infinistore_tpu_torch", "cuda",
+                             "csrc")
     if args.root:
-        pending["root"] = build("root", sources + tuple(root_extra), csrc=os.path.join(
-            os.path.abspath(args.root), "infinistore_tpu_torch", "cuda", "csrc"))
+        pending["root"] = build("root", sources + tuple(root_extra), csrc=root_csrc)
     for name, defines in extra:
         pending[name] = build(name, sources, defines=defines)
     libs = {"this": _ext.kernels()}
     libs.update((name, load(p)) for name, p in pending.items())
+    if args.root and "flash_prefill_wgmma.cu" in root_extra and _old_k4_entry(root_csrc):
+        libs["root"] = _OldK4Entry(libs["root"])
     return libs
 
 

@@ -9,7 +9,12 @@ among them), padded and over-long tables, zero-length rows
 attention over a longer context and batch > 1 (K4: its bf16 tensor-core
 kernel at every 128-row tile edge, GQA group 1 and 4, and on inputs where
 one leaked or dropped key would move the output by order 1; its f32 path
-on the CUDA cores, each counted by its own counter); the split-KV decode
+on the CUDA cores, each counted by its own counter; both bodies at every
+head_dim, prompts of 200 and 2,047 tokens, 1 and 4 prompts, groups 1, 2,
+4, 8 and 7, causal and full; bf16 at head_dim 256, whose heaviest query
+tiles are split over keys and merged, bitwise across launches and each
+prompt bitwise its solo launch, its merge workspace sized by the wrapper's
+plan and its tickets left zero; f32 inputs off a 16-byte boundary); the split-KV decode
 fold of K3, K5-K7 at and around every split edge (rows of 0 and 1 tokens,
 one split less, equal and more by a token, several splits, rows merged in
 the tree of more than 16 splits) and, with K8, at every launch split count
@@ -372,6 +377,100 @@ def test_flash_prefill_wgmma_mask_is_exact(dev, s, t, causal, d):
     assert float(gap[1:].min()) > 10 * TOL[torch.bfloat16]
     assert _err(got, want) <= TOL[torch.bfloat16]
     assert _err(got, fp.flash_prefill_plain(q, k, v, causal=causal)) <= TOL[torch.bfloat16]
+
+
+# Lengths off both bodies' tiles (f32: 64 rows, 64 keys; bf16: 128 rows,
+# 128 keys, 80 at head_dim 256, whose key split starts at 561 tokens).
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 7], ids=["g1", "g2", "g4", "g8", "g7"])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("s", [200, 2047])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_prefill_both_bodies_match_plain(dev, d, dtype, s, b, group, causal):
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    kvh = 2
+    q = _randn(50, (b, s, kvh * group, d), dtype, dev)
+    k = _randn(51, (b, s, kvh, d), dtype, dev)
+    v = _randn(52, (b, s, kvh, d), dtype, dev)
+    before = dict(_ext.LAUNCHES)
+    got = fp.flash_prefill_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["flash_prefill"] == before["flash_prefill"] + 1
+    assert _ext.LAUNCHES["flash_prefill_wgmma"] == \
+        before["flash_prefill_wgmma"] + (dtype == torch.bfloat16)
+    assert _err(got, fp.flash_prefill_plain(q, k, v, causal=causal)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("s", [1000, 2047, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_d256_bitwise_across_launches_and_batches(dev, s, dtype):
+    """Gemma-2B's heads (8 over 1) at head_dim 256: two launches bitwise
+    equal, and each prompt of a 4-prompt batch bitwise its solo launch (the
+    bf16 kernel's key split and merge order depend on the prompt alone)."""
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    q = _randn(53, (4, s, 8, 256), dtype, dev)
+    k = _randn(54, (4, s, 1, 256), dtype, dev)
+    v = _randn(55, (4, s, 1, 256), dtype, dev)
+    got = fp.flash_prefill_attention(q, k, v, causal=True)
+    assert torch.equal(got, fp.flash_prefill_attention(q, k, v, causal=True))
+    for i in range(4):
+        solo = fp.flash_prefill_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                          v[i:i + 1].contiguous(), causal=True)
+        assert torch.equal(solo, got[i:i + 1])
+    assert _err(got, fp.flash_prefill_plain(q, k, v, causal=True)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("s,t,causal", [(2048, 2048, True), (600, 600, True),
+                                        (300, 2100, False)])
+def test_flash_prefill_wgmma_merge_workspace_is_the_plans(dev, s, t, causal):
+    """The kernel refuses a merge workspace one slot short of the wrapper's
+    plan (``wgmma_split``), so the two agree; with the plan's slots it gives
+    the wrapper's output and leaves every ticket zero."""
+    from infinistore_tpu_torch.cuda import _ext
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    b, h, kvh, d = 2, 4, 1, 256
+    q = _randn(56, (b, s, h, d), torch.bfloat16, dev)
+    k = _randn(57, (b, t, kvh, d), torch.bfloat16, dev)
+    v = _randn(58, (b, t, kvh, d), torch.bfloat16, dev)
+    n_qt, _, q_s = fp.wgmma_split(s, t, causal, h)
+    slots = (n_qt - q_s) * b * h
+    assert slots > 0
+    scratch = torch.empty(slots * 2 * 128 * 132, dtype=torch.float32, device=dev)
+    tickets = torch.zeros(2 * slots, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    lib = _ext.kernels()
+
+    def launch(n):
+        return lib.its_flash_prefill_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           out.data_ptr(), scratch.data_ptr(),
+                                           tickets.data_ptr(), b, s, t, h, kvh, d,
+                                           int(causal), n, _ext.stream_of(q))
+
+    assert launch(slots - 1) != 0
+    assert launch(slots) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, fp.flash_prefill_attention(q, k, v, causal=causal))
+    assert int(tickets.abs().sum()) == 0
+
+
+def test_flash_prefill_f32_takes_inputs_off_a_16_byte_boundary(dev):
+    """The f32 kernel copies its tiles 16 bytes at a time, or 4 at a time
+    when an input is not 16-byte aligned; both give the plain version's
+    output."""
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+
+    for d in (64, 80, 256):
+        flat = _randn(59, (1 + 300 * 4 * d,), torch.float32, dev)
+        q = flat[1:].view(1, 300, 4, d)  # contiguous, 4 bytes past a 16-byte boundary
+        k = _randn(60, (1, 300, 2, d), torch.float32, dev)
+        v = _randn(61, (1, 300, 2, d), torch.float32, dev)
+        got = fp.flash_prefill_attention(q, k, v, causal=True)
+        assert _err(got, fp.flash_prefill_plain(q, k, v, causal=True)) <= TOL[torch.float32]
 
 
 def test_flash_prefill_f32_stays_on_the_cuda_cores(dev):

@@ -7,7 +7,12 @@ Also the CUDA path's dispatch, against a fake kernel library on CPU
 tensors: bf16 to the tensor-core entry, f32 to the CUDA-core one, both at
 every head_dim of ``_ext.HEAD_DIMS`` (8, 16, 32, 64, 80, 96, 128, 256); any
 other dtype or head_dim raised before a launch; and the two launch
-counters.
+counters. bf16 at head_dim 256 splits its heaviest query tiles over keys:
+its work plan (``wgmma_split`` / ``wgmma_items``, which the kernel computes
+alike) covers every (batch, head, query tile, key tile) once, the same for
+every batch size, and the wrapper hands the kernel a merge workspace of the
+plan's size. The plain version also meets the Pallas kernel at lengths that
+are no multiple of the kernels' tiles (64 and 128 rows, 64 and 80 keys).
 
 Tolerances: f32 2e-5 (float32 rounding, another summation order); bf16 2e-2
 (the TPU kernel rounds the probabilities to bf16 before the PV product, the
@@ -69,6 +74,93 @@ def test_causal_requires_equal_lengths():
     assert tuple(out.shape) == (1, 4, 4, 16)
 
 
+# Lengths off every tile of the two kernels (f32: 128 query rows, 64 at
+# head_dim 256, and 64 keys; bf16 at 256: 128 rows and 80 keys, and from
+# 561 tokens the key split), at the head_dims of the f32 kernel's two
+# layouts.
+@pytest.mark.parametrize("s", [81, 200, 600])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_matches_pallas_interpret_at_ragged_tiles(s, d, dtype, causal):
+    q, k, v = _inputs(200 + s + d, 1, s, 2, 1, d)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = fp.flash_prefill_plain(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                                 causal=causal)
+    assert got.dtype == tdt
+    want = _flash_prefill_pallas(*(jnp.asarray(x).astype(jdt) for x in (q, k, v)),
+                                 causal=causal, block_q=64, block_k=80, interpret=True)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def _n_key_tiles(s, t, causal, qt):
+    n_all = -(-t // fp._SPLIT_KEYS)
+    if not causal:
+        return n_all
+    return min(n_all, (min((qt + 1) * fp._SPLIT_ROWS, s) - 1) // fp._SPLIT_KEYS + 1)
+
+
+@pytest.mark.parametrize("s,t,causal,h", [(1, 1, True, 8), (24, 24, True, 8), (200, 200, True, 8),
+                                          (560, 560, True, 8), (561, 561, True, 8),
+                                          (1024, 1024, True, 8), (2047, 2047, True, 8),
+                                          (2048, 2048, True, 8), (2048, 2048, True, 16),
+                                          (4000, 4000, True, 3), (129, 1000, False, 8),
+                                          (300, 2100, False, 8), (2048, 640, False, 1)])
+def test_wgmma_items_cover_every_query_and_key_tile_once(s, t, causal, h):
+    """bf16 K4's plan at head_dim 256: over a launch of B x H (batch,
+    head) pairs, item i is ``wgmma_items[i // (B * H)]`` of pair
+    ``i % (B * H)``; every pair gets every (query tile, key tile) it needs
+    exactly once, in the same items in the same order whatever B is, split
+    tiles in two parts of at most C key tiles each, and one merge slot per
+    split tile."""
+    items = fp.wgmma_items(s, t, causal, h)
+    n_qt, c, q_s = fp.wgmma_split(s, t, causal, h)
+    assert len(items) == 2 * n_qt - q_s
+    for b in (1, 4):
+        bh = b * 3
+        order = [(i % bh, items[i // bh]) for i in range(len(items) * bh)]
+        for pair in range(bh):
+            assert [item for p, item in order if p == pair] == items
+        covered = {}
+        for pair, (qt, kt0, kt1, chunk) in order:
+            for kt in range(kt0, kt1):
+                key = (pair, qt, kt)
+                covered[key] = covered.get(key, 0) + 1
+        want = {(pair, qt, kt) for pair in range(bh) for qt in range(n_qt)
+                for kt in range(_n_key_tiles(s, t, causal, qt))}
+        assert set(covered) == want
+        assert set(covered.values()) == {1}
+    chunks = {}
+    for qt, kt0, kt1, chunk in items:
+        chunks.setdefault(qt, []).append((chunk, kt0, kt1))
+    for qt, parts in chunks.items():
+        if qt >= q_s:  # split: keys [0, C) then [C, n)
+            assert sorted(parts, key=lambda p: p[0]) == [
+                (0, 0, c), (1, c, _n_key_tiles(s, t, causal, qt))]
+            assert c < _n_key_tiles(s, t, causal, qt) <= 2 * c
+        else:
+            assert parts == [(None, 0, _n_key_tiles(s, t, causal, qt))]
+            assert _n_key_tiles(s, t, causal, qt) <= c or q_s == n_qt
+    # Heaviest first: the first C-tile parts, then no part heavier than C,
+    # each no heavier than the one before.
+    sizes = [kt1 - kt0 for _, kt0, kt1, _ in items]
+    assert max(sizes) == c and sizes[: n_qt - q_s] == [c] * (n_qt - q_s)
+    assert sizes == sorted(sizes, reverse=True)
+
+
+def test_wgmma_split_at_gemma_2b_prompt():
+    """One 2,048-token prompt over Gemma-2B's 8 heads: 16 query tiles, the
+    last needs 26 key tiles of 80; tiles 8-15 split at 14, so no item needs
+    more than 14 key tiles (it was 32 of 64 keys, the whole last tile). No
+    split under 2 x 4 key tiles, nor with 16 heads (256 query tiles)."""
+    assert fp.wgmma_split(2048, 2048, True, 8) == (16, 14, 8)
+    assert len(fp.wgmma_items(2048, 2048, True, 8)) == 24
+    assert fp.wgmma_split(500, 500, True, 8) == (4, 7, 4)
+    assert fp.wgmma_split(2048, 2048, True, 16) == (16, 26, 16)
+
+
 def test_cuda_path_refuses_cpu_tensors():
     q, k, v = _inputs(2, 1, 8, 4, 2, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -128,10 +220,11 @@ def test_bf16_reaches_the_tensor_core_entry(fake_lib, d, causal):
     q, k, v = _torch_inputs(torch.bfloat16, t=t, d=d)
     out = fp._flash_prefill_cuda(q, k, v, causal=causal)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
-    # q, k, v, out, B, S, T, H, KVH, D, causal, stream: the order of its argtypes.
+    # q, k, v, out, scratch, tickets, B, S, T, H, KVH, D, causal, slots,
+    # stream: the order of its argtypes; no split at 24 queries.
     assert fake_lib.calls == [("its_flash_prefill_wgmma", (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 24, t, 8, 2, d,
-        int(causal), _STREAM))]
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, 2, 24, t, 8, 2,
+        d, int(causal), 0, _STREAM))]
     assert _ext.LAUNCHES["flash_prefill"] == 1
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 1
 
@@ -153,9 +246,33 @@ def test_bf16_d32_launches_the_tensor_core_entry_with_d32(fake_lib):
     q, k, v = _torch_inputs(torch.bfloat16, d=32)
     out = fp._flash_prefill_cuda(q, k, v, causal=True)
     (name, args), = fake_lib.calls
-    assert name == "its_flash_prefill_wgmma" and args[9] == 32
+    assert name == "its_flash_prefill_wgmma" and args[11] == 32
     assert out.shape == q.shape
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 1
+
+
+@pytest.mark.parametrize("s,t,causal", [(1024, 1024, True), (300, 2100, False)])
+def test_bf16_d256_takes_a_merge_workspace_of_its_plan(fake_lib, s, t, causal):
+    """At head_dim 256 the wrapper passes the stream's split workspace: one
+    merge slot (two warpgroups x 128 threads x 132 f32) and two zero
+    tickets per split query tile and (batch, head); other head_dims and f32
+    pass none."""
+    q, k, v = _torch_inputs(torch.bfloat16, b=2, s=s, t=t, h=4, kvh=1, d=256)
+    fp._flash_prefill_cuda(q, k, v, causal=causal)
+    (name, args), = fake_lib.calls
+    n_qt, _, q_s = fp.wgmma_split(s, t, causal, 4)
+    slots = (n_qt - q_s) * 2 * 4
+    assert slots > 0 and args[13] == slots
+    scratch, tickets = _ext.split_workspace(q.device, _STREAM, 0, 0)
+    assert args[4] == scratch.data_ptr() and args[5] == tickets.data_ptr()
+    assert scratch.numel() >= slots * 2 * 128 * 132 and scratch.dtype == torch.float32
+    assert tickets.numel() >= 2 * slots and int(tickets.abs().sum()) == 0
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 256)):
+        fake_lib.calls.clear()
+        fp._flash_prefill_cuda(*_torch_inputs(dtype, s=s, t=t, d=d), causal=causal)
+        (name, args), = fake_lib.calls
+        assert (args[4], args[5], args[13]) == (None, None, 0) if dtype == torch.bfloat16 \
+            else len(args) == 12
 
 
 def test_counters_add_up_over_mixed_calls(fake_lib):

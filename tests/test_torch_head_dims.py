@@ -315,7 +315,7 @@ def _chip_smoke():
 
 def test_chip_smoke_round_trips_name_the_new_head_dims():
     """The round trips run head_dim 96 at full depth and 80 and 256 at 2
-    layers; ``SHAPES_TAKEN`` holds every new head_dim (K4 in both dtypes);
+    layers; ``SHAPES_TAKEN`` holds every head_dim (K4 in both dtypes);
     each round-trip path must launch K1-K4, K4 on the tensor cores and K1/K2
     on the bulk ring."""
     cs = _chip_smoke()
@@ -334,9 +334,16 @@ def test_chip_smoke_round_trips_name_the_new_head_dims():
     taken = {label: row[3] for label, row in cs.SHAPES_TAKEN.items()}
     for d in HEAD_DIMS:
         assert d in taken.values()
+    # K4 in both dtypes at every shape, so every head_dim the kernels take
+    # has an f32 and a bf16 row (head_dim 64: d64, 32 heads over 8; 128:
+    # mha128 and g7); Gemma-2B's shape in bf16 also at PROMPTS prompts.
+    assert set(cs.SHAPES_TAKEN_K4) == set(cs.SHAPES_TAKEN)
     for label, dtypes in cs.SHAPES_TAKEN_K4.items():
-        if taken[label] in HEAD_DIMS:
-            assert set(dtypes) == {"float32", "bfloat16"}
+        assert set(dtypes) == {"float32", "bfloat16"}
+    assert set(taken.values()) == set(_ext.HEAD_DIMS)
+    assert cs.SHAPES_TAKEN["d64"][1:4] == (32, 8, 64)
+    assert {taken["mha128"], taken["g7"]} == {128}
+    assert cs.K4_BATCHED == ("d256", "bfloat16") and cs.PROMPTS == 4
 
 
 def test_chip_smoke_round_trip_rehearsal_on_cpu():
