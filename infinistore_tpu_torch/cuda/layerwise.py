@@ -22,7 +22,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import wire
+from .. import tracing, wire
 from ..lib import InfiniStoreException, InfiniStoreKeyNotFound, InfiniStoreResourcePressure
 from .paged import PagedKVCacheSpec, gather_blocks_many, scatter_blocks_many
 from .staging import HostStagingPool, StagingPoolExhausted
@@ -53,6 +53,18 @@ def kv_block_key(model: str, chain_hash: str, layer: int, kind: str, block: int)
 
 def _block_ids_on(block_ids, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(block_ids, dtype=torch.int32, device=device)
+
+
+def _block_ids_blocking(block_ids, device: torch.device) -> torch.Tensor:
+    """``_block_ids_on`` on the event loop's hot path: a copy from pageable
+    host memory, which waits for the device's stream, traced as a
+    ``loop.block`` (``what`` ``h2d``)."""
+    block = tracing.start_span("loop.block")
+    ids = _block_ids_on(block_ids, device)
+    if block is not None:
+        block.annotate(what="h2d")
+        block.finish()
+    return ids
 
 
 class _LayerRegions:
@@ -97,7 +109,11 @@ class LayerwiseKVWriter:
     and ship previous layers' host buffers on the network concurrently — up
     to ``depth`` layer-groups of puts in flight. Puts go straight from the
     pinned copy (registered for the op's lifetime), so the only host copy is
-    the one into the server's pool."""
+    the one into the server's pool.
+
+    Waiting for a layer's copy (and registering its buffer) blocks the
+    event-loop thread: traced, each wait is a ``loop.block`` span (``what``
+    ``d2h``) under the caller's active span."""
 
     def __init__(self, conn, pool: HostStagingPool, spec: PagedKVCacheSpec,
                  max_blocks: int, depth: int = 2, d2h_window: int = 4):
@@ -131,7 +147,7 @@ class LayerwiseKVWriter:
             return 0
         if n > self.max_blocks:
             raise ValueError(f"{n} blocks > writer capacity {self.max_blocks}")
-        ids_dev = _block_ids_on(block_ids, caches[0][0].device)
+        ids_dev = _block_ids_blocking(block_ids, caches[0][0].device)
         pool = self.pool
         bn = self.spec.block_nbytes
         # (futures, registered transfer, blocks count) groups in flight.
@@ -185,7 +201,11 @@ class LayerwiseKVWriter:
                     # completed (= committed) before the sentinel ships.
                     while inflight:
                         total += await drain_one()
+                block = tracing.start_span("loop.block")
                 (kv_host,) = tr.wait()  # registers the packed buffer
+                if block is not None:
+                    block.annotate(what="d2h", layer=layer)
+                    block.finish()
                 base = kv_host.ctypes.data
                 pri_kw = wire.qos_kwargs(self.conn, priority)
                 futs = (
@@ -422,6 +442,9 @@ class LayerwisePrefetch:
         self._layer_ids: Optional[torch.Tensor] = None
         self.fetch_started_s = time.perf_counter()
         self.fetch_finished_s: Optional[float] = None
+        # Traced only: the now_us() stamp of the latest layer to land in
+        # staging (the engine's install span reads it as ``staged``).
+        self.last_landed_us: Optional[int] = None
         self._cancelled = False
         self._discarded = False
         self._error: Optional[BaseException] = None  # first store failure
@@ -511,6 +534,8 @@ class LayerwisePrefetch:
             self._cancel_rest()
             return
         self.blocks_fetched += 2 * n
+        if tracing.enabled():
+            self.last_landed_us = tracing.now_us()
         if not self._staged[layer].done():
             self._staged[layer].set_result(layer % self.regions)
         if layer == self.num_layers - 1:
@@ -699,7 +724,7 @@ class LayerwisePrefetch:
                 f"cache list has {len(caches)} layers, prefetch fetched {self.num_layers}"
             )
         device = caches[0][0].device
-        ids_dev = _block_ids_on(block_ids, device)
+        ids_dev = _block_ids_blocking(block_ids, device)
         stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
         loop = asyncio.get_running_loop()
         fused = (

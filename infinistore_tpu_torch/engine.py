@@ -198,7 +198,15 @@ class DeviceGate:
     await points would tear a request's blocks. Shared: gather-only phases
     (save snapshots, verification reads) — they overlap each other freely
     and are over in microseconds, after which the actual store I/O runs
-    with no gate held at all."""
+    with no gate held at all.
+
+    Traced (``tracing``), each request for the gate is an ``engine.gate``
+    span of the caller's ``kind`` (``install``, ``load``, ``prefill``,
+    ``resume``, ``wave``; ``snapshot`` or ``verify`` for shared holders):
+    opened at the request, ``acquire`` stamped when granted, closed at
+    release, so wait = start -> ``acquire`` and hold = ``acquire`` -> end
+    (a wait that is cancelled records no span). ``parent`` names the span
+    it belongs to (default: the active span)."""
 
     def __init__(self):
         self._cond = asyncio.Condition()
@@ -219,7 +227,11 @@ class DeviceGate:
         self._expedite_waiting = 0
 
     @asynccontextmanager
-    async def exclusive(self, expedite: bool = False):
+    async def exclusive(self, expedite: bool = False, kind: str = "exclusive",
+                        parent=None):
+        span = tracing.start_span("engine.gate", parent=parent)
+        if span is not None:
+            span.annotate(kind=kind, exclusive=True)
         async with self._cond:
             self._exclusive_waiting += 1
             if expedite:
@@ -239,20 +251,29 @@ class DeviceGate:
                 # notify they would sleep forever on a free gate.
                 self._cond.notify_all()
             self._exclusive = True
+        if span is not None:
+            span.stage("acquire")
         try:
             yield
         finally:
             async with self._cond:
                 self._exclusive = False
                 self._cond.notify_all()
+            if span is not None:
+                span.finish()
 
     @asynccontextmanager
-    async def shared(self):
+    async def shared(self, kind: str = "shared"):
+        span = tracing.start_span("engine.gate")
+        if span is not None:
+            span.annotate(kind=kind, exclusive=False)
         async with self._cond:
             await self._cond.wait_for(
                 lambda: not self._exclusive and self._exclusive_waiting == 0
             )
             self._shared += 1
+        if span is not None:
+            span.stage("acquire")
         try:
             yield
         finally:
@@ -260,6 +281,8 @@ class DeviceGate:
                 self._shared -= 1
                 if self._shared == 0:
                     self._cond.notify_all()
+            if span is not None:
+                span.finish()
 
 
 class WaveDecoder:
@@ -375,6 +398,9 @@ class WaveDecoder:
         # step() can legally start a second flush while the first is still
         # in flight — a single slot would drop the older task's reference.
         self._flush_tasks = set()
+        # Traced only: a pending chunk's future -> (its request's trace id,
+        # its enqueue stamp), read into the wave's span when taken.
+        self._row_trace: dict = {}
         self.waves = 0
         self.max_wave = 0
         self.bucket_sizes = set()  # distinct PADDED (B, T, P) launch shapes
@@ -424,6 +450,9 @@ class WaveDecoder:
         self._pending.append(
             (list(tokens), list(positions), padded_table, fut, now, priority, 0)
         )
+        rspan = tracing.active_span()
+        if rspan is not None:
+            self._row_trace[fut] = (rspan.trace_id, tracing.us_of_perf(now))
         if not self._flush_scheduled:
             self._flush_scheduled = True
             task = asyncio.ensure_future(self._flush())
@@ -545,7 +574,14 @@ class WaveDecoder:
             task.add_done_callback(self._flush_tasks.discard)
 
     async def _flush(self):
+        """One wave. Traced, a ``model.wave`` root span: ``take`` when the
+        batch is taken, ``acquire`` when the gate is granted, ``launched``
+        when ``verify_step_ragged`` returned on the host; attrs ``rows``,
+        ``tokens``, ``t_bucket``, ``pages`` and, per row, its request's
+        trace id (``requests``) and its ``step_chunk`` enqueue stamp
+        (``enqueued_us``)."""
         batch: List[tuple] = []
+        wave = None
         try:
             # Yield twice: once so sibling coroutines already unblocked this
             # tick can enqueue, once more for requests their completions wake.
@@ -572,6 +608,9 @@ class WaveDecoder:
                         age_us = (now - e[4]) * 1e6
                         self.defer_ages_us.append(age_us)
                         _WAVE_COUNTERS.note_defer_age(age_us)
+            wave = tracing.start_span("model.wave", root=True)
+            if wave is not None:
+                wave.stage("take")
             # Ragged assembly (class docstring): concatenate the chunks
             # into one flat token list; pad only at the tail to the
             # power-of-two row bucket by repeating the last flat row
@@ -623,14 +662,26 @@ class WaveDecoder:
             if self.skew_policy:
                 _WAVE_COUNTERS.bump("engine_wave_policy_waves")
                 _WAVE_COUNTERS.note_wave(t_real, t_bucket)
+            if wave is not None:
+                rows = [self._row_trace.pop(b[3], (0, 0)) for b in batch]
+                wave.annotate(rows=len(batch), tokens=t_real, t_bucket=t_bucket,
+                              pages=meta.num_pages,
+                              requests=[r[0] for r in rows],
+                              enqueued_us=[r[1] for r in rows])
 
             # The wave's int32 metadata travels to the device in ONE copy.
+            block = tracing.start_span("loop.block", parent=wave)
             toks_d, pos_d, row_d, pages_d, prow_d, pst_d, tables_d = _int32_on(
                 self.h.params["embed"].device,
                 flat_toks, flat_pos, row_of, meta.pages, meta.page_rows,
                 meta.page_starts, np.stack(tables),
             )
-            async with self.h.gate.exclusive():
+            if block is not None:
+                block.annotate(what="h2d")
+                block.finish()
+            async with self.h.gate.exclusive(kind="wave", parent=wave):
+                if wave is not None:
+                    wave.stage("acquire")
                 logits, self.h.caches = verify_step_ragged(
                     self.h.params,
                     toks_d,
@@ -644,6 +695,10 @@ class WaveDecoder:
                     self.h.config,
                     self.h.max_req_blocks,
                 )
+                if wave is not None:
+                    wave.stage("launched")
+            if wave is not None:
+                wave.finish()
             self.waves += 1
             self.max_wave = max(self.max_wave, len(batch))
             off = 0
@@ -657,6 +712,10 @@ class WaveDecoder:
             # pending, and clear the flag so a later step() starts fresh.
             self._flush_scheduled = False
             stranded, self._pending = batch + self._pending, []
+            if wave is not None:
+                wave.finish(status=f"error:{type(e).__name__}")
+            for entry in stranded:
+                self._row_trace.pop(entry[3], None)
             exc = e if isinstance(e, Exception) else RuntimeError(
                 f"decode wave aborted: {e!r}"
             )
@@ -860,9 +919,10 @@ class RequestStats:
     # computed): the end-to-end figure that decides whether a cache hit
     # actually beats recomputing.
     prefix_ready_us: float = 0.0
-    # t0 -> the FIRST generated token emitted (0.0 when gen_tokens == 0):
-    # the serving-side latency figure the skew-aware flush policy is
-    # graded on (docs/serving_load.md), and the request's QoS class
+    # t0 -> the FIRST generated token on the host, after its round's
+    # device-to-host copy returned (0.0 when gen_tokens == 0): the
+    # serving-side latency figure the skew-aware flush policy is graded on
+    # (docs/serving_load.md), and the request's QoS class
     # (wire.PRIORITY_*) so TTFT percentiles split by class.
     ttft_us: float = 0.0
     priority: int = 0
@@ -993,7 +1053,7 @@ class ContinuousBatchingHarness:
                 pad_to=t * mrb,
             )
             zeros_t = np.zeros((t,), np.int32)
-            async with self.gate.exclusive():
+            async with self.gate.exclusive(kind="wave"):
                 _, self.caches = verify_step_ragged(
                     self.params,
                     zeros_t,
@@ -1067,44 +1127,71 @@ class ContinuousBatchingHarness:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    async def _save_blocks(self, chain_ids, phys_blocks, first_block: int):
+    async def _save_blocks(self, chain_ids, phys_blocks, first_block: int,
+                           path: str):
         """Snapshot the given physical blocks into private arrays under the
         shared gate (device-side gathers, microseconds), then stream them to
         the store with NO gate held: the save — the long store-I/O phase —
         overlaps other requests' loads, computes, and saves. Holding the
         gate across the save would serialize the whole pipeline (the next
         request's exclusive load waits on it). ``chain_ids`` key the blocks
-        (the prompt, or prompt + generated for response blocks)."""
-        dev = torch.as_tensor(
-            np.asarray(phys_blocks), dtype=torch.int32, device=self.device
-        )
-        async with self.gate.shared():
-            caches = self.caches  # stable under the shared gate
+        (the prompt, or prompt + generated for response blocks).
 
-            def snap():
-                # Every layer's K and V blocks in one gather (one K1 launch),
-                # handed on as per-(layer, kind) views of the packed result.
-                n = len(phys_blocks)
-                flat = gather_blocks_many([t for kv in caches for t in kv], dev)
-                self._sync()
-                return [(flat[2 * i * n : (2 * i + 1) * n],
-                         flat[(2 * i + 1) * n : (2 * i + 2) * n]) for i in range(len(caches))]
-
-            # Executor: the gathers + readiness wait must not pin the event
-            # loop (it is the artery every gate-free fetch completion and
-            # wave flush flows through).
-            snapshot = await asyncio.get_running_loop().run_in_executor(None, snap)
-        self._saving += 1
-        self.max_concurrent_saves = max(self.max_concurrent_saves, self._saving)
+        Traced, an ``engine.save`` span (attrs ``path``: ``ttft`` for the
+        prompt's suffix, saved before the first token, ``response`` for the
+        answer's blocks; ``blocks``, ``bytes``) is the active span for the
+        snapshot's gate and the writer's store calls."""
+        span = tracing.start_span("engine.save")
+        token = tracing.bind_span(span)
         try:
-            await self.adapter.save_kv(
-                chain_ids,
-                snapshot,
-                np.arange(len(phys_blocks), dtype=np.int32),
-                first_block=first_block,
+            if span is not None:
+                k0 = self.caches[0][0]
+                span.annotate(path=path, blocks=len(phys_blocks),
+                              bytes=2 * len(self.caches) * len(phys_blocks)
+                              * k0[0].numel() * k0.element_size())
+            block = tracing.start_span("loop.block")
+            dev = torch.as_tensor(
+                np.asarray(phys_blocks), dtype=torch.int32, device=self.device
             )
+            if block is not None:
+                block.annotate(what="h2d")
+                block.finish()
+            async with self.gate.shared(kind="snapshot"):
+                caches = self.caches  # stable under the shared gate
+
+                def snap():
+                    # Every layer's K and V blocks in one gather (one K1 launch),
+                    # handed on as per-(layer, kind) views of the packed result.
+                    n = len(phys_blocks)
+                    flat = gather_blocks_many([t for kv in caches for t in kv], dev)
+                    self._sync()
+                    return [(flat[2 * i * n : (2 * i + 1) * n],
+                             flat[(2 * i + 1) * n : (2 * i + 2) * n])
+                            for i in range(len(caches))]
+
+                # Executor: the gathers + readiness wait must not pin the event
+                # loop (it is the artery every gate-free fetch completion and
+                # wave flush flows through).
+                snapshot = await asyncio.get_running_loop().run_in_executor(None, snap)
+            self._saving += 1
+            self.max_concurrent_saves = max(self.max_concurrent_saves, self._saving)
+            try:
+                await self.adapter.save_kv(
+                    chain_ids,
+                    snapshot,
+                    np.arange(len(phys_blocks), dtype=np.int32),
+                    first_block=first_block,
+                )
+            finally:
+                self._saving -= 1
+        except BaseException as e:
+            if span is not None:
+                span.finish(status=f"error:{type(e).__name__}")
+            raise
         finally:
-            self._saving -= 1
+            tracing.unbind_span(token)
+            if span is not None:
+                span.finish()
 
     async def _generate(
         self, token_ids, table: np.ndarray, gen_tokens: int, priority: int = 0
@@ -1126,7 +1213,12 @@ class ContinuousBatchingHarness:
         a round never overshoots ``gen_tokens``.
 
         Returns ``(tokens, first_token_t)`` — the perf_counter stamp of
-        the first emitted token feeds ``RequestStats.ttft_us``."""
+        the first emitted token, taken once it is on the host (after the
+        round's device-to-host copy), feeds ``RequestStats.ttft_us``.
+        Traced, the request's span gets a ``token`` stamp for each emitted
+        token at the same moment, and the copy is a ``loop.block`` span
+        (``what`` ``token``)."""
+        rspan = tracing.active_span()
         padded = self._padded_table(table)
         pos = len(token_ids) - 1
         tok = int(token_ids[-1])
@@ -1142,14 +1234,26 @@ class ContinuousBatchingHarness:
                 chunk, list(range(pos, pos + len(chunk))), padded,
                 priority=priority,
             )
-            if first_token_t is None:
-                first_token_t = time.perf_counter()
+            block = tracing.start_span("loop.block")
             # ONE device->host transfer per round (the [K] argmaxes).
             preds = torch.argmax(rows, dim=-1).cpu().numpy()
+            t_us = None
+            if first_token_t is None:
+                first_token_t = time.perf_counter()
+                if rspan is not None:
+                    t_us = tracing.us_of_perf(first_token_t)
+            if block is not None:
+                block.annotate(what="token")
+                block.finish()
             n_acc = 1
             while n_acc < len(chunk) and chunk[n_acc] == int(preds[n_acc - 1]):
                 n_acc += 1
             emitted = chunk[1:n_acc] + [int(preds[n_acc - 1])]
+            if rspan is not None:
+                if t_us is None:
+                    t_us = tracing.now_us()
+                for _ in emitted:
+                    rspan.stage("token", t_us)
             out.extend(emitted)
             history.extend(emitted)
             self.spec_rounds += 1
@@ -1220,14 +1324,15 @@ class ContinuousBatchingHarness:
         # bound context. With tracing off this is three no-op calls.
         rspan = tracing.start_span("engine_request")
         rtoken = tracing.bind_span(rspan)
-        if rspan is not None:
-            rspan.stage("enqueue")
-            rspan.annotate(tokens=len(token_ids), blocks=n_blocks)
         # Speculative prefetch AT ENQUEUE: probe + start streaming the hit
         # prefix into host staging before BlockPool.alloc even completes —
         # the store fetch overlaps this request's own admission wait and
         # every other request's compute, and NEVER holds the device gate.
         t0 = time.perf_counter()
+        if rspan is not None:
+            rspan.stage("enqueue", tracing.us_of_perf(t0))
+            rspan.annotate(tokens=len(token_ids), blocks=n_blocks)
+        fspan = None  # engine.fetch: start_fetch -> primed()
         prefetch = None
         prefetch_settled = True  # nothing to discard until a fetch starts
         fallback_hit: Optional[int] = None  # probe answer from a failed start_fetch
@@ -1274,6 +1379,10 @@ class ContinuousBatchingHarness:
                     or priority == PRIORITY_BACKGROUND
                 ):
                     fetch_kw["priority"] = PRIORITY_BACKGROUND
+                # The fetch's store reads run in tasks that inherit the
+                # context here, so they parent under engine.fetch.
+                fspan = tracing.start_span("engine.fetch")
+                ftoken = tracing.bind_span(fspan)
                 try:
                     result = starter(token_ids, limit_blocks=n_blocks, **fetch_kw)
                     prefetch = await result if starter_is_async else result
@@ -1283,8 +1392,12 @@ class ContinuousBatchingHarness:
                     # reusing the probe the failed start_fetch already paid.
                     self.prefetch_fallbacks += 1
                     fallback_hit = getattr(e, "hit_blocks", None)
+                finally:
+                    tracing.unbind_span(ftoken)
             lookup_s = time.perf_counter() - t0  # start_fetch includes the probe
             prefetch_settled = prefetch is None or prefetch.n_blocks == 0
+            if fspan is not None and prefetch_settled:
+                fspan.finish()  # nothing to stream: the fetch ends here
             table = await self.pool.alloc(total_blocks)
             if prefetch is not None:
                 # Admitted: a background-tagged speculative fetch is
@@ -1305,9 +1418,12 @@ class ContinuousBatchingHarness:
                     # Wait for the fetch pipeline to fill WITHOUT the gate:
                     # the store I/O runs while other requests compute.
                     await prefetch.primed()
+                    if fspan is not None:
+                        fspan.finish()
                     t_gate = time.perf_counter()
-                    async with self.gate.exclusive(expedite=True):
+                    async with self.gate.exclusive(expedite=True, kind="install"):
                         gate_stall_us = (time.perf_counter() - t_gate) * 1e6
+                        ispan = tracing.start_span("engine.install")
                         t_hold = time.perf_counter()
                         self.caches, loaded_tokens = await self.adapter.install_kv(
                             prefetch,
@@ -1316,6 +1432,12 @@ class ContinuousBatchingHarness:
                         )
                         if rspan is not None:
                             rspan.stage("install")
+                        if ispan is not None:
+                            # When the last layer the install waited for had
+                            # landed in staging (start, if all had already).
+                            landed = getattr(prefetch, "last_landed_us", None) or 0
+                            ispan.stage("staged", max(landed, ispan.t0_us))
+                            ispan.finish()
                         gate_hold_us = (time.perf_counter() - t_hold) * 1e6
                     prefetch_settled = True
                     t_end = prefetch.fetch_finished_s or time.perf_counter()
@@ -1340,7 +1462,7 @@ class ContinuousBatchingHarness:
                     hit_tokens = self.adapter.get_num_matched_tokens(token_ids)
                     lookup_s = time.perf_counter() - t_l
                 t_gate = time.perf_counter()
-                async with self.gate.exclusive():
+                async with self.gate.exclusive(kind="load"):
                     gate_stall_us = (time.perf_counter() - t_gate) * 1e6
                     t_io = time.perf_counter()
                     self.caches, loaded_tokens = await self.adapter.load_kv(
@@ -1359,7 +1481,8 @@ class ContinuousBatchingHarness:
                 # without this their "queued behind other requests" signal
                 # (the thing gate_stall exists to expose) would read 0.
                 t_g2 = time.perf_counter()
-                async with self.gate.exclusive():
+                kind = "prefill" if loaded_blocks == 0 else "resume"
+                async with self.gate.exclusive(kind=kind):
                     gate_stall_us += (time.perf_counter() - t_g2) * 1e6
                     # Compute runs in an executor thread: the model call
                     # (and its sync) would otherwise pin the
@@ -1369,29 +1492,37 @@ class ContinuousBatchingHarness:
                     # The gate (held across the await) still serializes
                     # cache mutation.
                     loop = asyncio.get_running_loop()
-                    if loaded_blocks == 0:
-                        await loop.run_in_executor(
-                            None, self._prefill_full, token_ids, prompt_table
-                        )
-                    else:
-                        await loop.run_in_executor(
-                            None,
-                            self._chunked_resume,
-                            token_ids,
-                            table,
-                            loaded_blocks,
-                        )
-            prefix_ready_us = (time.perf_counter() - t0) * 1e6
+                    mspan = tracing.start_span("model." + kind)
+                    try:
+                        if loaded_blocks == 0:
+                            await loop.run_in_executor(
+                                None, self._prefill_full, token_ids, prompt_table
+                            )
+                        else:
+                            await loop.run_in_executor(
+                                None,
+                                self._chunked_resume,
+                                token_ids,
+                                table,
+                                loaded_blocks,
+                            )
+                    finally:
+                        if mspan is not None:
+                            mspan.finish()
+            t_ready = time.perf_counter()
+            prefix_ready_us = (t_ready - t0) * 1e6
+            if rspan is not None:
+                rspan.stage("prefix_ready", tracing.us_of_perf(t_ready))
             verified = None
             if self.verify:
-                async with self.gate.shared():
+                async with self.gate.shared(kind="verify"):
                     verified = self._verify_request(token_ids, prompt_table)
             # Save ONLY the computed suffix — the loaded prefix came from the
             # store and re-writing it would double write traffic for every
             # prefix hit.
             if loaded_blocks < n_blocks:
                 await self._save_blocks(
-                    token_ids, prompt_table[loaded_blocks:], loaded_blocks
+                    token_ids, prompt_table[loaded_blocks:], loaded_blocks, "ttft"
                 )
             generated = None
             ttft_us = 0.0
@@ -1410,7 +1541,7 @@ class ContinuousBatchingHarness:
                 full_blocks = len(full_ids) // bt
                 if full_blocks > n_blocks:
                     await self._save_blocks(
-                        full_ids, table[n_blocks:full_blocks], n_blocks
+                        full_ids, table[n_blocks:full_blocks], n_blocks, "response"
                     )
             stats = RequestStats(
                 tokens=len(token_ids),
@@ -1448,6 +1579,8 @@ class ContinuousBatchingHarness:
             raise
         finally:
             tracing.unbind_span(rtoken)
+            if fspan is not None:
+                fspan.finish()  # idempotent: closed at primed() normally
             if rspan is not None:
                 rspan.finish()  # idempotent: an error finish above wins
             if not prefetch_settled:

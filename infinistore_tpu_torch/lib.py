@@ -327,6 +327,14 @@ def _bg_gate_wait_sync(conn: "InfinityConnection"):
         telemetry.note_qos_aged()
 
 
+def _store_span(op_name: str):
+    """A wire op's ``store.<op>`` span, child of the active span; None when
+    tracing is off (one bool check, no allocation)."""
+    if not tracing.enabled():
+        return None
+    return tracing.start_span("store." + op_name)
+
+
 @COMPLETION_CB
 def _on_complete(ctx, code):
     entry = _completions.pop(ctx or 0, None)
@@ -1024,9 +1032,15 @@ class InfinityConnection:
             futs: list = []
             try:
                 for chunk in self._bg_subbatches(blocks, block_size):
+                    # Traced, the sub-batch's span opens before the deferral,
+                    # so start -> submit holds the whole client-side queue.
+                    span = _store_span(op_name)
                     await _bg_gate_wait(self)
+                    if span is not None:
+                        span.annotate(bg_gate_us=tracing.now_us() - span.t0_us)
                     futs.append(asyncio.ensure_future(self._batch_op_once(
-                        native_fn, chunk, block_size, ptr, op_name, priority
+                        native_fn, chunk, block_size, ptr, op_name, priority,
+                        span=span,
                     )))
                     if len(futs) >= 2:
                         rc = await futs.pop(0)
@@ -1069,33 +1083,45 @@ class InfinityConnection:
         return keys, ent[0], ent[1]
 
     async def _batch_op_once(
-        self, native_fn, blocks, block_size: int, ptr: int, op_name: str, priority: int
+        self, native_fn, blocks, block_size: int, ptr: int, op_name: str, priority: int,
+        span=None,
     ):
+        # Trace context (docs/observability.md): the op's own ``store.<op>``
+        # span — a child of the span bound by the engine/connector layer
+        # above — opens here, where the op asks for the in-flight
+        # semaphore (or, for a BACKGROUND sub-batch, before its deferral:
+        # ``span``), stamps `submit` once and `completion_ring` once; its
+        # (trace id, span id) ride the wire so the server's tick ring
+        # records this op. Tracing off: one module-bool check, wire bytes
+        # untouched.
         self._require()
         keys, keys_blob, offs = self._marshal_batch(blocks)
         n = len(keys)
+        if span is None:
+            span = _store_span(op_name)
 
         loop = asyncio.get_running_loop()
         sem = self._semaphore(loop)
-        await sem.acquire()
+        try:
+            await sem.acquire()
+        except BaseException as e:
+            if span is not None:
+                span.finish(status=f"error:{type(e).__name__}")
+            raise
         future = loop.create_future()
         token = next(_completion_token)
 
-        # Trace context (docs/observability.md): the active span — bound by
-        # the engine/connector/bench layer above — stamps `submit` here and
-        # `completion_ring` when its completion drains; its (trace id, span
-        # id) ride the wire so the server's tick ring records the same op.
-        # Tracing off: one module-bool check, wire bytes untouched.
-        span = tracing.active_span()
         trace_id, span_id = tracing.wire_ids(span)
         if span is not None:
             span.stage("submit")
-            span.annotate(op=op_name, blocks=n, block_size=block_size)
+            span.annotate(op=op_name, blocks=n, block_size=block_size,
+                          priority=priority)
 
         def on_done(fut, code):
             sem.release()
             if span is not None:
                 span.stage("completion_ring")
+                span.finish("ok" if code == wire.STATUS_OK else f"error:status={code}")
             if fut.cancelled():
                 return
             if code == wire.STATUS_OK:
@@ -1138,6 +1164,8 @@ class InfinityConnection:
         if rc != 0:
             _completions.pop(token, None)
             sem.release()
+            if span is not None:
+                span.finish(status="error:submit")
             raise InfiniStoreException(
                 f"{op_name}: submit failed (not connected, or base pointer "
                 "not inside a registered region — call register_mr first)"
@@ -1225,20 +1253,23 @@ class InfinityConnection:
         self._require()
         keys, keys_blob, offs = self._marshal_batch(blocks)
         n = len(keys)
-        # Sync path trace stamps: submit before the blocking native call,
-        # completion_ring right after it returns (the calling thread IS the
-        # completion wait — there is no ring drain to stamp separately).
-        span = tracing.active_span()
+        # Sync path trace stamps, on the op's own store.<op> span: submit
+        # before the blocking native call, completion_ring right after it
+        # returns (the calling thread IS the completion wait — there is no
+        # ring drain to stamp separately).
+        span = _store_span(op_name)
         trace_id, span_id = tracing.wire_ids(span)
         if span is not None:
             span.stage("submit")
-            span.annotate(op=op_name, blocks=n, block_size=block_size)
+            span.annotate(op=op_name, blocks=n, block_size=block_size,
+                          priority=priority)
         rc = native_fn(
             self._handle, keys_blob, len(keys_blob), n, offs, block_size,
             ctypes.c_void_p(ptr), priority, trace_id, span_id,
         )
         if span is not None:
             span.stage("completion_ring")
+            span.finish("ok" if rc == 0 else f"error:status={-rc}")
         if rc == 0:
             return wire.STATUS_OK
         if rc == -wire.STATUS_KEY_NOT_FOUND:

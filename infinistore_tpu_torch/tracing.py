@@ -1,7 +1,10 @@
 """End-to-end op tracing: spans, the flight recorder, and trace export.
 
-Copy of ``infinistore_tpu/tracing.py`` for the PyTorch port, which imports
-nothing of ``infinistore_tpu``; keep the two in step.
+The PyTorch port's tracing module, which imports nothing of
+``infinistore_tpu``. Its vocabulary extends the reference's: besides the
+store-op stages below, the engine, the KV writer and the store client open
+phase spans (``SPAN_NAMES``), whose stamps follow the store-op stages in
+``STAGES``.
 
 One op crosses six subsystems (engine prefetch -> coalescer -> cluster
 routing -> striped scheduler -> async bridge -> server reactor), and until
@@ -45,9 +48,34 @@ schema and docs/observability.md to this tuple, in lockstep):
 - ``completion_ring`` completion drained from the native ring
 - ``install``         bytes installed into the engine's paged cache
 
-Clocks: every stamp (Python and native) is CLOCK_MONOTONIC microseconds,
-so same-host client and server ticks share a timebase and merge into one
-timeline; across hosts only within-process deltas are meaningful.
+The phase spans (``SPAN_NAMES``; docs/observability.md, "The port's phase
+spans"):
+
+- ``engine_request``  one request, enqueue to return; stamps ``enqueue``,
+  ``install``, ``prefix_ready`` (the prompt resident) and one ``token`` per
+  generated token, taken once the token is on the host
+- ``engine.gate``     a request for the device gate (attr ``kind``), opened
+  at the request, ``acquire`` when granted, closed at release
+- ``engine.fetch``    the gate-free prefetch: start_fetch to primed()
+- ``engine.install``  the install under the gate; ``staged`` when the last
+  layer it waited for had landed in host staging
+- ``engine.save``     a save of blocks (attr ``path``: ``ttft`` before the
+  first token, ``response`` after the answer)
+- ``model.prefill``, ``model.resume``  a model call and its sync
+- ``model.wave``      one decode wave (a root span; attrs name its rows'
+  requests); stamps ``take``, ``acquire``, ``launched``
+- ``loop.block``      the event-loop thread blocked on the device (a copy
+  or a CUDA call; attr ``what``: ``d2h``, ``h2d``, ``token``)
+- ``store.<op>``      one wire op of the store client, opened when it asks
+  for its turn on the wire; ``submit`` and ``completion_ring`` once each.
+  Its span id rides the wire, so the server's ticks join to it.
+
+Clocks: every stamp (Python and native) is CLOCK_MONOTONIC microseconds
+(:func:`now_us`), so same-host client and server ticks share a timebase and
+merge into one timeline; across hosts only within-process deltas are
+meaningful. :func:`perf_counter_offset_s` maps a stamp onto
+``time.perf_counter`` (the clock host-side profilers and benchmarks read):
+``perf_counter = t_us / 1e6 + offset``.
 """
 
 import contextlib
@@ -75,6 +103,30 @@ STAGES = (
     "last_slice",
     "completion_ring",
     "install",
+) + (
+    # The port's phase stamps (SPAN_NAMES' spans), after the store-op stages.
+    "take",
+    "acquire",
+    "launched",
+    "staged",
+    "prefix_ready",
+    "token",
+)
+
+# Names of the port's phase spans (module docstring); a store op's span is
+# ``store.`` + its op name.
+SPAN_NAMES = (
+    "engine_request",
+    "engine.gate",
+    "engine.fetch",
+    "engine.install",
+    "engine.save",
+    "model.prefill",
+    "model.resume",
+    "model.wave",
+    "loop.block",
+    "store.write_cache",
+    "store.read_cache",
 )
 
 # Stages stamped by the NATIVE server reactor: stats_json()["trace"] tick
@@ -98,10 +150,41 @@ _ids = itertools.count(1)
 _seed = None  # os-random high bits mixed into trace ids (collision guard)
 
 
-def _now_us() -> int:
+def now_us() -> int:
     """CLOCK_MONOTONIC microseconds — the same clock the native reactor
     stamps (server.cpp now_us), so same-host ticks merge directly."""
     return time.monotonic_ns() // 1000
+
+
+_now_us = now_us
+
+
+def perf_counter_offset_s(samples: int = 7) -> float:
+    """Seconds to add to ``now_us() / 1e6`` to land on ``time.perf_counter``:
+    of ``samples`` reads of the monotonic clock, each bracketed by two
+    perf_counter reads, the one with the tightest bracket. On Linux both
+    read CLOCK_MONOTONIC and the offset is 0 within a microsecond;
+    elsewhere it is the distance between the two clocks' origins."""
+    best = None
+    for _ in range(samples):
+        a = time.perf_counter()
+        m = time.monotonic_ns()
+        b = time.perf_counter()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) / 2 - m / 1e9)
+    return best[1]
+
+
+_perf_offset_s: Optional[float] = None
+
+
+def us_of_perf(t: float) -> int:
+    """A ``time.perf_counter`` reading as a stamp on :func:`now_us`'s
+    clock (the offset is measured once per process)."""
+    global _perf_offset_s
+    if _perf_offset_s is None:
+        _perf_offset_s = perf_counter_offset_s()
+    return int(round((t - _perf_offset_s) * 1e6))
 
 
 def _new_id() -> int:
@@ -139,11 +222,11 @@ class Span:
         self.status = ""  # "" = open; "ok" / "error:<Type>" once finished
         self.attrs: Dict = {}
 
-    def stage(self, name: str):
-        """Stamp one stage boundary NOW. Repeats are legal (a striped op
-        submits many chunks); consumers use the first occurrence for
-        breakdowns and keep the rest for per-chunk visibility."""
-        self.stages.append((name, _now_us()))
+    def stage(self, name: str, t_us: Optional[int] = None):
+        """Stamp one stage boundary NOW (or at ``t_us``, a stamp on
+        :func:`now_us`'s clock taken earlier). Repeats are legal (one
+        ``token`` per generated token); :meth:`stage_ts` reads the first."""
+        self.stages.append((name, _now_us() if t_us is None else t_us))
 
     def annotate(self, **attrs):
         """Attach routing/context attributes (member index, stripe, bytes)."""
@@ -379,11 +462,15 @@ def active_span() -> Optional[Span]:
     return _current.get()
 
 
-def start_span(name: str, parent: Optional[Span] = None) -> Optional[Span]:
-    """New span (child of ``parent`` when given, else of the active span);
-    None when tracing is off. The caller owns finish()."""
+def start_span(name: str, parent: Optional[Span] = None,
+               root: bool = False) -> Optional[Span]:
+    """New span (child of ``parent`` when given, else of the active span;
+    a trace of its own with ``root``); None when tracing is off. The caller
+    owns finish()."""
     if not _ENABLED:
         return None
+    if root:
+        return Span(name)
     if parent is None:
         parent = _current.get()
     if parent is not None:
@@ -543,6 +630,7 @@ def chrome_trace_events(spans: List[dict]) -> List[dict]:
             "args": {
                 "trace_id": f"{s.get('trace_id', 0):#x}",
                 "span_id": f"{s.get('span_id', 0):#x}",
+                "parent_id": f"{s.get('parent_id', 0):#x}",
                 "status": s.get("status", ""),
                 **{k: v for k, v in s.get("attrs", {}).items()},
             },
@@ -559,35 +647,3 @@ def chrome_trace_events(spans: List[dict]) -> List[dict]:
                 "args": {"trace_id": f"{s.get('trace_id', 0):#x}"},
             })
     return events
-
-
-def stage_breakdown(spans: List[dict]) -> Dict[str, float]:
-    """Fraction of wall time between consecutive present stages, averaged
-    over spans, keyed ``stage_a->stage_b`` in canonical STAGES order plus
-    a ``total_us`` mean. Fractions sum to ~1.0 of the first->last stage
-    wall time by construction — the bench's per-stage receipt."""
-    order = {name: i for i, name in enumerate(STAGES)}
-    sums: Dict[str, float] = {}
-    totals = []
-    for s in spans:
-        first: Dict[str, int] = {}
-        for stage, ts in s.get("stages", []):
-            if stage in order and stage not in first:
-                first[stage] = ts
-        present = sorted(first, key=lambda n: first[n])
-        if len(present) < 2:
-            continue
-        span_total = first[present[-1]] - first[present[0]]
-        if span_total <= 0:
-            continue
-        totals.append(span_total)
-        for a, b in zip(present, present[1:]):
-            sums[f"{a}->{b}"] = sums.get(f"{a}->{b}", 0.0) + (
-                (first[b] - first[a]) / span_total
-            )
-    n = len(totals)
-    if n == 0:
-        return {}
-    out = {k: v / n for k, v in sums.items()}
-    out["total_us"] = sum(totals) / n
-    return out
