@@ -2396,6 +2396,9 @@ def _engine_summary(results, h, store, smi):
     summary["spec_drafted_tokens"] = last["spec_drafted_tokens"]
     summary["spec_accepted_tokens"] = last["spec_accepted_tokens"]
     summary["wave_buckets"] = len(last["wave_buckets"])
+    # How the waves launched: CUDA graph replays, captures, eager waves.
+    for key in ("wave_graph_replays", "wave_graph_captures", "wave_eager"):
+        summary[key] = last[key]
     summary["store_used_bytes"] = store["used_bytes"]
     summary["store_keys"] = store["keys"]
     return summary

@@ -228,6 +228,14 @@ def split_workspace(device: torch.device, stream: int, floats: int, tickets: int
         return ws[0], ws[1]
 
 
+def workspace_tensors(device: torch.device) -> list:
+    """Every stream's split workspace on ``device`` as it stands: what a
+    captured CUDA graph's kernels point at, which the graph keeps alive
+    after ``split_workspace`` replaces a smaller one."""
+    with _workspace_lock:
+        return [t for (dev, _), ws in _WORKSPACE.items() if dev == device for t in ws]
+
+
 def check(code: int, name: str) -> None:
     """Raise when a kernel entry reported a CUDA error (a negative code is
     minus the CUresult of a failed tensor-map encode)."""

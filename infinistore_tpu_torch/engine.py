@@ -15,7 +15,8 @@ cache, block tables owned by the engine:
   prefill (K4 attention, K2 cache write), saves snapshot their blocks with
   K1 and stream to the store with no lock held, and generation of every
   live request is coalesced into lockstep RAGGED waves (``WaveDecoder`` ->
-  one ``verify_step_ragged`` call per wave, kernel K6), optionally with
+  one ``verify_step_ragged`` call per wave, kernel K6; on a card, one
+  CUDA graph replay per wave, a graph per row rung), optionally with
   n-gram speculative drafts riding the same waves.
 
 Admission is TWO-PHASE and store I/O never holds the device gate: a
@@ -33,8 +34,9 @@ the reference's ``engine_*`` vocabulary (``metrics()``).
 """
 
 import asyncio
+import operator
 import time
-from contextlib import asynccontextmanager
+from contextlib import asynccontextmanager, nullcontext
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -50,18 +52,74 @@ from .models.llama import prefill, prefill_continue, verify_step_ragged
 from .wire import PRIORITY_BACKGROUND
 
 
-def _int32_on(device, *arrays):
+def _int32_on(device, *arrays, out: Optional[tuple] = None):
     """Host int sequences -> int32 tensors on ``device`` in ONE copy (one
     host->device transfer per wave however many metadata arrays it has);
-    each comes back in its own shape."""
+    each comes back in its own shape. ``out``: (host, target), int32
+    buffers of exactly their total size (a captured wave's staging and
+    static inputs): the arrays are packed into ``host`` and copied from it
+    into ``target`` without waiting for the stream, so a pinned ``host``
+    must stay unchanged until that copy has run."""
     arrs = [np.asarray(a, dtype=np.int32) for a in arrays]
-    flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrs]))
-    flat = flat.to(device)
+    if out is None:
+        flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrs])).to(device)
+    else:
+        host, flat = out
+        np.concatenate([a.reshape(-1) for a in arrs], out=host.numpy())
+        flat.copy_(host, non_blocking=True)
     out, off = [], 0
     for a in arrs:
         out.append(flat[off : off + a.size].view(a.shape))
         off += a.size
     return out
+
+
+# The widest flat-row rung whose decode waves replay a CUDA graph (the top
+# of prewarm_wave_buckets' default ladder); a wider wave runs eagerly.
+GRAPH_MAX_ROWS = 64
+
+
+def capture_cuda_graph(run, stream, pool):
+    """Capture ``run()`` (one wave's model call, already run once on
+    ``stream``) as a CUDA graph on ``stream``, its memory from ``pool``.
+    Returns (graph, the output tensor its replays write). Only this thread
+    is held to capture's rules: the KV writer's threads keep copying."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = run()
+    return graph, out
+
+
+@dataclass
+class WaveGraph:
+    """One row rung's captured wave: ``inputs`` (the static int32 buffer
+    whose slices are the wave's tokens, positions, row_of, pages,
+    page_rows, page_starts and tables) and ``staging``, its host copy
+    (pinned on a card; ``copied`` marks when the last copy out of it ran),
+    the ``graph``, the ``logits`` each replay writes, the ``launches`` per
+    kernel its capture counted (added to ``_ext.LAUNCHES`` on every
+    replay) and the split workspace tensors its kernels point at
+    (``keep``)."""
+
+    inputs: torch.Tensor
+    staging: torch.Tensor
+    copied: Optional[object]
+    graph: object
+    logits: torch.Tensor
+    launches: dict
+    keep: list
+
+
+_DTYPE = operator.attrgetter("dtype")
+
+
+def _wave_identity(params, caches) -> tuple:
+    """What a captured wave's kernels read and write: every cache and
+    parameter tensor, by address and by dtype."""
+    tensors = [t for kv in caches for t in kv]
+    tensors.extend(params.values())
+    return tuple(map(torch.Tensor.data_ptr, tensors)), tuple(map(_DTYPE, tensors))
 
 
 class WaveCounters:
@@ -352,6 +410,28 @@ class WaveDecoder:
     on its power-of-two ladder. The working set of launch shapes is then
     known at startup: ``ContinuousBatchingHarness.prewarm_wave_buckets``
     runs the ladder once before serving.
+
+    **CUDA graphs** (on a card, rungs up to ``GRAPH_MAX_ROWS``): a wave's
+    model call is some 78 kernel launches a layer, host work that held the
+    loop and the gate far longer than the card computes. So every such
+    wave lands on the canonical bucket too, policy on or off, and each rung
+    replays one ``torch.cuda.CUDAGraph``. The first wave at a rung runs
+    eagerly on the decoder's capture stream (it serves its rows and warms
+    that stream's workspaces), then ``verify_step_ragged`` is captured
+    there from a static int32 buffer whose slices are the wave's inputs;
+    all rungs share one memory pool. A later wave copies its metadata into
+    that buffer (one host->device copy through the rung's pinned staging,
+    which does not wait for the stream), replays the graph under the
+    exclusive gate, and copies its real logits rows out of the graph's
+    output before any waiter sees them, so the next replay cannot change
+    rows already served. Each graph keeps the split workspace it was
+    captured with (``split_workspace`` may replace it with a larger one),
+    and adds its capture's kernel launches to ``_ext.LAUNCHES`` at every
+    replay. Graphs point at the cache and parameter tensors: when those
+    are replaced, the graphs are dropped and the next wave at a rung
+    captures again. A capture that fails raises. On the CPU, and above the
+    top rung, every wave runs eagerly as before; ``graph_replays``,
+    ``graph_captures`` and ``eager_waves`` count the three kinds.
     """
 
     def __init__(
@@ -409,6 +489,20 @@ class WaveDecoder:
         # sets can be compared (serving must mint nothing beyond the
         # declared ladder with the policy on).
         self.prewarmed = set()
+        # CUDA graphs (class docstring): ``capture`` makes one (None: every
+        # wave eager) on the capture stream, from the rungs' shared memory
+        # pool; rung -> WaveGraph, valid for the tensors whose identity is
+        # _graph_identity.
+        device = getattr(harness, "device", None) or harness.params["embed"].device
+        on_card = device.type == "cuda"
+        self.capture = capture_cuda_graph if on_card else None
+        self._graph_stream = torch.cuda.Stream(device) if on_card else None
+        self._graph_pool = torch.cuda.graph_pool_handle() if on_card else None
+        self._graphs: dict = {}
+        self._graph_identity = None
+        self.graph_replays = 0
+        self.graph_captures = 0
+        self.eager_waves = 0
 
     async def step(
         self, token: int, position: int, padded_table, priority: int = 0
@@ -573,11 +667,67 @@ class WaveDecoder:
             self._flush_tasks.add(task)
             task.add_done_callback(self._flush_tasks.discard)
 
+    def _launch_graphed(self, t: int, t_real: int, host: tuple):
+        """Launch one wave of rung ``t`` as that rung's CUDA graph (class
+        docstring), capturing it first if the rung has none; ``host`` is
+        the wave's int32 metadata on the host, in ``verify_step_ragged``'s
+        order. The caller holds the exclusive gate. Returns (the wave's
+        ``t_real`` logits rows, ``"replay"`` or ``"capture"``)."""
+        h = self.h
+        identity = _wave_identity(h.params, h.caches)
+        if identity != self._graph_identity:
+            self._graphs.clear()  # they point at the replaced tensors
+            self._graph_identity = identity
+        g = self._graphs.get(t)
+        if g is not None:
+            if g.copied is not None:
+                g.copied.synchronize()  # the last wave's copy out of staging ran
+            _int32_on(g.inputs.device, *host, out=(g.staging, g.inputs))
+            if g.copied is not None:
+                g.copied.record()
+            g.graph.replay()
+            for name, n in g.launches.items():
+                _ext.LAUNCHES[name] += n
+            self.graph_replays += 1
+            return g.logits[:t_real].clone(), "replay"
+        device = h.params["embed"].device
+        stream = self._graph_stream
+        n = sum(np.size(a) for a in host)
+        inputs = torch.empty(n, dtype=torch.int32, device=device)
+        staging = torch.empty(n, dtype=torch.int32, pin_memory=stream is not None)
+        copied = torch.cuda.Event() if stream is not None else None
+        args = _int32_on(device, *host, out=(staging, inputs))
+        if copied is not None:
+            copied.record()
+
+        def run():
+            # The module's name, looked up at each call (tests replace it).
+            return verify_step_ragged(h.params, *args[:6], h.caches, args[6], h.config,
+                                      h.max_req_blocks)[0]
+
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream) if stream is not None else nullcontext():
+            logits = run()  # serves this wave, and warms the capture stream up
+            counted = dict(_ext.LAUNCHES)
+            graph, out = self.capture(run, stream, self._graph_pool)
+        launches = {k: n - counted[k] for k, n in _ext.LAUNCHES.items() if n != counted[k]}
+        _ext.LAUNCHES.update(counted)  # a capture launches nothing
+        if stream is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_stream(stream)
+            logits.record_stream(current)
+        self._graphs[t] = WaveGraph(inputs, staging, copied, graph, out, launches,
+                                    _ext.workspace_tensors(device))
+        self.graph_captures += 1
+        return logits[:t_real], "capture"
+
     async def _flush(self):
         """One wave. Traced, a ``model.wave`` root span: ``take`` when the
         batch is taken, ``acquire`` when the gate is granted, ``launched``
-        when ``verify_step_ragged`` returned on the host; attrs ``rows``,
-        ``tokens``, ``t_bucket``, ``pages`` and, per row, its request's
+        when the model call (or its graph's replay) returned on the host;
+        attrs ``rows``, ``tokens``, ``t_bucket``, ``pages``, ``graph``
+        (``replay``, ``capture`` or ``eager``) and, per row, its request's
         trace id (``requests``) and its ``step_chunk`` enqueue stamp
         (``enqueued_us``)."""
         batch: List[tuple] = []
@@ -638,7 +788,10 @@ class WaveDecoder:
             # declared bucket per rung that prewarm_wave_buckets
             # ran at startup. Both pads are compute-free; t_bucket
             # >= one flat row per entry >= len(batch) always covers.
-            if self.skew_policy:
+            # A wave that replays a CUDA graph takes the same bucket, the
+            # one shape its rung was captured at.
+            graphed = self.capture is not None and t_bucket <= GRAPH_MAX_ROWS
+            if self.skew_policy or graphed:
                 b_bucket = t_bucket
                 pad_pages = t_bucket * self.h.max_req_blocks
             else:
@@ -669,35 +822,33 @@ class WaveDecoder:
                               requests=[r[0] for r in rows],
                               enqueued_us=[r[1] for r in rows])
 
-            # The wave's int32 metadata travels to the device in ONE copy.
-            block = tracing.start_span("loop.block", parent=wave)
-            toks_d, pos_d, row_d, pages_d, prow_d, pst_d, tables_d = _int32_on(
-                self.h.params["embed"].device,
-                flat_toks, flat_pos, row_of, meta.pages, meta.page_rows,
-                meta.page_starts, np.stack(tables),
-            )
-            if block is not None:
-                block.annotate(what="h2d")
-                block.finish()
+            host = (flat_toks, flat_pos, row_of, meta.pages, meta.page_rows,
+                    meta.page_starts, np.stack(tables))
+            if not graphed:
+                # The wave's int32 metadata travels to the device in ONE copy.
+                block = tracing.start_span("loop.block", parent=wave)
+                dev_args = _int32_on(self.h.params["embed"].device, *host)
+                if block is not None:
+                    block.annotate(what="h2d")
+                    block.finish()
             async with self.h.gate.exclusive(kind="wave", parent=wave):
                 if wave is not None:
                     wave.stage("acquire")
-                logits, self.h.caches = verify_step_ragged(
-                    self.h.params,
-                    toks_d,
-                    pos_d,
-                    row_d,
-                    pages_d,
-                    prow_d,
-                    pst_d,
-                    self.h.caches,
-                    tables_d,
-                    self.h.config,
-                    self.h.max_req_blocks,
-                )
+                if graphed:
+                    # Under the gate: the rung's static inputs are shared
+                    # by every wave of that rung.
+                    logits, how = self._launch_graphed(t_bucket, t_real, host)
+                else:
+                    logits, self.h.caches = verify_step_ragged(
+                        self.h.params, *dev_args[:6], self.h.caches, dev_args[6],
+                        self.h.config, self.h.max_req_blocks,
+                    )
+                    how = "eager"
+                    self.eager_waves += 1
                 if wave is not None:
                     wave.stage("launched")
             if wave is not None:
+                wave.annotate(graph=how)
                 wave.finish()
             self.waves += 1
             self.max_wave = max(self.max_wave, len(batch))
@@ -1646,7 +1797,9 @@ class ContinuousBatchingHarness:
         (docs/serving_load.md: ``wave_deferrals``,
         ``wave_aging_escapes`` — deferred entries force-launched at the
         starvation bound, ``wave_held_flushes`` — whole flushes held by
-        the EWMA wave-size target, ``wave_defer_age_us_p99``) and
+        the EWMA wave-size target, ``wave_defer_age_us_p99``); how the
+        waves launched (``wave_graph_replays``, ``wave_graph_captures``,
+        ``wave_eager``: CUDA graph replays, captures, eager waves) and
         serving latency (``p50_ttft_us``, ``p99_ttft_us``,
         ``p99_ttft_fg_us`` — time to first generated token, overall and
         FOREGROUND-class only); generation/speculation (``generated_tokens``,
@@ -1762,6 +1915,12 @@ class ContinuousBatchingHarness:
             "wave_aging_escapes": self.wave.aging_escapes,
             "wave_held_flushes": self.wave.held_flushes,
             "wave_defer_age_us_p99": _p(sorted(self.wave.defer_ages_us), 0.99),
+            # How the waves launched (WaveDecoder docstring): replays of a
+            # rung's CUDA graph, the waves that captured one, and waves run
+            # eagerly (every wave on the CPU; on a card, above the top rung).
+            "wave_graph_replays": self.wave.graph_replays,
+            "wave_graph_captures": self.wave.graph_captures,
+            "wave_eager": self.wave.eager_waves,
             "p50_ttft_us": _p(ttft, 0.50),
             "p99_ttft_us": _p(ttft, 0.99),
             "p99_ttft_fg_us": _p(ttft_fg, 0.99),

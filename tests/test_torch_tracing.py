@@ -160,6 +160,7 @@ def test_phase_spans_stages_and_parents(conn, params, traced):
         assert len(take) == len(acq) == len(launched) == 1
         assert w["start_us"] <= take[0] <= acq[0] <= launched[0] <= w["end_us"]
         a = w["attrs"]
+        assert a["graph"] == "eager"  # a CPU harness has no CUDA graphs
         assert len(a["requests"]) == len(a["enqueued_us"]) == a["rows"]
         assert a["t_bucket"] >= a["tokens"] >= a["rows"] and a["pages"] >= a["rows"]
         assert set(a["requests"]) <= {s["trace_id"] for s in requests}
