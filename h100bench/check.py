@@ -2,12 +2,13 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the turns the program finished, drawn from the seed and holding the longest
-of them, goes through the plain reference (``reference/model.py``): each
-prompt with the tokens the program served after it, in one forward pass. At
-each served token the reference's best logit and the logit of the served
-token are read; their difference is the token's gap (0 where the program
-chose the reference's best). The widest gap over the sample is compared with
-the cell's limit (``cells/<cell>.json``). A stale, torn or foreign prefix
+of them, goes through the plain reference of the configuration's
+architecture (``arch/<model_type>.py``): each prompt with the tokens the
+program served after it, in one forward pass. At each served token the
+reference's best logit and the logit of the served token are read; their
+difference is the token's gap (0 where the program chose the reference's
+best). The widest gap over the sample is compared with the cell's limit
+(``cells/<cell>.json``). A stale, torn or foreign prefix
 from the store, a wrong prefill or resumed suffix, a decode that misreads the
 cache or a token altered on its way out all put a served token far below the
 reference's best; bf16 rounding only swaps near ties.
@@ -21,8 +22,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-
-from .reference.model import Reference
 
 # Served tokens the sample reaches for: some hundreds.
 SAMPLE_TOKENS = 320
@@ -64,9 +63,10 @@ def _sequences(sample_: Sequence[Served]):
     return [list(t.prompt) + list(t.tokens[:-1]) for t in sample_], [_rows(t) for t in sample_]
 
 
-def gaps(ref: Reference, sample_: Sequence[Served], chosen: Optional[List[torch.Tensor]] = None
+def gaps(ref, sample_: Sequence[Served], chosen: Optional[List[torch.Tensor]] = None
          ) -> np.ndarray:
-    """Every served token's gap below the reference's best; with ``chosen``
+    """Every served token's gap below the best logit of ``ref`` (a
+    reference: ``logits(sequences, rows)``); with ``chosen``
     (per turn, the token ids another model puts first at the same rows) the
     gaps of those tokens instead."""
     seqs, rows = _sequences(sample_)
@@ -80,7 +80,7 @@ def gaps(ref: Reference, sample_: Sequence[Served], chosen: Optional[List[torch.
     return np.concatenate(out) if out else np.zeros(0)
 
 
-def control_gap(ref: Reference, control: Reference, sample_: Sequence[Served]) -> float:
+def control_gap(ref, control, sample_: Sequence[Served]) -> float:
     """The widest gap of the tokens the control puts first, at the rows the
     program served."""
     seqs, rows = _sequences(sample_)

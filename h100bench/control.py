@@ -7,9 +7,9 @@ In one process (set-up is long), for each seed: one run of the cell as the
 benchmark runs it (a short window at the cell's own load), the widest gap of
 its served tokens (the lower reading), and for the first ``--control-seeds``
 seeds the control's widest gap at the same rows (the reference computed in
-float8, ``reference/model.py``: the upper reading). One JSON object a seed
-on standard output, and in ``--out``. The benchmark's own runs never run
-this.
+float8, the architecture's ``reference(..., quant="fp8")``: the upper
+reading). One JSON object a seed on standard output, and in ``--out``. The
+benchmark's own runs never run this.
 """
 
 import argparse

@@ -1,4 +1,4 @@
-"""engine.ttft_p90_ms: as ttft_p50_ms, the 90th percentile (no bound: its runs
+"""engine.ttft_p90_ms: as engine.ttft_p50_ms, the 90th percentile (no bound: its runs
 spread too widely, PERF.md §2)."""
 
 

@@ -1,11 +1,12 @@
-"""kernel.decode_attention_roofline: in percent, the least time the paged attention's
-work needs over the device time of K3 (paged_decode) and K6
-(paged_decode_ragged) in the traced span. Work, from shapes (roofline.py),
-for each piece counted alone: every decode row whose result reached the host
-in the span reads its context's K and V once in every layer; every resumed
-suffix whose prompt became resident in the span reads the loaded prefix once
-and does its causal QK and PV. Each piece takes the larger of bytes over
-3.35 TB/s and FLOPs over 989 TFLOP/s."""
+"""kernel.decode_attention_roofline: in percent, the least time the paged
+attention's work needs over the device time of K3 (paged_decode) and K6
+(paged_decode_ragged) in the traced span. Work, counted by the
+configuration's architecture (run.shapes), for each piece counted alone:
+every decode row whose result reached the host in the span reads its
+context's K and V once in every layer; every resumed suffix whose prompt
+became resident in the span reads the loaded prefix once and does its
+causal QK and PV. Each piece takes the larger of bytes over 3.35 TB/s and
+FLOPs over 989 TFLOP/s."""
 
 from h100bench import roofline
 
@@ -21,9 +22,8 @@ def read(run):
             continue
         for step in t.steps:
             if a < step.t <= b:
-                least += roofline.least_s(*roofline.decode_attention_work(s, step.position))
+                least += roofline.least_s(*s.decode_attention_work(step.position))
         start = run.loaded_tokens(t)
         if start and start < len(t.prompt) and a < run.prefix_ready(t) <= b:
-            least += roofline.least_s(*roofline.resume_attention_work(
-                s, start, len(t.prompt) - start))
+            least += roofline.least_s(*s.resume_attention_work(start, len(t.prompt) - start))
     return 100.0 * least / run.trace.kernel_s["decode_attention"] if least else None

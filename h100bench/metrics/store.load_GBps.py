@@ -2,11 +2,9 @@
 hits' summed store fetch and install times (RequestStats.fetch_us +
 gate_hold_us), over the turns whose first token came in the window."""
 
-from h100bench import roofline
-
 
 def read(run):
     hits = [t for t in run.first_token_in_window() if t.stats.loaded_blocks]
     us = sum(t.stats.fetch_us + t.stats.gate_hold_us for t in hits)
-    nbytes = sum(t.stats.loaded_blocks for t in hits) * roofline.block_bytes(run.shapes)
+    nbytes = sum(t.stats.loaded_blocks for t in hits) * run.shapes.block_bytes()
     return nbytes / (us * 1e-6) / 1e9 if us > 0 else None

@@ -4,7 +4,8 @@ Every time is the host's performance counter, in seconds. A turn counts
 toward a metric by where its event falls in the window [start, end):
 
 - TTFT: the turns whose first token came in the window;
-- time per output token: the turns that returned in the window;
+- a turn's latency and time per output token: the turns that returned in
+  the window;
 - tokens: each token stamped in the window (``Turn.steps``);
 - attempted and failed: the turns sent in the window.
 
@@ -17,8 +18,6 @@ from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
-
-from . import roofline
 
 
 @dataclass
@@ -59,7 +58,7 @@ class Turn:
 
 @dataclass
 class Run:
-    shapes: roofline.Shapes
+    shapes: Any  # the architecture's work object (``arch/<model_type>.py``'s ``shapes``)
     start: float  # window
     end: float
     turns: List[Turn]

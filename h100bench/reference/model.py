@@ -11,9 +11,10 @@ and the output head. Departures: none of the mathematics; Phi-3's fused qkv
 and gate_up projections are held split, which computes the same.
 
 It imports nothing of the program: it takes the benchmark's own weights
-(``h100bench/weights.py``), remade here layer by layer from the seed, and
-the token ids. It runs layer by layer over a list of sequences, queries in
-chunks, so that a 4,096-token sequence fits beside nothing else.
+(``arch/llama.py``, drawn through ``weights.py``), remade here layer by
+layer from the seed, and the token ids. It runs layer by layer over a list
+of sequences, queries in chunks, so that a 4,096-token sequence fits beside
+nothing else.
 
 ``quant="fp8"`` is the control: every projection's weights (per output
 column) and inputs (per row) rounded to float8 e4m3 with a scale, the rest
@@ -26,8 +27,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .. import weights as weights_mod
-from ..roofline import Shapes
+from ..arch import llama
 
 _E4M3_MAX = 448.0
 _QUERY_CHUNK = 1024
@@ -41,7 +41,7 @@ def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class Reference:
-    def __init__(self, shapes: Shapes, rope_theta: float, rms_eps: float, seed: int,
+    def __init__(self, shapes: llama.Shapes, rope_theta: float, rms_eps: float, seed: int,
                  device, weight_dtype=torch.bfloat16, quant: Optional[str] = None):
         if quant not in (None, "fp8"):
             raise ValueError(f"unknown quant {quant!r}")
@@ -117,13 +117,13 @@ class Reference:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         try:
-            outer = {k: t.float() for k, t in weights_mod.outer(
+            outer = {k: t.float() for k, t in llama.outer(
                 self.s, self.seed, self.device, self.weight_dtype).items()}
             ids = [torch.as_tensor(list(seq), dtype=torch.long, device=self.device)
                    for seq in sequences]
             xs = [outer["embed"][i] for i in ids]
             for layer in range(self.s.n_layers):
-                w = {k: t.float() for k, t in weights_mod.layer(
+                w = {k: t.float() for k, t in llama.layer(
                     self.s, self.seed, layer, self.device, self.weight_dtype).items()}
                 xs = [self._block(x, w) for x in xs]
                 del w

@@ -1,13 +1,14 @@
 """One run of one cell: build the system under test, drive the cell's traffic
 through it, record the window, free the program, check its answers.
 
-The system under test is the port's serving path: ``ContinuousBatchingHarness``
-(engine, device gate, ragged decode waves) over ``EngineKVAdapter`` over
-``KVConnector`` (layerwise reads and writes, host staging) over an in-process
-store server on loopback TCP (``lib.start_local_server`` with shared memory
-off, so the data path is the socket, the same as across hosts). The engine
-runs with its defaults: no verification oracle, no drafter, the skew policy
-off.
+The system under test is the port's serving path:
+``ContinuousBatchingHarness`` (engine, device gate, ragged decode waves) over
+``EngineKVAdapter`` over ``KVConnector`` (layerwise reads and writes, host
+staging) over an in-process store server on loopback TCP
+(``lib.start_local_server`` with shared memory off, so the data path is the
+socket, the same as across hosts), with the model configuration and weights
+of the cell's architecture (``arch/``). The engine runs with its defaults: no
+verification oracle, no drafter, the skew policy off.
 
 The benchmark's own spans (no change to the program):
 
@@ -31,29 +32,14 @@ from typing import List, Optional
 
 import torch
 
-from . import check, records, roofline, spec
+from . import check, records, spec
 from . import trace as trace_mod
-from . import weights as weights_mod
-from .reference.model import Reference
+from .weights import DTYPES
 
 # --trace 1 profiles the last seconds of the window.
 TRACE_SPAN_S = 6.0
 
 _TURN = contextvars.ContextVar("h100bench_turn", default=None)
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def llama_config(cfg: dict):
-    from infinistore_tpu_torch.models.llama import LlamaConfig
-
-    return LlamaConfig(
-        vocab=cfg["vocab_size"], dim=cfg["hidden_size"], n_layers=cfg["num_hidden_layers"],
-        n_heads=cfg["num_attention_heads"], n_kv_heads=cfg["num_key_value_heads"],
-        ffn_dim=cfg["intermediate_size"], block_tokens=cfg["block_tokens"],
-        rope_theta=float(cfg["rope_theta"]), dtype=_DTYPES[cfg["torch_dtype"]],
-    )
-
 
 def _timed_adapter(connector, block_bytes: int, block_tokens: int):
     from infinistore_tpu_torch.engine import EngineKVAdapter
@@ -142,25 +128,27 @@ def power_limit_w() -> Optional[float]:
 
 class System:
     """The program, set up for one cell: store server, client, connector,
-    adapter, harness, on ``device``."""
+    adapter, harness, on ``device``; the model configuration, the weights and
+    the work counts come from ``arch``, the configuration's module."""
 
-    def __init__(self, cfg: dict, traffic, seed: int, device: torch.device, model_id: str):
+    def __init__(self, arch, cfg: dict, traffic, seed: int, device: torch.device,
+                 model_id: str):
         from infinistore_tpu_torch import lib
         from infinistore_tpu_torch.config import ClientConfig
         from infinistore_tpu_torch.connector import KVConnector
         from infinistore_tpu_torch.engine import ContinuousBatchingHarness
 
-        self.shapes = roofline.Shapes.of(cfg)
-        self.config = llama_config(cfg)
+        self.shapes = arch.shapes(cfg)
+        self.config = arch.program(cfg, device)
         bt = self.shapes.block_tokens
         self.req_blocks = math.ceil(cfg["max_context"] / bt)
         num_blocks = traffic.in_flight * self.req_blocks
         # The pool holds twice the live sessions' KV at the cap, so that LRU
         # eviction removes only finished sessions.
         unit = cfg["store_unit_bytes"]
-        pool = 2 * num_blocks * roofline.block_bytes(self.shapes)
+        pool = 2 * num_blocks * self.shapes.block_bytes()
         pool = -(-pool // unit) * unit
-        self.params = weights_mod.params(self.shapes, seed, device, self.config.dtype)
+        self.params = arch.params(cfg, seed, device, DTYPES[cfg["torch_dtype"]])
         self.server = lib.start_local_server(prealloc_bytes=pool, block_bytes=unit,
                                              pin_memory=False, enable_shm=False)
         self.conn = lib.InfinityConnection(ClientConfig(
@@ -169,7 +157,7 @@ class System:
         self.conn.connect()
         self.kv = KVConnector(self.conn, self.config.kv_spec(num_blocks), model_id,
                               max_blocks=self.req_blocks, device=device)
-        self.adapter = _timed_adapter(self.kv, roofline.block_bytes(self.shapes), bt)
+        self.adapter = _timed_adapter(self.kv, self.shapes.block_bytes(), bt)
         self.harness = ContinuousBatchingHarness(
             self.adapter, self.params, self.config, num_blocks, self.req_blocks, verify=False,
             device=device)
@@ -245,7 +233,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cuda",
     _build(device)
     phases["built"] = time.perf_counter()
     traffic = cell.traffic(seed)
-    system = System(cfg, traffic, seed, device, f"{cell.name}-{seed}")
+    system = System(cell.arch, cfg, traffic, seed, device, f"{cell.name}-{seed}")
     phases["system"] = time.perf_counter()
     dtrace = None
     if trace:
@@ -301,10 +289,11 @@ def served_turns(run_: records.Run) -> List[check.Served]:
             if t.generated]
 
 
-def reference(cell: spec.Cell, seed: int, device, quant=None) -> Reference:
+def reference(cell: spec.Cell, seed: int, device, quant=None):
+    """The cell's plain reference, its weights remade in the type they are
+    served in."""
     cfg = cell.config
-    return Reference(roofline.Shapes.of(cfg), float(cfg["rope_theta"]), cfg["rms_norm_eps"],
-                     seed, device, weight_dtype=_DTYPES[cfg["torch_dtype"]], quant=quant)
+    return cell.arch.reference(cfg, seed, device, DTYPES[cfg["torch_dtype"]], quant)
 
 
 def _check(cell: spec.Cell, seed: int, run_: records.Run, device):

@@ -1,6 +1,9 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 - a configuration: the file its entry names (``configs/<name>.json``);
+- its architecture: the module ``arch/<model_type>.py`` that the file's
+  ``model_type`` names (``arch/__init__.py``): the program's configuration
+  and weights, the plain reference and the work counts;
 - a traffic mix: ``traffic/<traffic>.json``, whose ``generator`` names a
   module ``generators/<generator>.py`` with ``build(params, seed, vocab,
   max_context, block_tokens)``;
@@ -8,15 +11,17 @@
   (``records.Run``); None leaves the metric out of the result;
 - a cell's correctness limits: ``cells/<cell>.json``.
 
-A later benchmark adds a cell, a configuration, a mix or a metric by adding
-files and entries; nothing here names one.
+A later benchmark adds a cell, a configuration, an architecture, a mix or a
+metric by adding files and entries; nothing here names one.
 """
 
 import importlib.util
 import json
 import os
-from dataclasses import dataclass
-from typing import Dict, List
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
+
+from . import arch as arch_mod
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -55,6 +60,10 @@ class Cell:
     limits: dict
     end_to_end: List[Metric]
     per_layer: List[Metric]
+    arch: Any = field(init=False)  # arch/<model_type>.py
+
+    def __post_init__(self):
+        self.arch = arch_mod.find(self.config.get("model_type"))
 
     def traffic(self, seed: int):
         gen = _load_module(os.path.join(HERE, "generators", self.traffic_params["generator"] + ".py"),

@@ -15,7 +15,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from h100bench import records, roofline, spec, trace
+from h100bench import arch, records, roofline, spec, trace
 from h100bench.generators import sessions
 
 ROOT = spec.ROOT
@@ -30,6 +30,12 @@ def _traffic():
 def _config(name):
     with open(os.path.join(spec.HERE, "configs", name + ".json")) as f:
         return json.load(f)
+
+
+def _shapes(name):
+    """The work object of a configuration, through its architecture."""
+    cfg = _config(name)
+    return arch.find(cfg["model_type"]).shapes(cfg)
 
 
 # -- the generator -----------------------------------------------------------
@@ -163,32 +169,31 @@ def test_configs_hold_the_published_widths():
 
 
 def test_roofline_against_hand_values():
-    m = roofline.Shapes.of(_config("mistral-7b-v0.3"))
-    p = roofline.Shapes.of(_config("phi-3-mini-4k"))
+    m = _shapes("mistral-7b-v0.3")
+    p = _shapes("phi-3-mini-4k")
     # Mistral: per layer q 4096x4096, k and v 4096x1024, o 4096x4096, gate,
     # up and down 4096x14336: 218,103,808; x 32 layers x 2 FLOPs.
-    assert roofline.matmul_params(m) == 6_979_321_856
-    assert 2 * roofline.matmul_params(m) / 1e9 == pytest.approx(13.96, abs=0.005)
+    assert m.matmul_params() == 6_979_321_856
+    assert 2 * m.matmul_params() / 1e9 == pytest.approx(13.96, abs=0.005)
     # Phi-3: 4 x 3072^2 + 3 x 3072 x 8192 = 113,246,208 a layer.
-    assert roofline.matmul_params(p) == 3_623_878_656
-    assert roofline.kv_bytes_per_token(m) == 128 << 10
-    assert roofline.kv_bytes_per_token(p) == 384 << 10
-    assert roofline.block_bytes(m) == 2 << 20 and roofline.block_bytes(p) == 6 << 20
+    assert p.matmul_params() == 3_623_878_656
+    assert m.kv_bytes_per_token() == 128 << 10
+    assert p.kv_bytes_per_token() == 384 << 10
+    assert m.block_bytes() == 2 << 20 and p.block_bytes() == 6 << 20
     # One decode row at position 1023 reads 1,024 tokens of KV (128 MiB)
     # plus q and out (32 layers x 2 x 4096 x 2 bytes).
-    nbytes, flops = roofline.decode_attention_work(m, 1023)
+    nbytes, flops = m.decode_attention_work(1023)
     assert nbytes == 1024 * (128 << 10) + 32 * 2 * 4096 * 2
     assert flops == 4 * 32 * 32 * 128 * 1024
     assert roofline.least_s(nbytes, flops) == pytest.approx(nbytes / 3.35e12)
     # A resumed suffix of 2 rows after 3 tokens: 4 + 5 keys.
-    nbytes, flops = roofline.resume_attention_work(m, 3, 2)
+    nbytes, flops = m.resume_attention_work(3, 2)
     assert flops == 4 * 32 * 32 * 128 * 9
     assert nbytes == 5 * (128 << 10) + 2 * 32 * 2 * 4096 * 2
     # A prefill of 3 tokens from 0: 1 + 2 + 3 keys, one logits row.
-    assert roofline.prefill_flops(m, 0, 3, 1) == pytest.approx(
-        3 * 2 * roofline.matmul_params(m) + 4 * 32 * 32 * 128 * 6 + 2 * 4096 * 32768)
-    assert roofline.token_flops(m, 10, True) == pytest.approx(
-        roofline.prefill_flops(m, 9, 1, 1))
+    assert m.prefill_flops(0, 3, 1) == pytest.approx(
+        3 * 2 * m.matmul_params() + 4 * 32 * 32 * 128 * 6 + 2 * 4096 * 32768)
+    assert m.token_flops(10, True) == pytest.approx(m.prefill_flops(9, 1, 1))
 
 
 # -- the metric readers -------------------------------------------------------
@@ -201,7 +206,7 @@ def _stats(loaded, computed, ttft_us, gate_us, fetch_us=0.0, hold_us=0.0, ready_
 
 
 def _run():
-    s = roofline.Shapes.of(_config("mistral-7b-v0.3"))
+    s = _shapes("mistral-7b-v0.3")
     t1 = records.Turn(prompt=[0] * 64, gen=3, t_send=9.0, t_return=10.5,
                       steps=[records.Step(63, 10.0), records.Step(64, 10.2),
                              records.Step(65, 10.4), records.Step(66, 10.45)],
@@ -227,9 +232,10 @@ def test_end_to_end_readers_on_recorded_turns():
     assert [t.error for t in run.sent()] == [None, "boom"]  # t2, t3 sent in the window
     assert _metric("setup_s").read(run) == 33.0
     # first tokens in the window: t1 (10.0 - 9.0 = 1.0 s) and t2 (0.4 s)
-    assert _metric("ttft_p50_ms").read(run) == pytest.approx(700.0)
+    assert _metric("engine.ttft_p50_ms").read(run) == pytest.approx(700.0)
     assert _metric("engine.ttft_p90_ms").read(run) == pytest.approx(940.0)
-    # returned in the window: t1, (10.5 - 10.0) / 2 = 0.25 s
+    # returned in the window: t1, sent at 9.0 and back at 10.5; (10.5 - 10.0) / 2 = 0.25 s
+    assert _metric("turn_p50_ms").read(run) == pytest.approx(1500.0)
     assert _metric("engine.tpot_p90_ms").read(run) == pytest.approx(250.0)
     # tokens stamped in the window: t1's three (the fourth step emits none), t2's two
     assert _metric("engine.output_tokens_per_s").read(run) == pytest.approx(5 / 2.0)
@@ -246,16 +252,16 @@ def test_per_layer_readers_on_recorded_turns():
     # t1 became resident at 9.5 (before the window): its steps 2-4 count
     # (logits for the 2nd and 3rd, none for the 4th); t2 resident at 10.9,
     # its second step counts.
-    flops = (roofline.token_flops(s, 65, True) + roofline.token_flops(s, 66, True)
-             + roofline.token_flops(s, 67, False) + roofline.prefill_flops(s, 0, 32, 1)
-             + roofline.token_flops(s, 33, True))
+    flops = (s.token_flops(65, True) + s.token_flops(66, True)
+             + s.token_flops(67, False) + s.prefill_flops(0, 32, 1)
+             + s.token_flops(33, True))
     assert _metric("model.mfu").read(run) == pytest.approx(100 * flops / (2.0 * 989e12))
     assert _metric("kernel.decode_attention_roofline").read(run) is None  # no trace
     run.trace = trace.Summary(window_s=2.0, busy_s=0.5,
                               kernel_s={"decode_attention": 1e-3, "block_copy": 2e-3},
                               device_ops=[], idle_gaps=[], events=3)
     run.trace_span = (10.0, 12.0)
-    least = sum(roofline.least_s(*roofline.decode_attention_work(s, p))
+    least = sum(roofline.least_s(*s.decode_attention_work(p))
                 for p in (64, 65, 66, 31, 32))
     assert _metric("kernel.decode_attention_roofline").read(run) == pytest.approx(
         100 * least / 1e-3)
@@ -299,7 +305,12 @@ def _modules_after(code: str) -> set:
 
 
 def test_reference_imports_nothing_of_the_port():
-    mods = _modules_after("import h100bench.reference.model, h100bench.check")
+    mods = _modules_after(
+        "import json, torch\n"
+        "from h100bench import arch, check\n"
+        "cfg = json.load(open('h100bench/tests/data/tiny_config.json'))\n"
+        "ref = arch.find(cfg['model_type']).reference(cfg, 5, 'cpu', torch.float32)\n"
+        "assert ref.logits([[1, 2, 3]], [[2]])[0].shape == (1, cfg['vocab_size'])\n")
     assert not mods & {"infinistore_tpu_torch", "infinistore_tpu", "jax", "jaxlib", "flax"}
     src = os.path.join(spec.HERE, "reference")
     for name in os.listdir(src):

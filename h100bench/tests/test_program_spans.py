@@ -164,7 +164,7 @@ def test_a_traced_run_of_the_tiny_cell(program_trace):
     line = spans_run.line_of(cell, out, True, {"platform": "cpu"}, info)
     assert line["correct"], line["check"]
     m = line["metrics"]
-    assert "ttft_p50_ms" in m and "device.idle_share" in m
+    assert "turn_p50_ms" in m and "device.idle_share" in m
     if not program_trace:
         assert not set(spans_run.PROGRAM_METRICS) & set(m)
         assert "idle_program" not in line["breakdown"]

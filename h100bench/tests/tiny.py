@@ -20,11 +20,16 @@ def _json(name):
         return json.load(f)
 
 
-def cell(limit: float = LIMIT) -> spec.Cell:
+def cell(limit: float = LIMIT, model_type: str = None) -> spec.Cell:
+    """The tiny cell; ``model_type`` puts another architecture's module in
+    place of the configuration's own (``llama``)."""
     bench = spec.load(BENCH)
     name = "tiny.chat_sessions"
+    config = _json("tiny_config.json")
+    if model_type is not None:
+        config["model_type"] = model_type
     return spec.Cell(
-        name=name, chips=1, config=_json("tiny_config.json"),
+        name=name, chips=1, config=config,
         traffic_params=_json("tiny_traffic.json"),
         limits={"max_logit_gap": limit},
         end_to_end=spec._metrics(bench["end_to_end"], name),
