@@ -258,7 +258,16 @@ kernels (``nvcc``, one process per source), in parallel. Then:
    kernels (``torch.profiler``) are logged, its backend and longest kernel
    on the row (``library_backend``, ``library_kernel``; ``shapes_taken``
    on the ``kernels`` line, which
-   also lists each kernel's ``head_dims`` and ``groups``).
+   also lists each kernel's ``head_dims`` and ``groups``). Last, Trinity-
+   Mini's shapes (``_afmoe_kernel_check``, also alone with
+   ``--afmoe-kernels``): K3, K6 and K4 (bf16, 32 query heads over 4 at
+   head_dim 128) over a sliding window of 2,048 keys at 8,192 tokens of
+   context, each against its plain version and timed beside its
+   unwindowed launch, K3, K6 and K4 in f32 too (at 1e-5); and the routed
+   experts' grouped GEMM (``torch._grouped_mm``, ``cuda/moe.py``) at a
+   decode wave (16 rows x 8 experts of 128) and a 2,048-token prefill
+   chunk, gate-up and down, against its plain version and its bound, with
+   the names of its kernels.
 
 13-15 run after phase 11, on the main path's weights, before phase 12:
 13. The same-mesh block handoff (``cuda/ici.py``) at Llama-3-8B width
@@ -845,6 +854,7 @@ def kernel_phase(torch, timer, nomerge):
     # 256, 7 query heads a KV head. Each kernel's row lists the head_dims
     # and groups it ran here.
     taken = _shapes_taken_check(torch, timer, g)
+    results["afmoe"] = _afmoe_kernel_check(torch, timer, g)
     for name, row in results.items():
         if name not in taken:
             continue
@@ -856,6 +866,159 @@ def kernel_phase(torch, timer, nomerge):
         row["head_dims"] = sorted({hd for hd, _ in runs})
         row["groups"] = sorted({gr for _, gr in runs})
     return results
+
+
+# Trinity-Mini's attention and experts (``_afmoe_kernel_check``): 32 query
+# heads over 4 at head_dim 128, block 16, a window of 2,048 keys against
+# 8,192 tokens of context; 128 experts of width 1,024 at hidden 2,048, 8 a
+# token.
+AFMOE = dict(h=32, kvh=4, d=128, bt=16, window=2048, context=8192, dim=2048, ffn=1024,
+             experts=128, top_k=8, wave_rows=16, chunk=2048)
+
+
+def _afmoe_kernel_check(torch, timer, g):
+    """K3, K6, K4 over a sliding window, and the grouped expert GEMM, at
+    Trinity-Mini's shapes (module docstring): each against its plain
+    version, timed beside its unwindowed launch (attention) or its plain
+    version and its bound (experts). Raises on a miss."""
+    from infinistore_tpu_torch.cuda import moe
+    from infinistore_tpu_torch.cuda import flash_prefill as fp
+    from infinistore_tpu_torch.cuda import paged_attention as pa
+
+    c = AFMOE
+    h, kvh, d, bt, w = c["h"], c["kvh"], c["d"], c["bt"], c["window"]
+    out = {}
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+
+    # K3: 4 rows at 8,192 tokens; K6: a wave of 16 rows at 1,000 .. 8,192
+    # (lengths that are no multiple of the page). bf16 at 2e-2, timed; f32
+    # at 1e-5, where a window off by one page would show.
+    rows = 4
+    nb = c["context"] // bt
+    n_cache = 16 * nb + 16
+    wave = c["wave_rows"]
+    wlens = [1000 + (c["context"] - 1000) * i // (wave - 1) for i in range(wave)]
+    kv_bytes = 2 * kvh * d * 2
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        sfx = "" if dtype == torch.bfloat16 else "_f32"
+        kc, vc = randn((n_cache, bt, kvh, d), dtype), randn((n_cache, bt, kvh, d), dtype)
+        tables = torch.randperm(n_cache, generator=g, device="cuda")[: rows * nb].to(
+            torch.int32).reshape(rows, nb)
+        lens = torch.tensor([c["context"], c["context"] - 7, w + 1, 900], dtype=torch.int32,
+                            device="cuda")
+        q = randn((rows, h, d), dtype)
+        got = pa.paged_decode_attention_batched(q, kc, vc, tables, lens, window=w)
+        want = pa.paged_decode_attention_plain_batched(q, kc, vc, tables, lens, window=w)
+        err = max_err(got, want)
+        if not err <= tol:
+            raise AssertionError(f"K3 {dtype} window {w}: max abs err {err} > {tol}")
+        full = torch.full((rows,), c["context"], dtype=torch.int32, device="cuda")
+        bms, by = bound_ms(rows * w * kv_bytes + 2 * rows * h * d * 2, 4.0 * h * d * w * rows,
+                           "bfloat16")
+        row = dict(max_abs_err=err, tol=tol, rows=rows, context=c["context"], window=w)
+        if sfx == "":
+            row.update(
+                ms=timer.ms(lambda: pa.paged_decode_attention_batched(q, kc, vc, tables, full,
+                                                                      window=w)),
+                unwindowed_ms=timer.ms(lambda: pa.paged_decode_attention_batched(
+                    q, kc, vc, tables, full)),
+                plain_ms=timer.ms(lambda: pa.paged_decode_attention_plain_batched(
+                    q, kc, vc, tables, full, window=w)),
+                bound_ms=bms, bound_by=by)
+        out["k3_window" + sfx] = row
+        log(f"K3 {dtype} window {w}: {json.dumps(row)}")
+
+        wtables = torch.randperm(n_cache, generator=g, device="cuda")[: wave * nb].to(
+            torch.int32).reshape(wave, nb)
+        meta = pa.build_ragged_wave(list(wtables.cpu().numpy()), wlens, bt, pad_to_pow2=True)
+        dev = [torch.as_tensor(x, device="cuda") for x in (meta.pages, meta.page_rows,
+                                                            meta.page_starts, meta.seq_lens)]
+        qw = randn((wave, h, d), dtype)
+
+        def k6(window):
+            return pa.paged_decode_attention_ragged(qw, kc, vc, *dev, table_width=nb,
+                                                    window=window)
+
+        got = k6(w)
+        want = pa.paged_decode_attention_plain_batched(qw, kc, vc, wtables, dev[3], window=w)
+        err = max_err(got, want)
+        if not err <= tol:
+            raise AssertionError(f"K6 {dtype} window {w}: max abs err {err} > {tol}")
+        row = dict(max_abs_err=err, tol=tol, rows=wave, window=w)
+        if sfx == "":
+            keys = sum(min(n, w) for n in wlens)
+            bms, by = bound_ms(keys * kv_bytes + 2 * wave * h * d * 2, 4.0 * h * d * keys,
+                               "bfloat16")
+            row.update(ms=timer.ms(lambda: k6(w)), unwindowed_ms=timer.ms(lambda: k6(0)),
+                       plain_ms=timer.ms(lambda: pa.paged_decode_attention_plain_batched(
+                           qw, kc, vc, wtables, dev[3], window=w)),
+                       bound_ms=bms, bound_by=by)
+        out["k6_window" + sfx] = row
+        log(f"K6 {dtype} window {w}: {json.dumps(row)}")
+        del kc, vc
+
+    # K4: one 8,192-token prompt in bf16; f32 at 1,024 tokens, window 256.
+    for dtype, s, win, tol in ((torch.bfloat16, c["context"], w, 2e-2),
+                               (torch.float32, 1024, 256, 1e-5)):
+        qp, kp, vp = randn((1, s, h, d), dtype), randn((1, s, kvh, d), dtype), randn(
+            (1, s, kvh, d), dtype)
+        got = fp.flash_prefill_attention(qp, kp, vp, causal=True, window=win)
+        want = fp.flash_prefill_plain(qp, kp, vp, causal=True, window=win)
+        err = max_err(got, want)
+        if not err <= tol:
+            raise AssertionError(f"K4 {dtype} window {win}: max abs err {err} > {tol}")
+        pairs = sum(min(p + 1, win) for p in range(s))
+        bms, by = bound_ms((2 * s * h * d + 2 * s * kvh * d) * qp.element_size(),
+                           4.0 * d * h * pairs, peak_dtype(qp))
+        row = dict(max_abs_err=err, tokens=s, window=win,
+                   ms=timer.ms(lambda: fp.flash_prefill_attention(qp, kp, vp, causal=True,
+                                                                  window=win)),
+                   unwindowed_ms=timer.ms(lambda: fp.flash_prefill_attention(qp, kp, vp,
+                                                                             causal=True)),
+                   bound_ms=bms, bound_by=by)
+        out[f"k4_window_{peak_dtype(qp)}"] = row
+        log(f"K4 {dtype} window {win}: {json.dumps(row)}")
+        del qp, kp, vp
+
+    # The grouped expert GEMM (torch._grouped_mm): gate-up (dim -> 2 x ffn)
+    # and down (ffn -> dim), with the names of the kernels it launches.
+    e, k = c["experts"], c["top_k"]
+    w_gu = randn((e, c["dim"], 2 * c["ffn"])) * c["dim"] ** -0.5
+    w_dn = randn((e, c["ffn"], c["dim"])) * c["ffn"] ** -0.5
+    for label, tokens in (("decode_wave", c["wave_rows"]), ("prefill_chunk", c["chunk"])):
+        choice = torch.rand((tokens, e), generator=g, device="cuda").topk(k, dim=-1).indices
+        flat = choice.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.bincount(flat, minlength=e)
+        ends = torch.cumsum(counts, 0).to(torch.int32)
+        distinct = int((counts > 0).sum())
+        pairs = tokens * k
+        for proj, x, wt in (("gate_up", randn((pairs, c["dim"])), w_gu),
+                            ("down", randn((pairs, c["ffn"])), w_dn)):
+            x = x[order]
+            got = moe.grouped_gemm(x, wt, ends)
+            want = moe.grouped_gemm_plain(x, wt, ends)
+            err = max_err(got, want)
+            scale = float(want.float().abs().max())
+            if not err <= 2e-2 * max(scale, 1.0):
+                raise AssertionError(f"grouped GEMM {label} {proj}: err {err} (scale {scale})")
+            kk, nn = wt.shape[1], wt.shape[2]
+            bms, by = bound_ms(distinct * kk * nn * 2 + pairs * (kk + nn) * 2,
+                               2.0 * pairs * kk * nn, "bfloat16")
+            row = dict(max_abs_err=err, pairs=pairs, experts_read=distinct,
+                       ms=timer.ms(lambda: moe.grouped_gemm(x, wt, ends)),
+                       plain_ms=timer.ms(lambda: moe.grouped_gemm_plain(x, wt, ends)),
+                       bound_ms=bms, bound_by=by)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                moe.grouped_gemm(x, wt, ends)
+                torch.cuda.synchronize()
+            row["kernels"] = sorted({e.key for e in prof.key_averages()})[:6]
+            out[f"moe_{label}_{proj}"] = row
+            log(f"grouped GEMM {label} {proj}: {json.dumps(row)}")
+    return out
 
 
 # K1/K2 at the shapes of the paths' batched calls: the writer's and the
@@ -5020,6 +5183,8 @@ def _args(argv):
     ap.add_argument("--tensor-parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init-file", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--afmoe-kernels", action="store_true",
+                    help="build the kernels and run Trinity-Mini's kernel checks alone")
     return ap.parse_args(argv)
 
 
@@ -5081,6 +5246,14 @@ def main() -> int:
         print("\n".join(smi_lines), flush=True)
         return cards_main(torch, args.cards, t_start)
     print(smi, flush=True)
+    if args.afmoe_kernels:
+        from infinistore_tpu_torch.cuda import _ext
+
+        _ext.kernels()
+        rows = _afmoe_kernel_check(torch, _timing().Timer(torch),
+                                   torch.Generator(device="cuda").manual_seed(1234))
+        print(json.dumps({"afmoe_kernels": rows, "smi": smi}), flush=True)
+        return 0
 
     nomerge = _build_all(torch)
     from infinistore_tpu_torch import lib

@@ -141,21 +141,21 @@ ARGTYPES = {
     "its_gather_blocks_many_vec": [_P, _P, _P] + [c_int64] * 4 + [_P],
     "its_scatter_blocks_many_vec": [_P, _P, _P] + [c_int64] * 4 + [_P],
     # q, k, v, tables, seq_lens, out, scratch, tickets,
-    # dtype, B, H, KVH, D, bt, N, max_blocks, splits, stream
-    "its_paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],
+    # dtype, B, H, KVH, D, bt, N, max_blocks, splits, window (0: none), stream
+    "its_paged_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
     # q, k, v, pages, page_starts, seq_lens, out, scratch, tickets,
-    # dtype, R, H, KVH, D, bt, N, P, width, splits, stream
-    "its_paged_decode_attention_ragged": [_P] * 9 + [_I] * 10 + [_P],
-    # q, k, v, out, B, S, T, H, KVH, D, causal, stream
-    "its_flash_prefill": [_P] * 4 + [_I] * 7 + [_P],
+    # dtype, R, H, KVH, D, bt, N, P, width, splits, window, stream
+    "its_paged_decode_attention_ragged": [_P] * 9 + [_I] * 11 + [_P],
+    # q, k, v, out, B, S, T, H, KVH, D, causal, window (0: none), stream
+    "its_flash_prefill": [_P] * 4 + [_I] * 8 + [_P],
     # q, k, v, out, scratch, tickets, B, S, T, H, KVH, D, causal, slots,
-    # stream (scratch and tickets: head_dim 256's merge, else null)
-    "its_flash_prefill_wgmma": [_P] * 6 + [_I] * 8 + [_P],
-    # K3's, with acc, m, l in place of out
+    # window, stream (scratch and tickets: head_dim 256's merge, else null)
+    "its_flash_prefill_wgmma": [_P] * 6 + [_I] * 9 + [_P],
+    # K3's (no window), with acc, m, l in place of out
     "its_paged_decode_attention_stats": [_P] * 10 + [_I] * 9 + [_P],
-    # K6's, with acc, m, l in place of out
+    # K6's (no window), with acc, m, l in place of out
     "its_paged_decode_attention_ragged_stats": [_P] * 11 + [_I] * 10 + [_P],
-    # K3's, with k_data, k_scales, v_data, v_scales in place of k, v
+    # K3's (no window), with k_data, k_scales, v_data, v_scales in place of k, v
     "its_paged_decode_attention_quantized": [_P] * 10 + [_I] * 9 + [_P],
     "its_decode_splits": [_I],
 }

@@ -132,6 +132,30 @@ __host__ __device__ constexpr int grid_splits(int width) {
          : (width + kMaxSplitPages - 1) / kMaxSplitPages;
 }
 
+// The most pages a row's last `window` tokens span once the whole pages
+// before them are skipped: ceil((window + bt - 1) / bt).
+__host__ __device__ constexpr int window_pages(int window, int bt) {
+  return (window + 2 * bt - 2) / bt;
+}
+
+// The pages a launch's rows may fold: its width, at most the window's pages.
+__host__ __device__ constexpr int fold_width(int width, int window, int bt) {
+  return window > 0 && window_pages(window, bt) < width ? window_pages(window, bt) : width;
+}
+
+// A sliding window of `window` keys (0: none) over a row of `seq_len` keys:
+// the whole pages before the window are skipped (`skip`, never read nor
+// scheduled) and the first `lo` tokens of the first page kept are masked.
+struct WindowCut {
+  int skip, lo;
+};
+
+__device__ __forceinline__ WindowCut window_cut(int seq_len, int window, int bt) {
+  if (window <= 0 || seq_len <= window) return {0, 0};
+  const int first = seq_len - window;  // the first key the row attends
+  return {first / bt, first % bt};
+}
+
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 5;  // depth of the cp.async ring
@@ -539,13 +563,14 @@ __device__ __forceinline__ void finish_split(unsigned char* smem, const Epi& epi
 
 // ---------------------------------------------------------------------------
 // One work item: split `split` of query row `row` (KV head `kvh`; virtual
-// head blockIdx.z of it) over page_list[0 .. ceil(seq_len / bt)).
+// head blockIdx.z of it) over page_list[0 .. ceil(seq_len / bt)), the first
+// `lo` tokens of page_list[0] masked (a sliding window's cut, else 0).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D, int G, typename KV, typename Epi>
 __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& kv,
                                              const int32_t* __restrict__ page_list,
-                                             int seq_len, const Epi& epi,
+                                             int seq_len, int lo, const Epi& epi,
                                              float* __restrict__ scratch,
                                              int* __restrict__ tickets, int row, int kvh,
                                              int split, int H, int KVH, int bt, int num_blocks,
@@ -610,7 +635,8 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
       if (!kEven && c >= kStageChunks) break;  // the same k for every stage
       const int side = c / (F::kStageTok * kChunks);
       const int r = (c / kChunks) % F::kStageTok;
-      const int64_t base = tok0 + r < ntok ? sm_base[pi[k]] : -1;
+      const int t = tok0 + r;
+      const int64_t base = t < ntok && page0 * bt + t >= lo ? sm_base[pi[k]] : -1;
       const int64_t at = base + static_cast<int64_t>(po[k]) * row_stride;
       const int col = c % kChunks;
       const E* src = base >= 0 ? kv.data(side) + at + col * (16 / static_cast<int>(sizeof(E)))
@@ -784,7 +810,8 @@ __device__ __forceinline__ void attend_split(const T* __restrict__ q, const KV& 
 
 // Rows of a batched block table (K3, K5): grid (splits x KVH, B, virtual
 // heads a KV head). Row b attends over tables[b, :], its seq_len clamped to
-// the table's max_blocks * bt.
+// the table's max_blocks * bt, and with a `window` only its last `window`
+// keys (window_cut).
 // Registers cap the CTAs an SM holds: 3 up to G = 4, 2 at G = 8 (128 floats
 // of q and acc a thread).
 template <typename T, int D, int G, typename KV, typename Epi>
@@ -792,34 +819,37 @@ __global__ void __launch_bounds__(kThreads, (G <= 4 ? 3 : 2))
 paged_decode(const T* __restrict__ q, KV kv, const int32_t* __restrict__ tables,
              const int32_t* __restrict__ seq_lens, Epi epi, float* __restrict__ scratch,
              int* __restrict__ tickets, int H, int KVH, int bt, int num_blocks, int max_blocks,
-             int splits, float scale) {
+             int splits, int window, float scale) {
   const int b = blockIdx.y;
   const int seq_len = max(0, min(seq_lens[b], max_blocks * bt));
-  attend_split<T, D, G>(q, kv, tables + static_cast<int64_t>(b) * max_blocks, seq_len, epi,
-                        scratch, tickets, b, blockIdx.x / splits, blockIdx.x % splits, H, KVH,
-                        bt, num_blocks, splits, scale);
+  const WindowCut cut = window_cut(seq_len, window, bt);
+  attend_split<T, D, G>(q, kv, tables + static_cast<int64_t>(b) * max_blocks + cut.skip,
+                        seq_len - cut.skip * bt, cut.lo, epi, scratch, tickets, b,
+                        blockIdx.x / splits, blockIdx.x % splits, H, KVH, bt, num_blocks, splits,
+                        scale);
 }
 
 // Rows of a ragged wave (K6, K7): grid (splits x KVH, R, virtual heads a KV
 // head). Row r's pages are
 // pages[page_starts[r] + j], clamped to the pages the row owns in the flat
 // list (up to the next row's start, or P for the last row) and to the
-// launch's table width.
+// launch's table width, and with a `window` only its last `window` keys.
 template <typename T, int D, int G, typename KV, typename Epi>
 __global__ void __launch_bounds__(kThreads, (G <= 4 ? 3 : 2))
 paged_decode_ragged(const T* __restrict__ q, KV kv, const int32_t* __restrict__ pages,
                     const int32_t* __restrict__ page_starts,
                     const int32_t* __restrict__ seq_lens, Epi epi, float* __restrict__ scratch,
                     int* __restrict__ tickets, int H, int KVH, int bt, int num_blocks, int P,
-                    int width, int splits, float scale) {
+                    int width, int splits, int window, float scale) {
   const int r = blockIdx.y;
   const int R = gridDim.y;
   const int start = min(max(page_starts[r], 0), P);
   const int end = (r + 1 < R) ? min(max(page_starts[r + 1], start), P) : P;
   const int seq_len = max(0, min(seq_lens[r], min(end - start, width) * bt));
-  attend_split<T, D, G>(q, kv, pages + start, seq_len, epi, scratch, tickets, r,
-                        blockIdx.x / splits, blockIdx.x % splits, H, KVH, bt, num_blocks,
-                        splits, scale);
+  const WindowCut cut = window_cut(seq_len, window, bt);
+  attend_split<T, D, G>(q, kv, pages + start + cut.skip, seq_len - cut.skip * bt, cut.lo, epi,
+                        scratch, tickets, r, blockIdx.x / splits, blockIdx.x % splits, H, KVH, bt,
+                        num_blocks, splits, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -828,11 +858,13 @@ paged_decode_ragged(const T* __restrict__ q, KV kv, const int32_t* __restrict__ 
 
 // The launch shape every decode kernel shares. `width` bounds a row's pages
 // (max_blocks for a table; the table width, at most P, for a ragged wave),
-// `splits` = grid_splits(width) as the wrapper sized its scratch, `P`
-// the length of a ragged page list.
+// `splits` = grid_splits(fold_width(width, window, bt)) as the wrapper sized
+// its scratch, `P` the length of a ragged page list, `window` a sliding
+// window's keys (0: none; K3 and K6 alone take one).
 struct Shape {
   int rows, H, KVH, bt, num_blocks, width, P, splits;
   cudaStream_t stream;
+  int window = 0;
 };
 
 // Launches a decode kernel (K3, K5-K8) over (splits x KVH, rows, rep) CTAs of
@@ -865,11 +897,11 @@ int launch(const T* q, const KV& kv, const int32_t* index, const int32_t* starts
   if constexpr (kRagged) {
     return launch_split_kernel(paged_decode_ragged<T, D, G, KV, Epi>, smem, s, rep, q, kv,
                                index, starts, seq_lens, epi, scratch, tickets, s.H, s.KVH, s.bt,
-                               s.num_blocks, s.P, s.width, s.splits, scale);
+                               s.num_blocks, s.P, s.width, s.splits, s.window, scale);
   } else {
     return launch_split_kernel(paged_decode<T, D, G, KV, Epi>, smem, s, rep, q, kv, index,
                                seq_lens, epi, scratch, tickets, s.H, s.KVH, s.bt, s.num_blocks,
-                               s.width, s.splits, scale);
+                               s.width, s.splits, s.window, scale);
   }
 }
 
@@ -921,7 +953,8 @@ template <typename F>
 int dispatch(int dtype, int D, const Shape& s, F f) {
   if (s.rows <= 0) return 0;
   if (s.KVH <= 0 || s.H % s.KVH != 0 || s.bt <= 0 || s.width <= 0 || s.rows > 65535 ||
-      s.splits != grid_splits(s.width) || s.H / s.KVH > 65535 ||
+      s.window < 0 || s.splits != grid_splits(fold_width(s.width, s.window, s.bt)) ||
+      s.H / s.KVH > 65535 ||
       static_cast<int64_t>(s.splits) * s.KVH > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = s.H / s.KVH;

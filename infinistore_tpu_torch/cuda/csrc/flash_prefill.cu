@@ -9,6 +9,9 @@
 //   96, 128 or 256)
 //   -> out [B, S, H, D] in f32. Dots are full-precision f32 FMAs; softmax statistics are f32.
 // Causal masking is by global position and needs S == T (the wrapper checks).
+// A sliding window of W keys (`window` W > 0; 0: none) also masks a
+// key at or before row - W; the key tiles wholly before the first row's
+// window are never read (each query tile starts at the tile of key q0 - W + 1).
 //
 // Bound: operations. Causal attention does 2 dots of 2*D flops over about
 // S^2 / 2 (query, key) pairs per head: 2*S^2*D*H = 34.4 GFLOP per layer at
@@ -82,7 +85,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int S, int T_len, int H,
-              int KVH, bool causal, float scale) {
+              int KVH, bool causal, int window, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + Smem<D>::kQ;
@@ -128,8 +131,9 @@ flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
   const int last_row = min(q0 + kBQ, S) - 1;
   int n_kt = (T_len + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, last_row / kBK + 1);
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // previous tile's PV reads of Vs / Ps are done
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
@@ -164,7 +168,8 @@ flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const bool valid = (k0 + c < T_len) && (!causal || k0 + c <= q0 + r);
+        const bool valid = (k0 + c < T_len) && (!causal || k0 + c <= q0 + r) &&
+                           (window <= 0 || k0 + c > q0 + r - window);
         Ps[r * PS + c] = valid ? s[i][j] * scale : its::kNegInf;
       }
     }
@@ -185,7 +190,8 @@ flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < kBK / 4; ++u) {
         const int c = part + 4 * u;
-        const bool valid = (k0 + c < T_len) && (!causal || k0 + c <= q0 + r);
+        const bool valid = (k0 + c < T_len) && (!causal || k0 + c <= q0 + r) &&
+                           (window <= 0 || k0 + c > q0 + r - window);
         const float p = valid ? expf(Ps[r * PS + c] - m_new) : 0.f;
         sum += p;
         Ps[r * PS + c] = p;
@@ -238,7 +244,7 @@ flash_prefill(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
-           int H, int KVH, bool causal, cudaStream_t stream) {
+           int H, int KVH, bool causal, int window, cudaStream_t stream) {
   const size_t bytes = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_prefill<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -248,7 +254,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_prefill<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, T_len, H, KVH, causal, scale);
+      static_cast<float*>(out), S, T_len, H, KVH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,7 +366,7 @@ template <int D>
 __global__ void __launch_bounds__(Blocked<D>::kThreads, 1)
 flash_prefill_blocked(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out, int S, int T_len,
-                      int H, int KVH, bool causal, float scale_log2, bool vec) {
+                      int H, int KVH, bool causal, int window, float scale_log2, bool vec) {
   using L = Blocked<D>;
   constexpr int kRM = L::kRM, kKN = L::kKN, kTX = L::kTX, kTY = L::kTY, kBK = L::kBK;
   constexpr int kNT = L::kThreads;
@@ -389,11 +395,12 @@ flash_prefill_blocked(const float* __restrict__ q, const float* __restrict__ k,
   const int last_row = min(q0 + L::kBQ, S) - 1;
   int n_kt = (T_len + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, last_row / kBK + 1);
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   load_rows<D, kNT>(Qs, L::kQS, qb, q_row, q0, L::kBQ, S, vec);
-  load_rows<D, kNT>(Ks, L::kQS, kb, kv_row, 0, kBK, T_len, vec);
+  load_rows<D, kNT>(Ks, L::kQS, kb, kv_row, kt_lo * kBK, kBK, T_len, vec);
   cp_async_commit();
-  load_rows<D, kNT>(Vs, D, vb, kv_row, 0, kBK, T_len, vec);
+  load_rows<D, kNT>(Vs, D, vb, kv_row, kt_lo * kBK, kBK, T_len, vec);
   cp_async_commit();
 
   float o[kRM][L::kOC];
@@ -408,7 +415,7 @@ flash_prefill_blocked(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<1>();  // Q and K of tile 0
   __syncthreads();
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     // Logits: four d-values a step, one float4 a row and a key.
     float s[kRM][kKN];
@@ -438,7 +445,8 @@ flash_prefill_blocked(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
 
     // Online softmax on the patch; P to shared memory.
-    const bool mask = k0 + kBK > T_len || (causal && k0 + kBK - 1 > q0);
+    const bool mask = k0 + kBK > T_len || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && k0 < q0 + L::kBQ - window);
     if constexpr (!kDoSoftmax) {
 #pragma unroll
       for (int i = 0; i < kRM; ++i)
@@ -453,7 +461,8 @@ flash_prefill_blocked(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kKN; ++j) {
         const int c = k0 + tx + kTX * j;
         float x = s[i][j] * scale_log2;
-        if (mask && (c >= T_len || (causal && c > r))) x = -INFINITY;
+        if (mask && (c >= T_len || (causal && c > r) || (window > 0 && c <= r - window)))
+          x = -INFINITY;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -555,7 +564,7 @@ flash_prefill_blocked(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_blocked(const void* q, const void* k, const void* v, void* out, int B, int S,
-                   int T_len, int H, int KVH, bool causal, cudaStream_t stream) {
+                   int T_len, int H, int KVH, bool causal, int window, cudaStream_t stream) {
   using L = Blocked<D>;
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_blocked<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -569,29 +578,32 @@ int launch_blocked(const void* q, const void* k, const void* v, void* out, int B
   const dim3 grid((S + L::kBQ - 1) / L::kBQ, B * H);
   flash_prefill_blocked<D><<<grid, L::kThreads, L::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, T_len, H, KVH, causal, scale_log2, vec);
+      static_cast<float*>(out), S, T_len, H, KVH, causal, window, scale_log2, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// f32 tensors only (bf16 goes to its_flash_prefill_wgmma).
+// f32 tensors only (bf16 goes to its_flash_prefill_wgmma). `window` 0: none;
+// a window needs `causal`.
 extern "C" int its_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
                                  int S, int T_len, int H, int KVH, int D, int causal,
-                                 void* stream) {
+                                 int window, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || T_len <= 0 || B * H > 65535)
+  if (KVH <= 0 || H % KVH != 0 || T_len <= 0 || B * H > 65535 || window < 0 ||
+      (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
   switch (D) {
-    case 8: return launch<8>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 64: return launch_blocked<64>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 80: return launch_blocked<80>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 96: return launch_blocked<96>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 128: return launch_blocked<128>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
-    case 256: return launch_blocked<256>(q, k, v, out, B, S, T_len, H, KVH, causal != 0, s);
+    case 8: return launch<8>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
+    case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
+    case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
+    case 64: return launch_blocked<64>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
+    case 80: return launch_blocked<80>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
+    case 96: return launch_blocked<96>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
+    case 128: return launch_blocked<128>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
+    case 256: return launch_blocked<256>(q, k, v, out, B, S, T_len, H, KVH, c, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -10,7 +10,11 @@
 // are rounded to bf16 for the PV product while the row sum l takes them
 // unrounded; out = acc / max(l, 1e-30). Causal masking is by global position
 // (S == T, the wrapper checks); keys at or past T are masked; key tiles
-// above the diagonal are never loaded. No atomics, no split across CTAs: the
+// above the diagonal are never loaded. A sliding window of W keys
+// (`window` W > 0; 0: none) also masks a key at or before
+// row - W, and a query tile's key tiles start at the tile of key q0 - W + 1:
+// the tiles wholly before the window are neither loaded nor computed (no key
+// split at D = 256 then: every tile is a whole item). No atomics, no split across CTAs: the
 // result does not depend on scheduling. The f32 path stays on the CUDA cores
 // (flash_prefill.cu): wgmma has no full-precision f32 x f32 form.
 //
@@ -97,6 +101,7 @@
 #include <math.h>
 
 #include <algorithm>
+#include <climits>
 
 #include "common.cuh"
 
@@ -450,20 +455,24 @@ __device__ __forceinline__ void issue_pv(float (&o)[Smem<D>::kDP / 2],
 template <bool kMask, int kN>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kN], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float scale_log2, int row0,
-                                             int col0, int T, bool causal) {
+                                             int col0, int T, bool causal, int window) {
   // Entry i of row j is valid when its column offset within the thread's
-  // columns is below lim[j]; a masked entry becomes -inf, so its p is
-  // exp2(-inf) = 0.
-  int lim[2];
+  // columns is below lim[j] and, with a window, at least low[j]; a masked
+  // entry becomes -inf, so its p is exp2(-inf) = 0.
+  int lim[2], low[2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) lim[j] = (causal ? min(T, row0 + 8 * j + 1) : T) - col0;
+  for (int j = 0; j < 2; ++j) {
+    lim[j] = (causal ? min(T, row0 + 8 * j + 1) : T) - col0;
+    low[j] = window > 0 ? row0 + 8 * j - window + 1 - col0 : INT_MIN;
+  }
   // Row max as a tree over 8 partials per row (a chain of 32 dependent
   // max instructions would leave the issue slots idle).
   float part[2][8];
 #pragma unroll
   for (int i = 0; i < kN; ++i) {
     const int j = (i / 2) % 2, u = (i / 4) % 4 * 2 + i % 2;
-    if (kMask && 8 * (i / 4) + (i % 2) >= lim[j]) sc[i] = -INFINITY;
+    if (kMask && (8 * (i / 4) + (i % 2) >= lim[j] || 8 * (i / 4) + (i % 2) < low[j]))
+      sc[i] = -INFINITY;
     part[j][u] = i < 16 ? sc[i] : fmaxf(part[j][u], sc[i]);  // i < 16: first of each
   }
   float mx[2];
@@ -502,11 +511,11 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kN], float (&m)[2], flo
 template <int kN>
 __device__ __forceinline__ void softmax(float (&sc)[kN], float (&m)[2], float (&l)[2],
                                         float (&alpha)[2], float scale_log2, bool mask,
-                                        int row0, int col0, int T, bool causal) {
+                                        int row0, int col0, int T, bool causal, int window) {
   if (mask) {
-    softmax_tile<true>(sc, m, l, alpha, scale_log2, row0, col0, T, causal);
+    softmax_tile<true>(sc, m, l, alpha, scale_log2, row0, col0, T, causal, window);
   } else {
-    softmax_tile<false>(sc, m, l, alpha, scale_log2, row0, col0, T, causal);
+    softmax_tile<false>(sc, m, l, alpha, scale_log2, row0, col0, T, causal, window);
   }
 }
 
@@ -536,13 +545,20 @@ struct Item {
   int b, h, q0, kt0, kt1, slot, chunk;
 };
 
+// The first key tile a query tile from row q0 needs under a window (0: none).
+__device__ __forceinline__ int window_tile(int q0, int window, int kBK) {
+  return window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+}
+
 template <int kBK>
-__device__ __forceinline__ Item item_at(int i, int S, int T, int H, int BH, int causal) {
+__device__ __forceinline__ Item item_at(int i, int S, int T, int H, int BH, int causal,
+                                        int window) {
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - i / BH;
   const int bh = i % BH;
   Item it{bh / H, bh % H, qt * kBQ, 0, (T + kBK - 1) / kBK, -1, 0};
   if (causal) it.kt1 = min(it.kt1, (min(it.q0 + kBQ, S) - 1) / kBK + 1);
+  it.kt0 = window_tile(it.q0, window, kBK);
   return it;
 }
 
@@ -565,12 +581,14 @@ __device__ __forceinline__ int key_tiles(int qt, int S, int T, int causal, int k
   return causal ? min(all, (min((qt + 1) * kBQ, S) - 1) / kBK + 1) : all;
 }
 
-__host__ __device__ __forceinline__ Plan make_plan(int S, int T, int causal, int H, int kBK) {
+__host__ __device__ __forceinline__ Plan make_plan(int S, int T, int causal, int H, int kBK,
+                                                  int window = 0) {
   Plan p;
   p.n_qt = (S + kBQ - 1) / kBQ;
   const int all = (T + kBK - 1) / kBK;
   const int n_max = causal ? (all < (S - 1) / kBK + 1 ? all : (S - 1) / kBK + 1) : all;
-  const bool split = kSplit && n_max >= 2 * kMinChunk && p.n_qt * H < kSplitBelow;
+  const bool split =
+      kSplit && window == 0 && n_max >= 2 * kMinChunk && p.n_qt * H < kSplitBelow;
   p.C = split ? (n_max + 1) / 2 + 1 : n_max;
   const int q_s = p.C * kBK / kBQ;
   p.q_s = !split ? p.n_qt : !causal ? 0 : q_s < p.n_qt ? q_s : p.n_qt;
@@ -587,7 +605,7 @@ __host__ __device__ __forceinline__ int plan_items(const Plan& p) { return 2 * p
 // from tile q_s - 1 back), two lists that each get lighter, merged by key
 // tiles (A first on a tie) with a merge-path binary search.
 __device__ __forceinline__ Item split_item_at(int i, const Plan& p, int S, int T, int H, int BH,
-                                              int causal, int kBK) {
+                                              int causal, int kBK, int window) {
   const int v = i / BH, bh = i % BH;
   const int n_split = p.n_qt - p.q_s;
   int qt, chunk;  // chunk -1: a whole tile
@@ -617,6 +635,7 @@ __device__ __forceinline__ Item split_item_at(int i, const Plan& p, int S, int T
   }
   Item it{bh / H, bh % H, qt * kBQ, 0, (T + kBK - 1) / kBK, -1, 0};
   if (causal) it.kt1 = min(it.kt1, (min(it.q0 + kBQ, S) - 1) / kBK + 1);
+  it.kt0 = window_tile(it.q0, window, kBK);  // a window has no split (make_plan)
   if (chunk >= 0) {
     it.slot = (qt - p.q_s) * BH + bh;
     it.chunk = chunk;
@@ -653,7 +672,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ scratch, int* __restrict__ tickets, int S, int T, int H,
-                    int KVH, int BH, int causal, float scale_log2) {
+                    int KVH, int BH, int causal, int window, float scale_log2) {
   using L = Smem<D>;
   constexpr int kBK = L::kBK;
   constexpr int kStages = L::kStages;
@@ -664,14 +683,14 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
   const uint32_t bar_k = bar_q_empty + 8;           // + 8 * stage
   const uint32_t bar_v = bar_k + 8 * kStages;
   const uint32_t bar_empty = bar_v + 8 * kStages;
-  const Plan plan = make_plan(S, T, causal, H, kBK);
+  const Plan plan = make_plan(S, T, causal, H, kBK, window);
   const int n_items = D == 256 ? plan_items(plan) * BH : (S + kBQ - 1) / kBQ * BH;
   const int group = H / KVH;
   auto item_of = [&](int i) {
     if constexpr (D == 256) {
-      return split_item_at(i, plan, S, T, H, BH, causal, kBK);
+      return split_item_at(i, plan, S, T, H, BH, causal, kBK, window);
     } else {
-      return item_at<kBK>(i, S, T, H, BH, causal);
+      return item_at<kBK>(i, S, T, H, BH, causal, window);
     }
   };
 
@@ -760,10 +779,12 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
     auto release = [&](int kt) {
       if (tid == 0) mbar_arrive(bar_empty + 8 * ((g0 + kt) % kStages));
     };
-    // Mask only tiles that reach past T or cross this warpgroup's diagonal.
+    // Mask only tiles that reach past T, cross this warpgroup's diagonal or
+    // reach below its rows' window.
     auto masked = [&](int kt) {
       const int k = (kt0 + kt) * kBK;
-      return k + kBK > T || (causal && k + kBK - 1 > q0 + 64 * cw);
+      return k + kBK > T || (causal && k + kBK - 1 > q0 + 64 * cw) ||
+             (window > 0 && k < q0 + 64 * cw + 64 - window);
     };
 
 #pragma unroll
@@ -785,7 +806,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
     turn_pass(other_turn);
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax(sc, m, l, alpha, scale_log2, masked(0), row0, kt0 * kBK + c0, T, causal);
+    softmax(sc, m, l, alpha, scale_log2, masked(0), row0, kt0 * kBK + c0, T, causal, window);
     pack_p(sc, p);
     for (int kt = 0; kt + 1 < n_kt; ++kt) {
       turn_wait(my_turn);
@@ -807,7 +828,7 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_wait<1>();
       fence_regs(sc);
       softmax(sc, m, l, alpha, scale_log2, masked(kt + 1), row0, (kt0 + kt + 1) * kBK + c0, T,
-              causal);
+              causal, window);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);
@@ -928,8 +949,8 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap q_map,
 }
 
 // D = 256: the plan's items a batch x head, on the host.
-int split_items_per_head(int S, int T, bool causal, int H) {
-  return plan_items(make_plan(S, T, causal ? 1 : 0, H, Smem<256>::kBK));
+int split_items_per_head(int S, int T, bool causal, int H, int window = 0) {
+  return plan_items(make_plan(S, T, causal ? 1 : 0, H, Smem<256>::kBK, window));
 }
 
 // cuTensorMapEncodeTiled, fetched once through the runtime (no -lcuda).
@@ -981,7 +1002,7 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int row
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* scratch, void* tickets,
-           int B, int S, int T, int H, int KVH, bool causal, cudaStream_t stream) {
+           int B, int S, int T, int H, int KVH, bool causal, int window, cudaStream_t stream) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap q_map, k_map, v_map;
@@ -1000,11 +1021,11 @@ int launch(const void* q, const void* k, const void* v, void* out, void* scratch
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_items = (D == 256 ? split_items_per_head(S, T, causal, H) : (S + kBQ - 1) / kBQ) *
-                      B * H;
+  const int n_items =
+      (D == 256 ? split_items_per_head(S, T, causal, H, window) : (S + kBQ - 1) / kBQ) * B * H;
   flash_prefill_wgmma<D><<<min(n_items, sms), kThreads, Smem<D>::kBytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(scratch),
-      static_cast<int*>(tickets), S, T, H, KVH, B * H, causal ? 1 : 0, scale_log2);
+      static_cast<int*>(tickets), S, T, H, KVH, B * H, causal ? 1 : 0, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1015,15 +1036,18 @@ int launch(const void* q, const void* k, const void* v, void* out, void* scratch
 // addresses must be 16-byte aligned (TMA). At D = 256, `scratch` holds
 // `slots` merge slots (2 * kPart * 128 f32 each) and `tickets` 2 * slots
 // int32 zeros, left zero; a launch needs its split tiles' count times B * H
-// (flash_prefill.wgmma_split), and a smaller `slots` is refused.
+// (flash_prefill.wgmma_split), and a smaller `slots` is refused. `window` 0:
+// none; a window needs `causal`, and has no key split (no scratch).
 extern "C" int its_flash_prefill_wgmma(const void* q, const void* k, const void* v, void* out,
                                        void* scratch, void* tickets, int B, int S, int T_len,
-                                       int H, int KVH, int D, int causal, int slots,
+                                       int H, int KVH, int D, int causal, int slots, int window,
                                        void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || T_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (KVH <= 0 || H % KVH != 0 || T_len <= 0 || window < 0 || (window > 0 && !causal))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (D == 256) {
-    const int64_t need = static_cast<int64_t>(split_items_per_head(S, T_len, causal != 0, H) -
+    const int64_t need = static_cast<int64_t>(split_items_per_head(S, T_len, causal != 0, H,
+                                                                   window) -
                                               (S + kBQ - 1) / kBQ) * B * H;
     if (need > slots || (need > 0 && (scratch == nullptr || tickets == nullptr)))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1034,15 +1058,18 @@ extern "C" int its_flash_prefill_wgmma(const void* q, const void* k, const void*
   if (static_cast<int64_t>((S + kBQ - 1) / kBQ) * B * H * 2 > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
   switch (D) {
-    case 8: return launch<8>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
-    case 16: return launch<16>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
-    case 32: return launch<32>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
-    case 64: return launch<64>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
-    case 80: return launch<80>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
-    case 96: return launch<96>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
-    case 128: return launch<128>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
-    case 256: return launch<256>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, causal != 0, s);
+    case 8: return launch<8>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
+    case 16: return launch<16>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
+    case 32: return launch<32>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
+    case 64: return launch<64>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
+    case 80: return launch<80>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
+    case 96: return launch<96>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
+    case 128:
+      return launch<128>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
+    case 256:
+      return launch<256>(q, k, v, out, scratch, tickets, B, S, T_len, H, KVH, c, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

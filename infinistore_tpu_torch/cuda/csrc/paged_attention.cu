@@ -19,9 +19,15 @@
 //   wave's table width.
 //
 // Both: positions >= seq_len are masked; seq_len 0 gives zeros
-// (acc / max(l, 1e-30)). The online softmax runs in f32 with f32 FMAs (the
-// HIGHEST-precision dots of the TPU kernels); inputs are widened to f32 on
-// load.
+// (acc / max(l, 1e-30)). Both take a sliding window of W keys (W = 0: none,
+// which changes nothing of the arithmetic): a row of seq_len keys attends
+// keys seq_len - W .. seq_len - 1; the whole pages before them are skipped
+// (the row's page list starts past them, so they are neither read nor given
+// splits) and the first page's tokens before the window are masked; the
+// grid's splits are those of the window's pages (`splits` =
+// grid_splits(fold_width(width, W, bt))). The online softmax runs in f32
+// with f32 FMAs (the HIGHEST-precision dots of the TPU kernels); inputs are
+// widened to f32 on load.
 //
 // Bound: bytes. The function must read the K and V of every valid token once:
 // at B=4, 2048 tokens of context, 8 KV heads x 128 x bf16 that is 32 MiB per
@@ -65,9 +71,10 @@ extern "C" int its_paged_decode_attention(const void* q, const void* k_cache,
                                           const int32_t* seq_lens, void* out, float* scratch,
                                           int* tickets, int dtype, int B, int H, int KVH,
                                           int D, int bt, int num_blocks, int max_blocks,
-                                          int splits, void* stream) {
+                                          int splits, int window, void* stream) {
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{B, H, KVH, bt, num_blocks, max_blocks, 0, splits,
-                static_cast<cudaStream_t>(stream)};
+                static_cast<cudaStream_t>(stream), window};
   return dispatch(dtype, D, s, [&](auto c) {
     using T = typename decltype(c)::T;
     return launch<T, decltype(c)::D, decltype(c)::G, false>(

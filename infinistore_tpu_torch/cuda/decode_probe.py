@@ -206,7 +206,7 @@ def _host_parts(torch, tm):
         "entry_call": lambda: lib.its_paged_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(), lens.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), 1, rows, H, KVH, D, BT, n,
-            width, splits, stream),
+            width, splits, 0, stream),
     }
     return {name: tm.host_us(torch, fn, calls=200) for name, fn in parts.items()}
 

@@ -13,6 +13,12 @@ cast to the query dtype. For bf16 inputs the kernel takes dots in bf16 with
 f32 accumulation and rounds the probabilities to bf16 before the PV product
 (as the TPU kernel does), so it agrees with the plain version at bf16's
 rounding scale, not f32's.
+
+A causal prefill may take a sliding ``window`` of keys (0, the default:
+none): row p attends keys max(0, p - window + 1) .. p. On the card each
+query tile starts at the key tile of its first row's window, so the tiles
+before it are neither loaded nor computed (at head_dim 256 no key split
+then).
 """
 
 import math
@@ -77,8 +83,9 @@ def wgmma_items(s, t, causal, h):
     return firsts + sorted(seconds + wholes, key=lambda item: item[1] - item[2])
 
 
-def flash_prefill_plain(q, k, v, *, causal=True):
-    """Dense reference: q [B, S, H, D], k/v [B, T, KVH, D] -> [B, S, H, D]."""
+def flash_prefill_plain(q, k, v, *, causal=True, window=0):
+    """Dense reference: q [B, S, H, D], k/v [B, T, KVH, D] -> [B, S, H, D];
+    ``window`` > 0 (causal) also masks keys at or before row - window."""
     groups = q.shape[2] // k.shape[2]
     k = k.repeat_interleave(groups, dim=2)
     v = v.repeat_interleave(groups, dim=2)
@@ -86,14 +93,18 @@ def flash_prefill_plain(q, k, v, *, causal=True):
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if causal:
         s, t = q.shape[1], k.shape[1]
-        cm = torch.arange(s, device=q.device)[:, None] >= torch.arange(t, device=q.device)[None, :]
+        rows = torch.arange(s, device=q.device)[:, None]
+        keys = torch.arange(t, device=q.device)[None, :]
+        cm = rows >= keys
+        if window > 0:
+            cm &= keys > rows - window
         logits = logits.masked_fill(~cm[None, None], _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
     return out.to(q.dtype)
 
 
-def _flash_prefill_cuda(q, k, v, *, causal):
+def _flash_prefill_cuda(q, k, v, *, causal, window=0):
     """K4 on CUDA tensors. The kernel is chosen by dtype, and nothing else:
     bf16 goes to ``its_flash_prefill_wgmma`` (tensor cores), f32 to
     ``its_flash_prefill`` (CUDA cores: the f32 contract is HIGHEST-precision
@@ -129,7 +140,7 @@ def _flash_prefill_cuda(q, k, v, *, causal):
     with _ext.on_device(q.device):
         if wgmma:
             slots, scratch, tickets = 0, None, None
-            if d == 256:
+            if d == 256 and not window:
                 n_qt, _, q_s = wgmma_split(s, t, causal, h)
                 slots = (n_qt - q_s) * b * h
                 if slots:
@@ -139,10 +150,11 @@ def _flash_prefill_cuda(q, k, v, *, causal):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(),
                 None if tickets is None else tickets.data_ptr(),
-                b, s, t, h, kvh, d, int(causal), slots, stream)
+                b, s, t, h, kvh, d, int(causal), slots, window, stream)
         else:
             code = lib.its_flash_prefill(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         out.data_ptr(), b, s, t, h, kvh, d, int(causal), stream)
+                                         out.data_ptr(), b, s, t, h, kvh, d, int(causal), window,
+                                         stream)
     _ext.LAUNCHES["flash_prefill"] += 1
     if wgmma:
         _ext.LAUNCHES["flash_prefill_wgmma"] += 1
@@ -150,7 +162,7 @@ def _flash_prefill_cuda(q, k, v, *, causal):
     return out
 
 
-def flash_prefill_attention(q, k, v, *, causal=True):
+def flash_prefill_attention(q, k, v, *, causal=True, window=0):
     """Prefill attention without materialising S x T logits.
 
     q: [B, S, H, D]; k/v: [B, T, KVH, D] with KVH dividing H (GQA); any S
@@ -158,13 +170,16 @@ def flash_prefill_attention(q, k, v, *, causal=True):
 
     ``causal=True`` masks by GLOBAL position assuming q and k both start at
     position 0, so it requires S == T; a suffix chunk attending a longer
-    context would be silently over-masked, so it is rejected."""
+    context would be silently over-masked, so it is rejected. ``window`` > 0
+    (causal only): a sliding window of that many keys."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(
             f"causal=True assumes q and k start at position 0, so S must "
             f"equal T (got S={q.shape[1]}, T={k.shape[1]}); offset suffix "
             "chunks would be over-masked"
         )
+    if window and not causal:
+        raise ValueError("a sliding window needs causal=True")
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, causal=causal)
-    return _flash_prefill_cuda(q, k, v, causal=causal)
+        return flash_prefill_plain(q, k, v, causal=causal, window=window)
+    return _flash_prefill_cuda(q, k, v, causal=causal, window=window)

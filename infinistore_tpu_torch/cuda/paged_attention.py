@@ -34,6 +34,12 @@ Numerical contract (shared with the JAX package): logits and softmax
 statistics in float32, output cast to the query dtype. Positions >= seq_len
 are masked; padded block-table entries past the sequence contribute nothing;
 a row with seq_len == 0 yields zeros, not NaN.
+
+K3 and K6 (and their plain versions) take a sliding ``window`` of keys (0,
+the default: none): a row of seq_len keys then attends keys seq_len - window
+.. seq_len - 1 alone. On the card the whole pages before the window are
+neither read nor given splits, and the splits, with their scratch, are those
+of the window's pages.
 """
 
 import math
@@ -46,7 +52,7 @@ from . import _ext
 _NEG_INF = -1e30
 
 
-def decode_attention_stats_plain(q, k_cache, v_cache, block_tables, seq_lens):
+def decode_attention_stats_plain(q, k_cache, v_cache, block_tables, seq_lens, window=0):
     """The raw softmax statistics of each row: gather its table's blocks,
     mask positions >= seq_len, f32 logits. Returns (acc [B, H, D], m [B, H,
     1], l [B, H, 1]), all f32: acc the unnormalised numerator, m the max
@@ -55,7 +61,7 @@ def decode_attention_stats_plain(q, k_cache, v_cache, block_tables, seq_lens):
     package's ``_decode_attention_stats_xla``; the plain version of K5.
 
     q: [B, H, D]; caches: [N, bt, KVH, D]; block_tables: [B, max_blocks];
-    seq_lens: [B]."""
+    seq_lens: [B]; ``window`` > 0 also masks positions < seq_len - window."""
     bsz, h, d = q.shape
     _, bt, kvh, _ = k_cache.shape
     groups = h // kvh
@@ -65,10 +71,10 @@ def decode_attention_stats_plain(q, k_cache, v_cache, block_tables, seq_lens):
     scale = 1.0 / math.sqrt(d)
     logits = torch.einsum("bhd,bthd->bht", q.float(), k.float()) * scale
     t = k.shape[1]
-    valid = (
-        torch.arange(t, device=q.device)[None, :]
-        < seq_lens.to(device=q.device, dtype=torch.long)[:, None]
-    )  # [B, T]
+    lens = seq_lens.to(device=q.device, dtype=torch.long)[:, None]
+    valid = torch.arange(t, device=q.device)[None, :] < lens  # [B, T]
+    if window > 0:
+        valid &= torch.arange(t, device=q.device)[None, :] >= lens - window
     logits = torch.where(valid[:, None, :], logits, torch.full_like(logits, _NEG_INF))
     m = logits.amax(dim=2, keepdim=True)
     p = torch.exp(logits - m)
@@ -80,12 +86,15 @@ def decode_attention_stats_plain(q, k_cache, v_cache, block_tables, seq_lens):
     return acc, m, l
 
 
-def paged_decode_attention_plain_batched(q, k_cache, v_cache, block_tables, seq_lens):
+def paged_decode_attention_plain_batched(q, k_cache, v_cache, block_tables, seq_lens,
+                                         window=0):
     """The plain version of K3: the raw statistics, normalised.
 
     q: [B, H, D]; caches: [N, bt, KVH, D]; block_tables: [B, max_blocks];
-    seq_lens: [B]. Returns [B, H, D] in q's dtype."""
-    acc, _, l = decode_attention_stats_plain(q, k_cache, v_cache, block_tables, seq_lens)
+    seq_lens: [B]; ``window``: a sliding window's keys (0: none). Returns [B,
+    H, D] in q's dtype."""
+    acc, _, l = decode_attention_stats_plain(q, k_cache, v_cache, block_tables, seq_lens,
+                                             window)
     return _normalize(acc, l, q.dtype)
 
 
@@ -139,6 +148,14 @@ def _ragged_width(name, table_width, p: int) -> int:
     return min(int(table_width), p)
 
 
+def _fold_width(width: int, window: int, bt: int) -> int:
+    """The pages a launch's rows may fold: ``width``, at most the pages a
+    window of ``window`` keys spans once the whole pages before it are
+    skipped, ceil((window + bt - 1) / bt) (``csrc/decode_fold.cuh``:
+    fold_width)."""
+    return min(width, (window + 2 * bt - 2) // bt) if window > 0 else width
+
+
 def _split_scratch(q, width: int, stream: int):
     """(scratch, tickets, splits) of one decode launch over tables ``width``
     pages wide, from shapes alone: the library's split count of the width,
@@ -162,7 +179,7 @@ def _stats_outputs(q):
             torch.empty((rows, h, 1), dtype=torch.float32, device=q.device))
 
 
-def _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens):
+def _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens, window=0):
     name = "paged_decode_attention"
     _ext.require_cuda(
         name, q.device, q=q, k_cache=k_cache, v_cache=v_cache,
@@ -176,30 +193,32 @@ def _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens):
     n, bt, kvh, _ = k_cache.shape
     width = block_tables.shape[1]
     stream = _ext.stream_of(q)
-    scratch, tickets, splits = _split_scratch(q, width, stream)
+    scratch, tickets, splits = _split_scratch(q, _fold_width(width, window, bt), stream)
     out = torch.empty_like(q)
     with _ext.on_device(q.device):
         code = _ext.kernels().its_paged_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
             seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), dtype,
-            bsz, h, kvh, d, bt, n, width, splits, stream,
+            bsz, h, kvh, d, bt, n, width, splits, window, stream,
         )
     _ext.LAUNCHES["paged_decode_attention"] += 1
     _ext.check(code, name)
     return out
 
 
-def paged_decode_attention_batched(q, k_cache, v_cache, block_tables, seq_lens):
+def paged_decode_attention_batched(q, k_cache, v_cache, block_tables, seq_lens, window=0):
     """Decode attention for a wave of requests against one shared paged cache.
 
     q: [B, n_heads, head_dim]; k_cache/v_cache: [num_blocks, block_tokens,
     n_kv_heads, head_dim]; block_tables: [B, max_blocks] int32 (each row
-    padded with any valid block id); seq_lens: [B] int32. Returns [B,
-    n_heads, head_dim] in q's dtype. Kernel K3 on CUDA (one launch for the
-    wave), the plain version on CPU."""
+    padded with any valid block id); seq_lens: [B] int32; ``window``: a
+    sliding window's keys (0: none). Returns [B, n_heads, head_dim] in q's
+    dtype. Kernel K3 on CUDA (one launch for the wave), the plain version on
+    CPU."""
     if q.device.type == "cpu":
-        return paged_decode_attention_plain_batched(q, k_cache, v_cache, block_tables, seq_lens)
-    return _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens)
+        return paged_decode_attention_plain_batched(q, k_cache, v_cache, block_tables, seq_lens,
+                                                    window)
+    return _paged_decode_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens, window)
 
 
 def paged_decode_attention(q, k_cache, v_cache, block_table, seq_len):
@@ -321,7 +340,7 @@ def _owned_tokens(pages, page_starts):
 
 
 def decode_attention_stats_ragged_plain(q, k_cache, v_cache, pages, page_starts, seq_lens,
-                                        table_width: int):
+                                        table_width: int, window: int = 0):
     """The raw statistics of a ragged wave's rows (the plain version of K7):
     rebuild each row's table from the flat list and run
     :func:`decode_attention_stats_plain` over it. A row attends to at most
@@ -330,19 +349,19 @@ def decode_attention_stats_ragged_plain(q, k_cache, v_cache, pages, page_starts,
     bt = k_cache.shape[1]
     tables = _ragged_row_tables(pages, page_starts, table_width)
     lens = torch.minimum(seq_lens.to(torch.long), _owned_tokens(pages, page_starts) * bt)
-    return decode_attention_stats_plain(q, k_cache, v_cache, tables, lens)
+    return decode_attention_stats_plain(q, k_cache, v_cache, tables, lens, window)
 
 
 def paged_decode_attention_ragged_plain(q, k_cache, v_cache, pages, page_starts,
-                                        seq_lens, table_width: int):
+                                        seq_lens, table_width: int, window: int = 0):
     """The plain version of K6: the ragged raw statistics, normalised."""
     acc, _, l = decode_attention_stats_ragged_plain(
-        q, k_cache, v_cache, pages, page_starts, seq_lens, table_width)
+        q, k_cache, v_cache, pages, page_starts, seq_lens, table_width, window)
     return _normalize(acc, l, q.dtype)
 
 
 def _paged_decode_attention_ragged_cuda(q, k_cache, v_cache, pages, page_rows,
-                                        page_starts, seq_lens, table_width):
+                                        page_starts, seq_lens, table_width, window=0):
     name = "paged_decode_attention_ragged"
     _ext.require_cuda(
         name, q.device, q=q, k_cache=k_cache, v_cache=v_cache, pages=pages,
@@ -356,13 +375,13 @@ def _paged_decode_attention_ragged_cuda(q, k_cache, v_cache, pages, page_rows,
     r, h, d = q.shape
     n, bt, kvh, _ = k_cache.shape
     stream = _ext.stream_of(q)
-    scratch, tickets, splits = _split_scratch(q, width, stream)
+    scratch, tickets, splits = _split_scratch(q, _fold_width(width, window, bt), stream)
     out = torch.empty_like(q)
     with _ext.on_device(q.device):
         code = _ext.kernels().its_paged_decode_attention_ragged(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
             page_starts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p, width, splits, stream,
+            tickets.data_ptr(), dtype, r, h, kvh, d, bt, n, p, width, splits, window, stream,
         )
     _ext.LAUNCHES["paged_decode_attention_ragged"] += 1
     _ext.check(code, name)
@@ -370,7 +389,7 @@ def _paged_decode_attention_ragged_cuda(q, k_cache, v_cache, pages, page_rows,
 
 
 def paged_decode_attention_ragged(q, k_cache, v_cache, pages, page_rows, page_starts,
-                                  seq_lens, *, table_width: int):
+                                  seq_lens, *, table_width: int, window: int = 0):
     """Decode attention for a RAGGED wave: R rows over one shared paged
     cache with per-row context lengths, no padding to the wave's longest.
 
@@ -380,31 +399,34 @@ def paged_decode_attention_ragged(q, k_cache, v_cache, pages, page_rows, page_st
     that many, on both paths (the plain version rebuilds rectangular tables
     of that width, the kernel sizes its splits by it). Kernel K6 on CUDA
     (one launch, sum(ceil(len_i / bt)) page folds), the plain version on
-    CPU. Rows with seq_len 0 return zeros."""
+    CPU. Rows with seq_len 0 return zeros. ``window``: a sliding window's
+    keys (0: none)."""
     pages, page_rows, page_starts, seq_lens = (
         torch.as_tensor(x, dtype=torch.int32, device=q.device)
         for x in (pages, page_rows, page_starts, seq_lens))
     if q.device.type == "cpu":
         return paged_decode_attention_ragged_plain(
-            q, k_cache, v_cache, pages, page_starts, seq_lens, table_width)
+            q, k_cache, v_cache, pages, page_starts, seq_lens, table_width, window)
     return _paged_decode_attention_ragged_cuda(
-        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens, table_width)
+        q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens, table_width, window)
 
 
 def paged_decode_attention_rows(q, k_cache, v_cache, row_tables, seq_lens, pages,
-                                page_rows, page_starts):
+                                page_rows, page_starts, window=0):
     """Per-row decode attention with both layouts in hand: the model's ragged
     wave body (``models/llama.py verify_step_ragged``) calls this with one
     row per flat wave token. Same semantics as
     :func:`paged_decode_attention_batched` over ``row_tables``. On CUDA the
     flat metadata goes to kernel K6, its table width ``row_tables``'
     (``row_tables.shape[1]`` bounds its splits); on CPU the plain batched
-    version runs over ``row_tables``, as the JAX package's fallback does."""
+    version runs over ``row_tables``, as the JAX package's fallback does.
+    ``window``: a sliding window's keys (0: none)."""
     if q.device.type == "cpu":
-        return paged_decode_attention_plain_batched(q, k_cache, v_cache, row_tables, seq_lens)
+        return paged_decode_attention_plain_batched(q, k_cache, v_cache, row_tables, seq_lens,
+                                                    window)
     return _paged_decode_attention_ragged_cuda(
         q, k_cache, v_cache, pages, page_rows, page_starts, seq_lens.to(torch.int32),
-        row_tables.shape[1])
+        row_tables.shape[1], window)
 
 
 # ---------------------------------------------------------------------------

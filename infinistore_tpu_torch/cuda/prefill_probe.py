@@ -167,7 +167,7 @@ def _variant_call(lib, torch):
         if q.dtype != torch.bfloat16:
             code = lib.its_flash_prefill(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                          out.data_ptr(), b, s, k.shape[1], h, k.shape[2], d,
-                                         int(causal), stream)
+                                         int(causal), 0, stream)
         else:
             slots = -(-s // 128) * b * h
             scratch, tickets = _ext.split_workspace(q.device, stream, slots * 2 * 128 * 132,
@@ -175,7 +175,7 @@ def _variant_call(lib, torch):
             code = lib.its_flash_prefill_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                                out.data_ptr(), scratch.data_ptr(),
                                                tickets.data_ptr(), b, s, k.shape[1], h,
-                                               k.shape[2], d, int(causal), slots, stream)
+                                               k.shape[2], d, int(causal), slots, 0, stream)
         _ext.check(code, "variant")
         return out
     return run

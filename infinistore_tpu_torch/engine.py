@@ -34,10 +34,11 @@ the reference's ``engine_*`` vocabulary (``metrics()``).
 """
 
 import asyncio
+import contextvars
 import operator
 import time
 from contextlib import asynccontextmanager, nullcontext
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -48,7 +49,7 @@ from .cuda import _ext
 from .cuda.paged import gather_blocks, gather_blocks_many
 from .cuda.paged_attention import build_ragged_wave
 from .cuda.staging import StagingPoolExhausted
-from .models.llama import prefill, prefill_continue, verify_step_ragged
+from .models.llama import LaunchCounts, prefill, prefill_continue, verify_step_ragged
 from .wire import PRIORITY_BACKGROUND
 
 
@@ -78,6 +79,127 @@ def _int32_on(device, *arrays, out: Optional[tuple] = None):
 # of prewarm_wave_buckets' default ladder); a wider wave runs eagerly.
 GRAPH_MAX_ROWS = 64
 
+# Slots of the waves' host ring for their device counters (LaunchCounts):
+# a slot is read by its wave's requests right after their token copy, long
+# before this many later waves reuse it.
+COUNT_SLOTS = 64
+
+
+class RoutingLog:
+    """The routed experts every computed token chose, per routed layer, by
+    the token sequence the token ends: the choice a later token's keys and
+    values were made with. A model's config carries one
+    (``LlamaConfig.routing_log``) where a caller wants the program's
+    choices: the benchmark's reference takes them at its own near-ties. A
+    sequence computed again keeps its last choice.
+
+    Recording (``put``) appends a reference to the launch's rows; the keys
+    (``link`` folds each token id into the hash of the ids before it) are
+    made at the first ``lookup`` after it, so a step pays an append."""
+
+    ROOT = 0
+
+    def __init__(self):
+        self._records: List[tuple] = []
+        self._indexed = 0
+        self._rows: dict = {}
+
+    @staticmethod
+    def link(prev: int, token: int) -> int:
+        return hash((prev, int(token)))
+
+    @classmethod
+    def chain(cls, tokens) -> List[int]:
+        """The key of every prefix of ``tokens``."""
+        keys, h = [], cls.ROOT
+        for t in tokens:
+            h = cls.link(h, t)
+            keys.append(h)
+        return keys
+
+    def put(self, tokens, start: int, choices: np.ndarray, ids=None) -> None:
+        """``choices`` [n, layers, k]: the experts of the rows at positions
+        ``start ..`` of ``tokens`` (a sequence that only grows: row i ends
+        at ``tokens[start + i]``). ``ids``: the rows' own token ids where
+        some may be drafts; the rows from the first that ``tokens`` did not
+        take are dropped."""
+        self._records.append((tokens, start, choices, ids))
+
+    def _index(self) -> None:
+        chains: dict = {}
+        for tokens, start, choices, ids in self._records[self._indexed:]:
+            n = min(len(choices), len(tokens) - start)
+            if ids is not None:
+                n = next((i for i in range(n) if tokens[start + i] != ids[i]), n)
+            if n <= 0:
+                continue
+            chain = chains.get(id(tokens))
+            if chain is None:
+                chain = chains[id(tokens)] = self.chain(tokens)
+            for i in range(n):
+                self._rows[chain[start + i]] = choices[i]
+        self._indexed = len(self._records)
+
+    def lookup(self, tokens) -> Optional[np.ndarray]:
+        """[len(tokens), layers, k] of the recorded choices, -1 where a
+        prefix was never computed here; None before any record."""
+        self._index()
+        if not self._rows:
+            return None
+        shape = next(iter(self._rows.values())).shape
+        out = np.full((len(tokens),) + shape, -1, dtype=np.int16)
+        for p, key in enumerate(self.chain(tokens)):
+            row = self._rows.get(key)
+            if row is not None:
+                out[p] = row
+        return out
+
+
+class DeviceCounts:
+    """One request's share of the device counters (``LaunchCounts``) of the
+    launches that computed it: ``pending`` (host slot, share, span, the
+    launch's routed-expert choices on the host, the request's first row in
+    them, where its rows lie in its token sequence) entries whose copy is
+    queued behind the launch, and ``stamps``, (host time, expert reads,
+    token pairs, most rows of one expert, keys skipped) once the request's
+    next copy from the device has returned (which waits for the slot's copy
+    too, so reading it adds no sync). A wave's counts are shared over its
+    live rows (``share``: the request's rows over the wave's); the most rows
+    of one expert is the launch's own. ``rows``: (the request's token
+    sequence, the step's first position, the step's token ids) of its next
+    step, for a config with a ``RoutingLog`` (set before the step)."""
+
+    def __init__(self, log: Optional[RoutingLog] = None):
+        self.log = log
+        self.rows: Optional[tuple] = None
+        self.pending: List[tuple] = []
+        self.stamps: List[tuple] = []
+
+    def settle(self, t: float) -> None:
+        for slot, share, span, choices, first, rows in self.pending:
+            reads, pairs, most, skipped = slot.tolist()
+            if span is not None:
+                span.annotate(**dict(zip(LaunchCounts.FIELDS, (reads, pairs, most, skipped))))
+            self.stamps.append((t, reads * share, pairs * share, most, skipped * share))
+            if self.log is not None and choices is not None and rows is not None:
+                tokens, start, ids = rows
+                # A copy: the ring's slot is reused.
+                self.log.put(tokens, start, choices[first:first + len(ids)].numpy().copy(), ids)
+        self.pending.clear()
+
+    def totals(self) -> tuple:
+        """(expert reads, token pairs, most rows, keys skipped) over the stamps."""
+        if not self.stamps:
+            return 0.0, 0.0, 0, 0.0
+        cols = list(zip(*self.stamps))
+        return sum(cols[1]), sum(cols[2]), max(cols[3]), sum(cols[4])
+
+
+# The running request's DeviceCounts (set by run_request, read by the wave
+# decoder's step_chunk in the same task).
+_DEVICE_COUNTS: contextvars.ContextVar = contextvars.ContextVar(
+    "its_device_counts", default=None)
+
 
 def capture_cuda_graph(run, stream, pool):
     """Capture ``run()`` (one wave's model call, already run once on
@@ -99,8 +221,10 @@ class WaveGraph:
     (pinned on a card; ``copied`` marks when the last copy out of it ran),
     the ``graph``, the ``logits`` each replay writes, the ``launches`` per
     kernel its capture counted (added to ``_ext.LAUNCHES`` on every
-    replay) and the split workspace tensors its kernels point at
-    (``keep``)."""
+    replay), the split workspace tensors its kernels point at (``keep``)
+    and, for a model with counters, the [4] buffer each replay writes them
+    to (``counts``) and, with a ``RoutingLog``, its expert choices'
+    (``choices``)."""
 
     inputs: torch.Tensor
     staging: torch.Tensor
@@ -109,6 +233,8 @@ class WaveGraph:
     logits: torch.Tensor
     launches: dict
     keep: list
+    counts: Optional[torch.Tensor] = None
+    choices: Optional[torch.Tensor] = None
 
 
 _DTYPE = operator.attrgetter("dtype")
@@ -503,6 +629,21 @@ class WaveDecoder:
         self.graph_replays = 0
         self.graph_captures = 0
         self.eager_waves = 0
+        # Device counters (models/llama.py LaunchCounts), for a model that
+        # has them: each wave's [4] copied into a slot of the host ring
+        # (pinned on a card) right after its launch; a pending chunk's
+        # future -> (slot, its share of the wave's rows, the wave's span).
+        self.counting = bool(getattr(harness.config, "counts_launches", False))
+        self._count_ring = (torch.zeros((COUNT_SLOTS, 4), dtype=torch.int64,
+                                        pin_memory=on_card) if self.counting else None)
+        self._count_next = 0
+        self._fut_counts: dict = {}
+        # With a RoutingLog, each wave's routed-expert choices too, into a
+        # host ring of the top rung's rows (pinned on a card).
+        self.routing = (self.counting
+                        and getattr(harness.config, "routing_log", None) is not None)
+        self._on_card = on_card
+        self._choice_ring = None
 
     async def step(
         self, token: int, position: int, padded_table, priority: int = 0
@@ -552,7 +693,37 @@ class WaveDecoder:
             task = asyncio.ensure_future(self._flush())
             self._flush_tasks.add(task)
             task.add_done_callback(self._flush_tasks.discard)
-        return await fut
+        try:
+            return await fut
+        finally:
+            entry = self._fut_counts.pop(fut, None)
+            sink = _DEVICE_COUNTS.get()
+            if entry is not None and sink is not None:
+                sink.pending.append(entry + (sink.rows,))
+                sink.rows = None
+
+    def _counts_to_host(self, counts: torch.Tensor, choices: Optional[torch.Tensor]):
+        """Queue the copy of a launch's [4] device counters (and its [rows,
+        layers, k] expert choices) into the next slot of the host rings;
+        a slot reads true once a later copy from the device on the stream
+        has returned. Returns (counts slot, choices slot or None)."""
+        i = self._count_next % COUNT_SLOTS
+        self._count_next += 1
+        slot = self._count_ring[i]
+        slot.copy_(counts, non_blocking=True)
+        if choices is None:
+            return slot, None
+        rows = choices.shape[0]
+        ring = self._choice_ring
+        if ring is None or ring.shape[1] < rows:
+            # Grown only for a wave above the top rung; a slot still to be
+            # read keeps the old ring alive.
+            self._choice_ring = ring = torch.empty(
+                (COUNT_SLOTS, max(rows, GRAPH_MAX_ROWS)) + tuple(choices.shape[1:]),
+                dtype=choices.dtype, pin_memory=self._on_card)
+        held = ring[i, :rows]
+        held.copy_(choices, non_blocking=True)
+        return slot, held
 
     # -- skew-aware flush policy (docs/serving_load.md) ---------------------
 
@@ -672,7 +843,8 @@ class WaveDecoder:
         docstring), capturing it first if the rung has none; ``host`` is
         the wave's int32 metadata on the host, in ``verify_step_ragged``'s
         order. The caller holds the exclusive gate. Returns (the wave's
-        ``t_real`` logits rows, ``"replay"`` or ``"capture"``)."""
+        ``t_real`` logits rows, ``"replay"`` or ``"capture"``, the device
+        counters and the expert choices, or None)."""
         h = self.h
         identity = _wave_identity(h.params, h.caches)
         if identity != self._graph_identity:
@@ -689,7 +861,7 @@ class WaveDecoder:
             for name, n in g.launches.items():
                 _ext.LAUNCHES[name] += n
             self.graph_replays += 1
-            return g.logits[:t_real].clone(), "replay"
+            return g.logits[:t_real].clone(), "replay", g.counts, g.choices
         device = h.params["embed"].device
         stream = self._graph_stream
         n = sum(np.size(a) for a in host)
@@ -699,11 +871,25 @@ class WaveDecoder:
         args = _int32_on(device, *host, out=(staging, inputs))
         if copied is not None:
             copied.record()
+        counts_out = (torch.zeros(4, dtype=torch.int64, device=device) if self.counting
+                      else None)
+        choices_out = []  # the capture's [rows, layers, k] buffer, with a RoutingLog
 
         def run():
             # The module's name, looked up at each call (tests replace it).
-            return verify_step_ragged(h.params, *args[:6], h.caches, args[6], h.config,
-                                      h.max_req_blocks)[0]
+            if counts_out is None:
+                return verify_step_ragged(h.params, *args[:6], h.caches, args[6], h.config,
+                                          h.max_req_blocks)[0]
+            counts = LaunchCounts(choices=self.routing)
+            logits = verify_step_ragged(h.params, *args[:6], h.caches, args[6], h.config,
+                                        h.max_req_blocks, counts=counts)[0]
+            counts_out.copy_(counts.total())
+            if self.routing:
+                rows = counts.choice_rows()
+                if not choices_out:
+                    choices_out.append(torch.empty_like(rows))
+                choices_out[0].copy_(rows)
+            return logits
 
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(device))
@@ -717,10 +903,11 @@ class WaveDecoder:
             current = torch.cuda.current_stream(device)
             current.wait_stream(stream)
             logits.record_stream(current)
+        choices = choices_out[0] if choices_out else None
         self._graphs[t] = WaveGraph(inputs, staging, copied, graph, out, launches,
-                                    _ext.workspace_tensors(device))
+                                    _ext.workspace_tensors(device), counts_out, choices)
         self.graph_captures += 1
-        return logits[:t_real], "capture"
+        return logits[:t_real], "capture", counts_out, choices
 
     async def _flush(self):
         """One wave. Traced, a ``model.wave`` root span: ``take`` when the
@@ -729,7 +916,9 @@ class WaveDecoder:
         attrs ``rows``, ``tokens``, ``t_bucket``, ``pages``, ``graph``
         (``replay``, ``capture`` or ``eager``) and, per row, its request's
         trace id (``requests``) and its ``step_chunk`` enqueue stamp
-        (``enqueued_us``)."""
+        (``enqueued_us``); for a model with device counters, the wave's
+        (``LaunchCounts.FIELDS``), added once a request's token copy has
+        brought them (``DeviceCounts``)."""
         batch: List[tuple] = []
         wave = None
         try:
@@ -837,14 +1026,26 @@ class WaveDecoder:
                 if graphed:
                     # Under the gate: the rung's static inputs are shared
                     # by every wave of that rung.
-                    logits, how = self._launch_graphed(t_bucket, t_real, host)
+                    logits, how, counts, choices = self._launch_graphed(t_bucket, t_real, host)
                 else:
+                    # Only a counting model's call takes ``counts`` (tests
+                    # replace the function with ones that take none).
+                    launch = ({"counts": LaunchCounts(choices=self.routing)} if self.counting
+                              else {})
                     logits, self.h.caches = verify_step_ragged(
                         self.h.params, *dev_args[:6], self.h.caches, dev_args[6],
-                        self.h.config, self.h.max_req_blocks,
+                        self.h.config, self.h.max_req_blocks, **launch,
                     )
+                    counts = launch["counts"].total() if launch else None
+                    choices = launch["counts"].choice_rows() if self.routing else None
                     how = "eager"
                     self.eager_waves += 1
+                if counts is not None:
+                    slot, held = self._counts_to_host(counts, choices)
+                    first = 0
+                    for toks, _, _, fut, *_ in batch:
+                        self._fut_counts[fut] = (slot, len(toks) / t_real, wave, held, first)
+                        first += len(toks)
                 if wave is not None:
                     wave.stage("launched")
             if wave is not None:
@@ -1077,6 +1278,18 @@ class RequestStats:
     # (wire.PRIORITY_*) so TTFT percentiles split by class.
     ttft_us: float = 0.0
     priority: int = 0
+    # Device counters (models/llama.py LaunchCounts) of the launches that
+    # computed this request, for a model that has them: the (layer, expert)
+    # weight sets read, the (token, expert) pairs computed, the most rows
+    # one expert took in a launch, and the keys sliding windows skipped; a
+    # wave's shared over its live rows. ``device_counts``: per launch,
+    # (host time on perf_counter when the counts reached the host, reads,
+    # pairs, most rows, keys skipped).
+    moe_expert_reads: float = 0.0
+    moe_token_pairs: float = 0.0
+    moe_max_expert_rows: int = 0
+    window_keys_skipped: float = 0.0
+    device_counts: List[tuple] = field(default_factory=list)
 
 
 class ContinuousBatchingHarness:
@@ -1171,6 +1384,12 @@ class ContinuousBatchingHarness:
         self._prefetch_extra_wasted = 0
         self.stats: List[RequestStats] = []
         self._prefill_per_block_s: Optional[float] = None
+        # A prefill's or resume's device counters come back here, behind
+        # the model call's own sync (the exclusive gate serialises them).
+        self._model_counts = (torch.zeros(4, dtype=torch.int64,
+                                          pin_memory=self.device.type == "cuda")
+                              if self.wave.counting else None)
+        self.routing_log = getattr(config, "routing_log", None) if self.wave.routing else None
 
     # -- model compute -------------------------------------------------------
 
@@ -1233,17 +1452,51 @@ class ContinuousBatchingHarness:
         pad[: len(table)] = table
         return pad
 
+    def _launch_counts(self) -> Optional[LaunchCounts]:
+        if self._model_counts is None:
+            return None
+        return LaunchCounts(choices=self.routing_log is not None)
+
+    def _queue_counts(self, counts: Optional[LaunchCounts]):
+        """Queue a model call's counters' copy (and, with a RoutingLog, its
+        expert choices') before its sync; after the sync ``_model_counts``
+        and the returned tensor hold them."""
+        if counts is None:
+            return None
+        self._model_counts.copy_(counts.total(), non_blocking=True)
+        if self.routing_log is None:
+            return None
+        rows = counts.choice_rows()
+        held = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=self.device.type == "cuda")
+        held.copy_(rows, non_blocking=True)
+        return held
+
+    def _read_counts(self, counts: Optional[LaunchCounts], held, token_ids,
+                     start: int) -> Optional[tuple]:
+        """The call's counters on the host, after its sync; its choices go to
+        the RoutingLog as those of rows ``start ..`` of ``token_ids``."""
+        if counts is None:
+            return None
+        if held is not None:
+            # A copy: the pinned buffer goes back to the host allocator.
+            self.routing_log.put(token_ids, start, held.numpy().copy())
+        return tuple(self._model_counts.tolist())
+
     def _prefill_full(self, token_ids, table: np.ndarray):
         """Whole-prompt prefill into this request's blocks (cache-mutating:
-        caller holds the exclusive gate)."""
+        caller holds the exclusive gate). Returns its device counters
+        (host values) or None."""
         t0 = time.perf_counter()
+        counts = self._launch_counts()
         _, self.caches = prefill(
             self.params,
             token_ids,
             self.caches,
             table,
             self.config,
+            counts=counts,
         )
+        held = self._queue_counts(counts)
         self._sync()
         # Calibrates recompute_saved_s: what one block of prefill costs
         # on this device. Min across calls — the first includes one-time
@@ -1251,6 +1504,7 @@ class ContinuousBatchingHarness:
         per_block = (time.perf_counter() - t0) / len(table)
         if self._prefill_per_block_s is None or per_block < self._prefill_per_block_s:
             self._prefill_per_block_s = per_block
+        return self._read_counts(counts, held, token_ids, 0)
 
     def _chunked_resume(self, token_ids, table: np.ndarray, start_block: int):
         """Compute the suffix after a prefix hit as ONE chunked continuation
@@ -1258,8 +1512,9 @@ class ContinuousBatchingHarness:
         resume path): every suffix row attends its own prefix in a single
         batched kernel launch per layer, with chunk-wide GEMMs, instead of
         S_c sequential decode launches. Cache-mutating: caller holds the
-        exclusive gate."""
+        exclusive gate. Returns its device counters (host values) or None."""
         bt = self.config.block_tokens
+        counts = self._launch_counts()
         _, self.caches = prefill_continue(
             self.params,
             token_ids[start_block * bt :],
@@ -1268,8 +1523,11 @@ class ContinuousBatchingHarness:
             self._padded_table(table),
             self.config,
             self.max_req_blocks,
+            counts=counts,
         )
+        held = self._queue_counts(counts)
         self._sync()
+        return self._read_counts(counts, held, token_ids, start_block * bt)
 
     def _sync(self):
         """Wait for the work this thread queued on the card (no-op on the
@@ -1374,6 +1632,9 @@ class ContinuousBatchingHarness:
         pos = len(token_ids) - 1
         tok = int(token_ids[-1])
         history = list(token_ids)
+        sink = _DEVICE_COUNTS.get()
+        # Where each step's rows lie in ``history``, for the RoutingLog.
+        routing = self.routing_log is not None and sink is not None
         out: List[int] = []
         first_token_t: Optional[float] = None
         while len(out) < gen_tokens:
@@ -1381,6 +1642,8 @@ class ContinuousBatchingHarness:
             if self.drafter is not None:
                 remaining = gen_tokens - len(out)
                 chunk += self.drafter.draft(history)[: remaining - 1]
+            if routing:
+                sink.rows = (history, pos, chunk)
             rows = await self.wave.step_chunk(
                 chunk, list(range(pos, pos + len(chunk))), padded,
                 priority=priority,
@@ -1388,6 +1651,8 @@ class ContinuousBatchingHarness:
             block = tracing.start_span("loop.block")
             # ONE device->host transfer per round (the [K] argmaxes).
             preds = torch.argmax(rows, dim=-1).cpu().numpy()
+            if sink is not None and sink.pending:
+                sink.settle(time.perf_counter())  # the copy above waited for its slot
             t_us = None
             if first_token_t is None:
                 first_token_t = time.perf_counter()
@@ -1418,6 +1683,8 @@ class ContinuousBatchingHarness:
         # one more step lands it; otherwise its block is an incomplete tail
         # with no chain key — skip the wasted wave.
         if (len(token_ids) + gen_tokens) % self.config.block_tokens == 0:
+            if routing:
+                sink.rows = (history, pos, [tok])
             await self.wave.step(tok, pos, padded, priority=priority)
         return out, first_token_t
 
@@ -1475,6 +1742,8 @@ class ContinuousBatchingHarness:
         # bound context. With tracing off this is three no-op calls.
         rspan = tracing.start_span("engine_request")
         rtoken = tracing.bind_span(rspan)
+        device_counts = DeviceCounts(self.routing_log) if self.wave.counting else None
+        ctoken = _DEVICE_COUNTS.set(device_counts)
         # Speculative prefetch AT ENQUEUE: probe + start streaming the hit
         # prefix into host staging before BlockPool.alloc even completes —
         # the store fetch overlaps this request's own admission wait and
@@ -1646,17 +1915,21 @@ class ContinuousBatchingHarness:
                     mspan = tracing.start_span("model." + kind)
                     try:
                         if loaded_blocks == 0:
-                            await loop.run_in_executor(
+                            counted = await loop.run_in_executor(
                                 None, self._prefill_full, token_ids, prompt_table
                             )
                         else:
-                            await loop.run_in_executor(
+                            counted = await loop.run_in_executor(
                                 None,
                                 self._chunked_resume,
                                 token_ids,
                                 table,
                                 loaded_blocks,
                             )
+                        if counted is not None:
+                            device_counts.stamps.append((time.perf_counter(), *counted))
+                            if mspan is not None:
+                                mspan.annotate(**dict(zip(LaunchCounts.FIELDS, counted)))
                     finally:
                         if mspan is not None:
                             mspan.finish()
@@ -1694,6 +1967,12 @@ class ContinuousBatchingHarness:
                     await self._save_blocks(
                         full_ids, table[n_blocks:full_blocks], n_blocks, "response"
                     )
+            moe = (0.0, 0.0, 0, 0.0)
+            if device_counts is not None:
+                # The last wave's copy was waited for by the response save's
+                # snapshot (a final wave only runs when that save follows).
+                device_counts.settle(time.perf_counter())
+                moe = device_counts.totals()
             stats = RequestStats(
                 tokens=len(token_ids),
                 hit_blocks=hit_tokens // bt,
@@ -1717,6 +1996,11 @@ class ContinuousBatchingHarness:
                 prefix_ready_us=prefix_ready_us,
                 ttft_us=ttft_us,
                 priority=priority,
+                moe_expert_reads=moe[0],
+                moe_token_pairs=moe[1],
+                moe_max_expert_rows=moe[2],
+                window_keys_skipped=moe[3],
+                device_counts=device_counts.stamps if device_counts is not None else [],
             )
             self.stats.append(stats)
             return stats
@@ -1729,6 +2013,7 @@ class ContinuousBatchingHarness:
                 rspan.finish(status=f"error:{type(e).__name__}")
             raise
         finally:
+            _DEVICE_COUNTS.reset(ctoken)
             tracing.unbind_span(rtoken)
             if fspan is not None:
                 fspan.finish()  # idempotent: closed at primed() normally
@@ -1802,7 +2087,11 @@ class ContinuousBatchingHarness:
         ``wave_eager``: CUDA graph replays, captures, eager waves) and
         serving latency (``p50_ttft_us``, ``p99_ttft_us``,
         ``p99_ttft_fg_us`` — time to first generated token, overall and
-        FOREGROUND-class only); generation/speculation (``generated_tokens``,
+        FOREGROUND-class only); the device counters of a model with routed
+        experts or sliding windows (``moe_expert_reads``, ``moe_token_pairs``
+        and ``window_keys_skipped`` summed over the requests,
+        ``moe_max_expert_rows`` their largest; ``RequestStats``);
+        generation/speculation (``generated_tokens``,
         ``spec_tokens_per_step``, ``spec_acceptance_rate``,
         ``spec_drafted_tokens``, ``spec_accepted_tokens``);
         ``all_verified``; and, over a self-healing pool, ``store_health``.
@@ -1924,6 +2213,10 @@ class ContinuousBatchingHarness:
             "p50_ttft_us": _p(ttft, 0.50),
             "p99_ttft_us": _p(ttft, 0.99),
             "p99_ttft_fg_us": _p(ttft_fg, 0.99),
+            "moe_expert_reads": sum(s.moe_expert_reads for s in self.stats),
+            "moe_token_pairs": sum(s.moe_token_pairs for s in self.stats),
+            "moe_max_expert_rows": max((s.moe_max_expert_rows for s in self.stats), default=0),
+            "window_keys_skipped": sum(s.window_keys_skipped for s in self.stats),
             "generated_tokens": sum(
                 len(s.generated) for s in self.stats if s.generated
             ),

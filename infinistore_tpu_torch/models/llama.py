@@ -14,6 +14,31 @@ order, f32 softmax statistics. Attention runs the hand-written kernels on
 CUDA (K4 flash prefill, K3 paged decode, K6 ragged wave decode; K2 writes
 prefill's K/V into the cache) and their plain versions on CPU. Projections are plain matmuls.
 
+``LlamaConfig``'s later fields widen the block to the AFMoE family
+(Trinity-Mini, Hugging Face ``AfmoeForCausalLM``); each defaults to the
+block above, bit for bit. Per layer, with a = RMSNorm_in(h):
+
+- an explicit ``head_size`` (q may be wider than the hidden size), the
+  RMSNorm epsilon ``norm_eps``;
+- ``layer_types`` / ``sliding_window``: a sliding layer's rows attend their
+  last ``sliding_window`` keys (K3, K4 and K6 skip what lies before);
+  ``rope_sliding_only``: RoPE on sliding layers, none on full ones;
+- ``qk_norm``: RMSNorm over each head of q and k before RoPE;
+  ``attn_gate``: o = o * sigmoid(a W_gate) before the output projection;
+  ``sandwich_norm``: h = h + RMSNorm_post(o W_o), and the same after the FFN;
+  ``embed_scale``: the embedding times a constant (sqrt(hidden) for muP);
+- ``moe_top_k`` > 0 with ``n_experts``: after ``n_dense_layers`` dense
+  layers, a routed mixture: router scores sigmoid(m W_router) in f32, the
+  top k of scores + ``expert_bias`` chosen (the bias moves the choice only),
+  weights the chosen scores over their sum (``route_norm``) times
+  ``route_scale``; each chosen expert's SwiGLU of width ``moe_ffn_dim`` runs
+  in the grouped GEMM (``cuda/moe.py``), and ``n_shared_experts`` shared
+  experts are always added.
+
+The forward entry points take an optional ``counts`` (``LaunchCounts``):
+device-side counters of the launch's routed experts and skipped keys, which
+the engine brings to the host with the copy it already makes.
+
 Numerics on CUDA (``_set_numerics``): f32 matmuls at full f32 precision —
 TF32 off for matmuls and cuDNN, the counterpart of ``Precision.HIGHEST`` —
 and bf16 GEMMs accumulate in f32 without reduced-precision reductions.
@@ -28,8 +53,8 @@ parameters in place.
 """
 
 import math
-from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +62,7 @@ import torch.nn.functional as F
 
 from ..cuda import _ext
 from ..cuda.flash_prefill import flash_prefill_attention
+from ..cuda.moe import grouped_gemm
 from ..cuda.paged import PagedKVCacheSpec, scatter_blocks_many
 from ..cuda.paged_attention import paged_decode_attention_batched, paged_decode_attention_rows
 
@@ -65,10 +91,55 @@ class LlamaConfig:
     block_tokens: int = 8
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    # The AFMoE widening (module docstring); every default keeps the block
+    # above. Attention head width (0: dim // n_heads).
+    head_size: int = 0
+    norm_eps: float = 1e-6
+    # Per layer "sliding_attention" or "full_attention" (empty: all full).
+    layer_types: Tuple[str, ...] = ()
+    sliding_window: int = 0
+    rope_sliding_only: bool = False
+    qk_norm: bool = False
+    attn_gate: bool = False
+    sandwich_norm: bool = False
+    embed_scale: float = 1.0
+    # Top-k routed mixture (with n_experts > 0); 0 keeps the soft mixture.
+    moe_top_k: int = 0
+    moe_ffn_dim: int = 0
+    n_shared_experts: int = 0
+    n_dense_layers: int = 0
+    route_scale: float = 1.0
+    route_norm: bool = True
+    # Where the engine records each computed token's routed experts
+    # (``engine.RoutingLog``), or None; it is no part of the model.
+    routing_log: Any = field(default=None, compare=False, repr=False)
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.n_heads
+        return self.head_size or self.dim // self.n_heads
+
+    def layer_window(self, layer: int) -> int:
+        """The sliding window of ``layer``'s attention (0: full)."""
+        if self.layer_types and self.layer_types[layer] == "sliding_attention":
+            return self.sliding_window
+        return 0
+
+    def layer_rope(self, layer: int) -> bool:
+        return not self.rope_sliding_only or self.layer_window(layer) > 0
+
+    def ffn_kind(self, layer: int) -> str:
+        """``dense`` SwiGLU, the ``soft`` mixture or the ``topk`` routed one."""
+        if self.n_experts <= 0:
+            return "dense"
+        if self.moe_top_k <= 0:
+            return "soft"
+        return "dense" if layer < self.n_dense_layers else "topk"
+
+    @property
+    def counts_launches(self) -> bool:
+        """Whether a launch has routed experts or windows to count."""
+        return (self.n_experts > 0 and self.moe_top_k > 0) or (
+            self.sliding_window > 0 and "sliding_attention" in self.layer_types)
 
     def kv_spec(self, num_blocks: int) -> PagedKVCacheSpec:
         """Paged-KV cache spec matching this model's layers/heads/dtype."""
@@ -96,12 +167,31 @@ def _param_shapes(config: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
         shapes[pre + "wk"] = (config.dim, config.n_kv_heads, hd)
         shapes[pre + "wv"] = (config.dim, config.n_kv_heads, hd)
         shapes[pre + "wo"] = (config.n_heads, hd, config.dim)
+        if config.qk_norm:
+            shapes[pre + "q_norm"] = (hd,)
+            shapes[pre + "k_norm"] = (hd,)
+        if config.attn_gate:
+            shapes[pre + "w_attn_gate"] = (config.dim, config.n_heads, hd)
+        if config.sandwich_norm:
+            shapes[pre + "post_attn_norm"] = (config.dim,)
+            shapes[pre + "post_ffn_norm"] = (config.dim,)
         shapes[pre + "ffn_norm"] = (config.dim,)
-        if config.n_experts > 0:
+        kind = config.ffn_kind(layer)
+        if kind == "soft":
             e = config.n_experts
             shapes[pre + "router"] = (config.dim, e)
             shapes[pre + "w_gate_up_moe"] = (e, config.dim, 2, config.ffn_dim)
             shapes[pre + "w_down_moe"] = (e, config.ffn_dim, config.dim)
+        elif kind == "topk":
+            e, f = config.n_experts, config.moe_ffn_dim
+            shapes[pre + "router"] = (config.dim, e)
+            shapes[pre + "expert_bias"] = (e,)
+            shapes[pre + "w_gate_up_moe"] = (e, config.dim, 2, f)
+            shapes[pre + "w_down_moe"] = (e, f, config.dim)
+            if config.n_shared_experts:
+                fs = config.n_shared_experts * f
+                shapes[pre + "w_gate_up_shared"] = (config.dim, 2, fs)
+                shapes[pre + "w_down_shared"] = (fs, config.dim)
         else:
             shapes[pre + "w_gate_up"] = (config.dim, 2, config.ffn_dim)
             shapes[pre + "w_down"] = (config.ffn_dim, config.dim)
@@ -148,11 +238,11 @@ def params_from_numpy(np_params, config: LlamaConfig, device="cuda") -> Params:
     return out
 
 
-def _rms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     # Variance and rsqrt in f32; the factor is cast to x's dtype BEFORE the
     # multiply, as in the JAX package.
     var = x.float().square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * w
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -187,41 +277,189 @@ def _attention(
     return out.to(q.dtype)
 
 
-def _block(params: Params, layer: int, x, k, v, q_positions, mask, config):
+class LaunchCounts:
+    """Counters of one forward launch, kept on the device: per routed-expert
+    layer the distinct experts whose weights it read, the (token, expert)
+    pairs it computed and the most rows one expert took, and per sliding
+    layer the keys its window skipped. ``real`` ([rows] 0/1, or None for
+    every row) leaves a wave's tail padding out of the counts. ``total()``:
+    one int64 [4] tensor (expert reads and pairs summed over the layers, the
+    largest expert's rows, keys skipped), built with no read back, so a
+    CUDA graph can capture it. With ``choices``, each routed layer's [rows,
+    k] expert ids are kept too (``choice_rows()``: [rows, layers, k]
+    int16)."""
+
+    FIELDS = ("moe_expert_reads", "moe_token_pairs", "moe_max_expert_rows",
+              "window_keys_skipped")
+
+    def __init__(self, real: Optional[torch.Tensor] = None, choices: bool = False):
+        self.real = real
+        self.moe: List[torch.Tensor] = []
+        self.skipped: List[torch.Tensor] = []
+        self.choices: Optional[List[torch.Tensor]] = [] if choices else None
+
+    def add_moe(self, choice: torch.Tensor, n_experts: int) -> None:
+        """``choice`` [rows, k]: the experts each row chose."""
+        ones = (torch.ones_like(choice) if self.real is None
+                else self.real.to(choice.dtype)[:, None].expand_as(choice))
+        rows = torch.zeros(n_experts, dtype=torch.int64, device=choice.device).scatter_add_(
+            0, choice.reshape(-1), ones.reshape(-1).to(torch.int64))
+        self.moe.append(torch.stack([(rows > 0).sum(), rows.sum(), rows.max()]))
+        if self.choices is not None:
+            self.choices.append(choice.to(torch.int16))
+
+    def choice_rows(self) -> torch.Tensor:
+        return torch.stack(self.choices, dim=1)
+
+    def add_window(self, seq_lens: torch.Tensor, window: int) -> None:
+        """``seq_lens`` [rows]: each row's keys before its window's cut."""
+        cut = (seq_lens.to(torch.int64) - window).clamp(min=0)
+        if self.real is not None:
+            cut = cut * self.real.to(torch.int64)
+        self.skipped.append(cut.sum())
+
+    def total(self) -> torch.Tensor:
+        parts = self.moe + self.skipped
+        if not parts:
+            return torch.zeros(4, dtype=torch.int64)
+        zero = torch.zeros((), dtype=torch.int64, device=parts[0].device)
+        if self.moe:
+            moe = torch.stack(self.moe)
+            reads, pairs, most = moe[:, 0].sum(), moe[:, 1].sum(), moe[:, 2].max()
+        else:
+            reads = pairs = most = zero
+        skipped = torch.stack(self.skipped).sum() if self.skipped else zero
+        return torch.stack([reads, pairs, most, skipped])
+
+
+def _real_rows(positions: torch.Tensor, row_of: torch.Tensor) -> torch.Tensor:
+    """1 for a ragged wave's rows, 0 for its tail padding (a repeat of the
+    row before it: same request, same position), on the device."""
+    real = torch.ones_like(positions, dtype=torch.int64)
+    real[1:] = ((positions[1:] != positions[:-1]) | (row_of[1:] != row_of[:-1])).to(torch.int64)
+    return real
+
+
+def _block(params: Params, layer: int, x, k, v, q_positions, mask, config, counts=None):
     """Shared transformer block math given already-materialised K/V context.
 
     x: [B, S, dim]; k/v: [B, T, KVH, D]. ``mask`` is [B, S, T] (True =
     attend), or None for plain causal — the None form runs the flash
     prefill path (no S x T logits; K4 has no backward, so training passes
     an explicit mask and keeps the dense, differentiable ``_attention``)."""
-    return _ffn(params, layer, _attend(params, layer, x, k, v, q_positions, mask, config),
-                config)
+    return _ffn(params, layer,
+                _attend(params, layer, x, k, v, q_positions, mask, config, counts), config,
+                counts)
 
 
-def _attend(params: Params, layer: int, x, k, v, q_positions, mask, config):
+def _attend(params: Params, layer: int, x, k, v, q_positions, mask, config, counts=None):
     """Attention half of the block with its residual (``_block`` less the
-    FFN; the expert-parallel step puts its own FFN after it)."""
-    pre = f"l{layer}."
+    FFN; the expert-parallel step puts its own FFN after it). A sliding
+    layer's keys are those of its window (K4's ``window``, or the explicit
+    mask narrowed, keys at positions 0 .. T - 1)."""
     q = _q_proj(params, layer, x, q_positions, config)
+    window = config.layer_window(layer)
     if mask is None:
-        attn = flash_prefill_attention(q, k, v, causal=True)
+        attn = flash_prefill_attention(q, k, v, causal=True, window=window)
+        if window and counts is not None:
+            counts.add_window(q_positions.reshape(-1) + 1, window)
     else:
+        if window:
+            keys = torch.arange(k.shape[1], device=mask.device)
+            mask = mask & (keys[None, None, :] > q_positions[..., None] - window)
         attn = _attention(q, k, v, mask)
-    return x + attn.flatten(-2) @ params[pre + "wo"].reshape(-1, config.dim)
+    return _attn_residual(params, layer, x, attn.flatten(-2), config)
 
 
-def _ffn(params: Params, layer: int, x, config):
-    """FFN half of the block: dense SwiGLU, or the soft mixture of experts
-    when ``config.n_experts > 0``."""
+def _attn_residual(params: Params, layer: int, x, attn, config):
+    """x + the attention's output projection (attn [..., H * D]): gated by
+    sigmoid(a W_gate) first (``attn_gate``, a = RMSNorm_in(x)), and
+    RMSNorm'd after (``sandwich_norm``)."""
     pre = f"l{layer}."
-    h = _rms_norm(x, params[pre + "ffn_norm"])
-    if config.n_experts > 0:
-        return x + _moe(params, pre, h, config)
-    gate_up = (h @ params[pre + "w_gate_up"].reshape(config.dim, -1)).unflatten(
-        -1, (2, config.ffn_dim)
+    if config.attn_gate:
+        h = _rms_norm(x, params[pre + "attn_norm"], config.norm_eps)
+        attn = attn * torch.sigmoid(h @ params[pre + "w_attn_gate"].reshape(config.dim, -1))
+    out = attn @ params[pre + "wo"].reshape(-1, config.dim)
+    if config.sandwich_norm:
+        out = _rms_norm(out, params[pre + "post_attn_norm"], config.norm_eps)
+    return x + out
+
+
+def _swiglu(h, w_gate_up, w_down):
+    """down(silu(gate(h)) * up(h)) with ``w_gate_up`` [dim, 2, F]."""
+    gate_up = (h @ w_gate_up.reshape(w_gate_up.shape[0], -1)).unflatten(
+        -1, (2, w_gate_up.shape[-1])
     )
     ffn = F.silu(gate_up[..., 0, :]) * gate_up[..., 1, :]
-    return x + ffn @ params[pre + "w_down"]
+    return ffn @ w_down
+
+
+def _ffn(params: Params, layer: int, x, config, counts=None):
+    """FFN half of the block: dense SwiGLU, the soft mixture of experts
+    (``n_experts > 0``) or the routed top-k one (``moe_top_k > 0``, past the
+    ``n_dense_layers``), RMSNorm'd after with ``sandwich_norm``."""
+    pre = f"l{layer}."
+    h = _rms_norm(x, params[pre + "ffn_norm"], config.norm_eps)
+    kind = config.ffn_kind(layer)
+    if kind == "soft":
+        return x + _moe(params, pre, h, config)
+    if kind == "topk":
+        out = _moe_topk(params, pre, h, config, counts)
+    else:
+        out = _swiglu(h, params[pre + "w_gate_up"], params[pre + "w_down"])
+    if config.sandwich_norm:
+        out = _rms_norm(out, params[pre + "post_ffn_norm"], config.norm_eps)
+    return x + out
+
+
+def route(h2, router, expert_bias, config):
+    """The routed mixture's choice and weights for [N, dim] rows: scores
+    sigmoid(h2 W_router) in f32; the top ``moe_top_k`` of scores +
+    ``expert_bias`` chosen ([N, k] expert ids, in the order topk gives);
+    their weights the bare scores, over their sum plus 1e-20 with
+    ``route_norm``, times ``route_scale`` ([N, k] f32)."""
+    scores = torch.sigmoid(h2.float() @ router.float())
+    choice = torch.topk(scores + expert_bias.float(), config.moe_top_k, dim=-1).indices
+    weights = scores.gather(-1, choice)
+    if config.route_norm:
+        weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    return choice, weights * config.route_scale
+
+
+def routed_experts(h2, choice, weights, w_gate_up, w_down):
+    """sum_j weights[:, j] * SwiGLU_{choice[:, j]}(h2) in f32 ([N, dim]):
+    the (row, expert) pairs sorted by expert (a stable sort), one grouped
+    GEMM for every pair's gate and up (``w_gate_up`` [E, dim, 2, F]) and one
+    for its down (``w_down`` [E, F, dim]), with the experts' row ends
+    computed and kept on the device; each row's k outputs weighted and
+    summed in f32 in choice order."""
+    n, k = choice.shape
+    e, dim, _, f = w_gate_up.shape
+    flat = choice.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    rows = torch.zeros(e, dtype=torch.int64, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    ends = torch.cumsum(rows, 0).to(torch.int32)
+    gate_up = grouped_gemm(h2[order // k], w_gate_up.reshape(e, dim, 2 * f), ends)
+    y = grouped_gemm(F.silu(gate_up[:, :f]) * gate_up[:, f:], w_down, ends)
+    out = torch.empty_like(y).index_copy_(0, order, y)
+    return (out.view(n, k, -1).float() * weights[..., None]).sum(dim=1)
+
+
+def _moe_topk(params: Params, pre: str, h, config, counts=None):
+    """The routed mixture of one layer (``route``, ``routed_experts``) plus
+    its shared experts, summed in f32 and cast once to h's dtype."""
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, config.dim)
+    choice, weights = route(h2, params[pre + "router"], params[pre + "expert_bias"], config)
+    out = routed_experts(h2, choice, weights, params[pre + "w_gate_up_moe"],
+                         params[pre + "w_down_moe"])
+    if counts is not None:
+        counts.add_moe(choice, config.n_experts)
+    if config.n_shared_experts:
+        out = out + _swiglu(h2, params[pre + "w_gate_up_shared"],
+                            params[pre + "w_down_shared"]).float()
+    return out.to(h.dtype).reshape(*lead, config.dim)
 
 
 def _moe(params: Params, pre: str, h, config):
@@ -256,20 +494,25 @@ def _expert_sum(h2, gates, w_gate_up, w_down):
 
 def _q_proj(params: Params, layer: int, x, positions, config):
     pre = f"l{layer}."
-    h = _rms_norm(x, params[pre + "attn_norm"])
+    h = _rms_norm(x, params[pre + "attn_norm"], config.norm_eps)
     q = (h @ params[pre + "wq"].reshape(config.dim, -1)).unflatten(
         -1, (config.n_heads, config.head_dim)
     )
-    return _rope(q, positions, config.rope_theta)
+    if config.qk_norm:
+        q = _rms_norm(q, params[pre + "q_norm"], config.norm_eps)
+    return _rope(q, positions, config.rope_theta) if config.layer_rope(layer) else q
 
 
 def _kv_proj(params: Params, layer: int, x, positions, config):
     pre = f"l{layer}."
-    h = _rms_norm(x, params[pre + "attn_norm"])
+    h = _rms_norm(x, params[pre + "attn_norm"], config.norm_eps)
     kv_shape = (config.n_kv_heads, config.head_dim)
     k = (h @ params[pre + "wk"].reshape(config.dim, -1)).unflatten(-1, kv_shape)
     v = (h @ params[pre + "wv"].reshape(config.dim, -1)).unflatten(-1, kv_shape)
-    k = _rope(k, positions, config.rope_theta)
+    if config.qk_norm:
+        k = _rms_norm(k, params[pre + "k_norm"], config.norm_eps)
+    if config.layer_rope(layer):
+        k = _rope(k, positions, config.rope_theta)
     return k, v
 
 
@@ -289,6 +532,7 @@ def prefill(
     caches: Caches,  # per layer (K, V) paged tensors, updated in place
     block_table,  # [S // block_tokens] int cache block ids
     config: LlamaConfig,
+    counts: Optional[LaunchCounts] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """Full prompt pass; writes K/V into the paged cache blocks listed in
     block_table. Returns (last-token logits [vocab], caches).
@@ -307,13 +551,13 @@ def prefill(
             f"prefill needs S % block_tokens == 0 and one table entry per block "
             f"(S={s}, block_tokens={bt}, table {tuple(block_table.shape)})"
         )
-    x = embed_prompt(params, tokens)  # [1, S, dim]
+    x = embed_prompt(params, tokens, config)  # [1, S, dim]
     new_caches: Caches = []
     for layer, (k_cache, v_cache) in enumerate(caches):
         x, k_cache, v_cache = prefill_layer(params, x, k_cache, v_cache, block_table,
-                                            config, layer)
+                                            config, layer, counts=counts)
         new_caches.append((k_cache, v_cache))
-    return lm_logits(params, x[:, -1:])[0, -1], new_caches
+    return lm_logits(params, x[:, -1:], config)[0, -1], new_caches
 
 
 def decode_step(
@@ -354,6 +598,7 @@ def verify_step_batched(
     block_tables,  # [B, max_blocks] int (rows padded)
     config: LlamaConfig,
     max_blocks: int,
+    counts: Optional[LaunchCounts] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """THE paged-inference body: a wave of B requests each advancing a
     K-token chunk against the shared cache in one launch per layer.
@@ -373,16 +618,16 @@ def verify_step_batched(
         raise ValueError(
             f"positions must match tokens' {list(tokens.shape)}, got {tuple(positions.shape)}"
         )
-    x = embed_wave(params, tokens)  # [B, K, dim]
+    x = embed_wave(params, tokens, config)  # [B, K, dim]
     index = wave_index(positions, block_tables, config, max_blocks)
     new_caches: Caches = []
     for layer, (k_cache, v_cache) in enumerate(caches):
         x, k_cache, v_cache = decode_wave_layer(
             params, x, positions, k_cache, v_cache, block_tables, config, layer, max_blocks,
-            index=index,
+            index=index, counts=counts,
         )
         new_caches.append((k_cache, v_cache))
-    return lm_logits(params, x), new_caches
+    return lm_logits(params, x, config), new_caches
 
 
 def decode_step_batched(
@@ -421,6 +666,7 @@ def verify_step_ragged(
     block_tables,  # [B, max_blocks] int (rows padded)
     config: LlamaConfig,
     max_blocks: int,
+    counts: Optional[LaunchCounts] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """The ragged form of ``verify_step_batched``: a mixed wave whose request
     chunks keep their own lengths, as one flat [T] token list with per-token
@@ -431,7 +677,8 @@ def verify_step_ragged(
     ``verify_step_batched``'s. Tail padding repeats the last flat row (same
     bytes to the same slot); ``block_tables`` rows no flat token references
     neither scatter nor attend. Attention is one K6 launch per layer on CUDA
-    over the flat page list. Returns ([T, vocab] logits, caches)."""
+    over the flat page list. ``counts`` leaves the tail padding out.
+    Returns ([T, vocab] logits, caches)."""
     _set_numerics()
     tokens = _on(params, tokens, torch.long)
     positions = _on(params, positions, torch.int32)
@@ -452,8 +699,10 @@ def verify_step_ragged(
             f"block_tables must be [B, {max_blocks}], got {tuple(block_tables.shape)}"
         )
     bt = config.block_tokens
-    x = params["embed"][tokens][None]  # [1, T, dim]
+    x = embed_wave(params, tokens, config)[None]  # [1, T, dim]
     pos2d = positions[None]  # [1, T]
+    if counts is not None and counts.real is None:
+        counts.real = _real_rows(positions, row_of)
 
     row_tables = block_tables[row_of]  # [T, max_blocks]
     block_idx = torch.gather(row_tables, 1, (positions // bt).long()[:, None])[:, 0].long()
@@ -465,18 +714,18 @@ def verify_step_ragged(
         k, v = _kv_proj(params, layer, x, pos2d, config)  # [1, T, KVH, D]
         k_cache[block_idx, slots] = k[0].to(k_cache.dtype)
         v_cache[block_idx, slots] = v[0].to(v_cache.dtype)
-        pre = f"l{layer}."
         q = _q_proj(params, layer, x, pos2d, config)  # [1, T, H, D]
+        window = config.layer_window(layer)
         attn = paged_decode_attention_rows(
             q[0].contiguous(), k_cache, v_cache, row_tables, seq_lens,
-            pages, page_rows, page_starts,
+            pages, page_rows, page_starts, window=window,
         ).reshape(1, t, -1)  # [1, T, H*D]
-        x = x + attn @ params[pre + "wo"].reshape(-1, config.dim)
-        x = _ffn(params, layer, x, config)
+        if window and counts is not None:
+            counts.add_window(seq_lens, window)
+        x = _attn_residual(params, layer, x, attn, config)
+        x = _ffn(params, layer, x, config, counts)
         new_caches.append((k_cache, v_cache))
-    x = _rms_norm(x, params["final_norm"])
-    logits = x @ params["lm_head"]
-    return logits[0], new_caches
+    return lm_logits(params, x, config)[0], new_caches
 
 
 def prefill_continue(
@@ -487,6 +736,7 @@ def prefill_continue(
     block_table,  # [max_blocks] int (padded)
     config: LlamaConfig,
     max_blocks: int,
+    counts: Optional[LaunchCounts] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """Chunked continuation prefill: compute a multi-token suffix against an
     already-populated paged prefix in one call per layer (the engine's
@@ -504,6 +754,7 @@ def prefill_continue(
                                               device=tokens.device)
     logits, new_caches = verify_step_batched(
         params, tokens[None], positions[None], caches, block_table[None], config, max_blocks,
+        counts=counts,
     )
     return logits[0], new_caches
 
@@ -578,10 +829,17 @@ def speculative_verify(
 # ---------------------------------------------------------------------------
 
 
-def embed_prompt(params: Params, tokens) -> torch.Tensor:
+def _embed(params: Params, tokens, config: Optional[LlamaConfig]) -> torch.Tensor:
+    x = params["embed"][_on(params, tokens, torch.long)]
+    if config is not None and config.embed_scale != 1.0:
+        x = x * config.embed_scale
+    return x
+
+
+def embed_prompt(params: Params, tokens, config: Optional[LlamaConfig] = None) -> torch.Tensor:
     """[S] prompt tokens -> [1, S, dim] activations (the layerwise prefill
-    chain's entry)."""
-    return params["embed"][_on(params, tokens, torch.long)][None]
+    chain's entry), times ``config.embed_scale``."""
+    return _embed(params, tokens, config)[None]
 
 
 def prefill_layer(
@@ -592,6 +850,7 @@ def prefill_layer(
     block_table,  # [S // block_tokens] int cache block ids
     config: LlamaConfig,
     layer: int,
+    counts: Optional[LaunchCounts] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer of the whole-prompt prefill: project this layer's K/V, run
     the block (K4 on CUDA) and scatter the K/V into the layer's cache blocks
@@ -604,23 +863,26 @@ def prefill_layer(
     bt = config.block_tokens
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     k, v = _kv_proj(params, layer, x, positions, config)
-    x = _block(params, layer, x, k, v, positions, None, config)
+    x = _block(params, layer, x, k, v, positions, None, config, counts)
     block = (s // bt, bt, config.n_kv_heads, config.head_dim)
     k_cache, v_cache = scatter_blocks_many(
         (k_cache, v_cache), block_table, (k[0].reshape(block), v[0].reshape(block)))
     return x, k_cache, v_cache
 
 
-def lm_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, x: torch.Tensor,
+              config: Optional[LlamaConfig] = None) -> torch.Tensor:
     """Final norm + LM head over [B, S, dim] activations (the layerwise
-    chains' exit; [B, S, vocab] logits)."""
-    return _rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    chains' exit; [B, S, vocab] logits); the norm's epsilon is
+    ``config.norm_eps`` (1e-6 without a config)."""
+    eps = config.norm_eps if config is not None else 1e-6
+    return _rms_norm(x, params["final_norm"], eps) @ params["lm_head"]
 
 
-def embed_wave(params: Params, tokens) -> torch.Tensor:
+def embed_wave(params: Params, tokens, config: Optional[LlamaConfig] = None) -> torch.Tensor:
     """[B, K] wave tokens -> [B, K, dim] activations (the layerwise decode
-    chain's entry)."""
-    return params["embed"][_on(params, tokens, torch.long)]
+    chain's entry), times ``config.embed_scale``."""
+    return _embed(params, tokens, config)
 
 
 def wave_index(positions, block_tables, config: LlamaConfig, max_blocks: int):
@@ -653,6 +915,7 @@ def decode_wave_layer(
     max_blocks: int,
     *,
     index=None,
+    counts: Optional[LaunchCounts] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer of ``verify_step_batched``'s wave body: insert the wave's
     K/V at (table[pos // bt], pos % bt) (indexed assignment), paged attention
@@ -673,13 +936,16 @@ def decode_wave_layer(
     k, v = _kv_proj(params, layer, x, positions, config)  # [B, K, KVH, D]
     k_cache[block_idx, slots] = k.reshape(bsz * kk, *k.shape[2:]).to(k_cache.dtype)
     v_cache[block_idx, slots] = v.reshape(bsz * kk, *v.shape[2:]).to(v_cache.dtype)
-    pre = f"l{layer}."
     q = _q_proj(params, layer, x, positions, config)  # [B, K, H, D]
+    window = config.layer_window(layer)
     attn = paged_decode_attention_batched(
         q.reshape(bsz * kk, *q.shape[2:]), k_cache, v_cache, row_tables, seq_lens,
+        window=window,
     ).reshape(bsz, kk, -1)  # [B, K, H*D]
-    x = x + attn @ params[pre + "wo"].reshape(-1, config.dim)
-    x = _ffn(params, layer, x, config)
+    if window and counts is not None:
+        counts.add_window(seq_lens, window)
+    x = _attn_residual(params, layer, x, attn, config)
+    x = _ffn(params, layer, x, config, counts)
     return x, k_cache, v_cache
 
 
@@ -699,10 +965,11 @@ def _causal(b: int, s: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return positions, positions[:, :, None] >= positions[:, None, :]
 
 
-def _next_token_nll(params: Params, x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def _next_token_nll(params: Params, x: torch.Tensor, tokens: torch.Tensor,
+                    config: Optional[LlamaConfig] = None) -> torch.Tensor:
     """Final RMSNorm, f32 logits from the ``lm_head`` product, log-softmax
     over ``logits[:, :-1]``: the [B, S - 1] NLL of ``tokens[:, 1:]``."""
-    logp = torch.log_softmax(lm_logits(params, x).float()[:, :-1], dim=-1)
+    logp = torch.log_softmax(lm_logits(params, x, config).float()[:, :-1], dim=-1)
     return -logp.gather(-1, tokens[:, 1:, None])[..., 0]
 
 
@@ -712,11 +979,11 @@ def loss_fn(params: Params, tokens, config: LlamaConfig) -> torch.Tensor:
     tokens = _on(params, tokens, torch.long)
     b, s = tokens.shape
     positions, mask = _causal(b, s, tokens.device)
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, config)
     for layer in range(config.n_layers):
         k, v = _kv_proj(params, layer, x, positions, config)
         x = _block(params, layer, x, k, v, positions, mask, config)
-    return _next_token_nll(params, x, tokens).mean()
+    return _next_token_nll(params, x, tokens, config).mean()
 
 
 def _loss_and_grads(params: Params, loss_of) -> Tuple[torch.Tensor, Params]:

@@ -449,7 +449,7 @@ def test_flash_prefill_wgmma_merge_workspace_is_the_plans(dev, s, t, causal):
         return lib.its_flash_prefill_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                            out.data_ptr(), scratch.data_ptr(),
                                            tickets.data_ptr(), b, s, t, h, kvh, d,
-                                           int(causal), n, _ext.stream_of(q))
+                                           int(causal), n, 0, _ext.stream_of(q))
 
     assert launch(slots - 1) != 0
     assert launch(slots) == 0

@@ -206,6 +206,10 @@ KERNELS = {
 }
 
 
+# The entries that take a sliding window (0: none) before the stream.
+WINDOWED = {"K3", "K6"}
+
+
 def _ptrs(tensors):
     return tuple(t.data_ptr() for t in tensors)
 
@@ -235,10 +239,11 @@ def test_wrapper_passes_scratch_sized_from_shapes(fake_lib, kernel, dtype):
     ints = args[n_in + n_out + 2:-1]
     n_blocks = inputs[1].shape[0]
     head = (_ext.DTYPE_CODES[dtype], rows, H, KVH, D, BT, n_blocks)
+    window = (0,) if kernel in WINDOWED else ()
     if ragged:
-        assert ints == head + (inputs[3].shape[0], width, splits)
+        assert ints == head + (inputs[3].shape[0], width, splits) + window
     else:
-        assert ints == head + (width, splits)
+        assert ints == head + (width, splits) + window
     assert args[-1] == _STREAM
     assert _ext.LAUNCHES[counter] == 1
     assert sum(_ext.LAUNCHES.values()) == 1
@@ -257,7 +262,8 @@ def test_table_scratch_ignores_lengths_and_table_values(fake_lib, kernel):
     (_, a), (_, b) = fake_lib.calls
     (sa, ta, na), (sb, tb, nb) = fake_lib.scratch
     assert sa is sb and na == nb == _fake_splits(37) and ta is tb
-    assert a[-3:] == b[-3:]  # width, splits, stream
+    tail = 4 if kernel in WINDOWED else 3
+    assert a[-tail:] == b[-tail:]  # width, splits, (window,) stream
 
 
 @pytest.mark.parametrize("table_width,width", [(1, 1), (5, 5), (17, 17), (40, 32), (999, 32)])
@@ -271,7 +277,10 @@ def test_ragged_splits_follow_table_width_at_most_p(fake_lib, kernel, table_widt
     with _NoDeviceReads():
         fn(q, k, v, pages, rows, starts, lens, table_width)
     (_, args), = fake_lib.calls
-    assert args[-4:-1] == (32, width, _fake_splits(width))
+    if kernel in WINDOWED:
+        assert args[-5:-1] == (32, width, _fake_splits(width), 0)
+    else:
+        assert args[-4:-1] == (32, width, _fake_splits(width))
     assert fake_lib.split_widths == [width]
 
 
@@ -497,7 +506,7 @@ def test_scratch_follows_the_library_split_count(fake_lib, kernel, count):
     call()
     (_, args), = fake_lib.calls
     (scratch, tickets, splits), = fake_lib.scratch
-    assert splits == count and args[-2] == count
+    assert splits == count and args[-3 if kernel in WINDOWED else -2] == count
     assert scratch.numel() == q.shape[0] * count * H * (D + 2)
     assert tickets.numel() >= q.shape[0] * KVH * count and not tickets.any()
 

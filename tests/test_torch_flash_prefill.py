@@ -221,10 +221,10 @@ def test_bf16_reaches_the_tensor_core_entry(fake_lib, d, causal):
     out = fp._flash_prefill_cuda(q, k, v, causal=causal)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     # q, k, v, out, scratch, tickets, B, S, T, H, KVH, D, causal, slots,
-    # stream: the order of its argtypes; no split at 24 queries.
+    # window, stream: the order of its argtypes; no split at 24 queries.
     assert fake_lib.calls == [("its_flash_prefill_wgmma", (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, 2, 24, t, 8, 2,
-        d, int(causal), 0, _STREAM))]
+        d, int(causal), 0, 0, _STREAM))]
     assert _ext.LAUNCHES["flash_prefill"] == 1
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 1
 
@@ -234,7 +234,7 @@ def test_f32_reaches_the_cuda_core_entry(fake_lib, d):
     q, k, v = _torch_inputs(torch.float32, d=d)
     out = fp._flash_prefill_cuda(q, k, v, causal=True)
     assert fake_lib.calls == [("its_flash_prefill", (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 24, 24, 8, 2, d, 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 24, 24, 8, 2, d, 1, 0,
         _STREAM))]
     assert _ext.LAUNCHES["flash_prefill"] == 1
     assert _ext.LAUNCHES["flash_prefill_wgmma"] == 0
@@ -272,7 +272,7 @@ def test_bf16_d256_takes_a_merge_workspace_of_its_plan(fake_lib, s, t, causal):
         fp._flash_prefill_cuda(*_torch_inputs(dtype, s=s, t=t, d=d), causal=causal)
         (name, args), = fake_lib.calls
         assert (args[4], args[5], args[13]) == (None, None, 0) if dtype == torch.bfloat16 \
-            else len(args) == 12
+            else len(args) == 13
 
 
 def test_counters_add_up_over_mixed_calls(fake_lib):
